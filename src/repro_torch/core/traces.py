@@ -1,0 +1,618 @@
+"""Workload access-trace generators + trace preprocessing.
+
+Track A of the reproduction is trace-driven: each generator emits a stream of
+L2-miss-level memory requests at 32 B column granularity, modeled after the
+access-pattern classes of the paper's workload suite (Rodinia / Pannotia /
+GraphBIG / Polybench / LLM layers):
+
+  regular/streaming  : stencil, hotspot3D, 2DConv, pathfinder
+  irregular/graph    : bfs, sssp (write-heavy, random), kcore, color, qc
+  zipfian mixed      : synthetic hot/cold
+  LLM                : bert_layer inference, gpt_layer training step,
+                       llm_decode (weights + paged KV appends)
+
+The generators are NumPy (host-side data plumbing); the simulator itself is
+PyTorch, with a CUDA kernel for its sequential scan.  ``preprocess`` performs
+the vectorized run segmentation that stands in for the MSHR's per-row
+coalescing window (§III-C1): consecutive requests to
+the same SCM row form one activation run; the run's column count and
+write-presence feed Eq. 1.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import inspect
+import weakref
+from typing import Callable, Dict, Optional, Sequence, Tuple
+
+import numpy as np
+
+from .timing import COLUMN_BYTES, COLUMNS_PER_ROW, HMSConfig
+
+MiB = 1024 * 1024
+
+
+# eq=False: identity semantics keep Trace hashable/weak-referenceable, which
+# the preprocess and shard-plan caches key on (array-valued field equality
+# would be ill-defined anyway).
+@dataclasses.dataclass(eq=False)
+class Trace:
+    name: str
+    col: np.ndarray        # int64 global column index
+    is_write: np.ndarray   # bool
+    footprint: int         # bytes
+    # Phase attribution (scenario traces): phase_id[i] indexes phase_names
+    # for request i.  Homogeneous traces leave both unset and behave as one
+    # anonymous phase throughout the engine.
+    phase_id: Optional[np.ndarray] = None       # int32, or None
+    phase_names: Tuple[str, ...] = ()
+
+    def __post_init__(self):
+        # structured validation (field path + fix hint, survives python -O)
+        from repro_torch.resilience.validate import validate_trace
+        validate_trace(self)
+        if self.phase_id is not None:
+            self.phase_id = self.phase_id.astype(np.int32)
+
+    @property
+    def n(self) -> int:
+        return int(self.col.shape[0])
+
+    @property
+    def n_phases(self) -> int:
+        """Phase count the engine attributes counters over (1 if unphased)."""
+        return len(self.phase_names) if self.phase_id is not None else 1
+
+
+# ---------------------------------------------------------------------------
+# Generators.  All take (footprint_bytes, n, seed) and return a Trace.
+# ---------------------------------------------------------------------------
+
+def _cols(footprint):
+    return footprint // COLUMN_BYTES
+
+
+def split_exact(n: int, k: int) -> np.ndarray:
+    """Split ``n`` into ``k`` near-even integer parts summing to exactly
+    ``n`` (the first ``n % k`` parts get the extra request)."""
+    base, rem = divmod(n, k)
+    out = np.full(k, base, dtype=np.int64)
+    out[:rem] += 1
+    return out
+
+
+def split_weighted(n: int, weights: Sequence[float]) -> np.ndarray:
+    """Largest-remainder apportionment of ``n`` requests over ``weights``:
+    parts sum to exactly ``n`` and track the weight ratios as closely as an
+    integer split can.  Generators use this instead of per-part ``//``
+    arithmetic, which silently under- (or over-) shoots the requested n."""
+    w = np.asarray(weights, dtype=np.float64)
+    exact = n * w / w.sum()
+    out = np.floor(exact).astype(np.int64)
+    rem = n - int(out.sum())
+    if rem:
+        frac = exact - out
+        # ties break on index so the split is deterministic
+        order = np.lexsort((np.arange(w.shape[0]), -frac))
+        out[order[:rem]] += 1
+    return out
+
+
+def gen_streaming_read(footprint=16 * MiB, n=200_000, seed=0, name="stream_r"):
+    """2DConv-like: sequential sweeps, read-dominant, near-perfect locality."""
+    rng = np.random.default_rng(seed)
+    total = _cols(footprint)
+    start = rng.integers(0, total, size=1)[0]
+    col = (start + np.arange(n)) % total
+    wr = np.zeros(n, dtype=bool)
+    wr[::16] = True     # occasional result write
+    return Trace(name, col.astype(np.int64), wr, footprint)
+
+
+def gen_stencil(footprint=24 * MiB, n=240_000, seed=0, name="stencil"):
+    """hotspot3D-like: plane sweeps reading z+/-1 neighbours, writing center.
+
+    Three interleaved streams at plane stride + a write stream: high row
+    locality but large working set per iteration -> thrashes small caches.
+    """
+    total = _cols(footprint)
+    plane = max(COLUMNS_PER_ROW * 64, total // 64)
+    per = -(-n // 4)
+    base = np.arange(per, dtype=np.int64)
+    streams = [
+        (base % total, False),
+        ((base + plane) % total, False),
+        ((base + 2 * plane) % total, False),
+        ((base + plane) % total, True),      # center write
+    ]
+    col = np.empty(4 * per, dtype=np.int64)
+    wr = np.empty(4 * per, dtype=bool)
+    for i, (c, w) in enumerate(streams):
+        col[i::4] = c
+        wr[i::4] = w
+    return Trace(name, col[:n], wr[:n], footprint)
+
+
+def gen_pathfinder(footprint=12 * MiB, n=160_000, seed=0, name="pathfnd"):
+    """Row-wise dynamic programming: stream row i and i-1, write row i."""
+    total = _cols(footprint)
+    rowlen = COLUMNS_PER_ROW * 32
+    per = -(-n // 3)
+    base = np.arange(per, dtype=np.int64)
+    col = np.empty(3 * per, dtype=np.int64)
+    wr = np.empty(col.shape[0], dtype=bool)
+    col[0::3] = base % total
+    wr[0::3] = False
+    col[1::3] = (base + rowlen) % total
+    wr[1::3] = False
+    col[2::3] = (base + rowlen) % total
+    wr[2::3] = True
+    return Trace(name, col[:n], wr[:n], footprint)
+
+
+def _powerlaw_nodes(rng, n_nodes, n, alpha=1.1):
+    """Zipf-ish node sampling typical of scale-free graph frontiers."""
+    ranks = rng.zipf(alpha, size=4 * n)
+    ranks = ranks[ranks <= n_nodes][:n]
+    while ranks.shape[0] < n:
+        extra = rng.zipf(alpha, size=2 * n)
+        extra = extra[extra <= n_nodes]
+        ranks = np.concatenate([ranks, extra])[:n]
+    # Pseudo-random node permutation via an affine map (avoids a huge perm).
+    a = 2 * rng.integers(1, n_nodes // 2, dtype=np.int64) + 1
+    b = rng.integers(0, n_nodes, dtype=np.int64)
+    return (a * ranks.astype(np.int64) + b) % n_nodes
+
+
+def gen_bfs(footprint=32 * MiB, n=240_000, seed=0, name="bfs",
+            write_frac=0.08, burst=4):
+    """BFS: random frontier expansion over a CSR graph.
+
+    Reads of a node's adjacency list are short sequential bursts at a random
+    base (some spatial locality *within* a warp's neighbour fetch), visited[]
+    updates are sparse random writes.
+    """
+    rng = np.random.default_rng(seed)
+    total = _cols(footprint)
+    n_nodes = total // burst
+    nodes = _powerlaw_nodes(rng, n_nodes, -(-n // burst))
+    base = nodes * burst
+    col = (base[:, None] + np.arange(burst)[None, :]).reshape(-1) % total
+    col = col[:n]
+    wr = rng.random(col.shape[0]) < write_frac
+    return Trace(name, col.astype(np.int64), wr, footprint)
+
+
+def gen_sssp(footprint=32 * MiB, n=240_000, seed=0, name="sssp"):
+    """SSSP: like BFS but with frequent random distance-array writes and
+    almost no spatial locality on the write stream (the paper's worst case
+    for SCM: 'frequently accessed with little row buffer locality for
+    writes')."""
+    rng = np.random.default_rng(seed)
+    total = _cols(footprint)
+    reads = gen_bfs(footprint, (n * 3) // 4, seed, burst=3).col
+    n_wr = n - reads.shape[0]
+    wr_nodes = _powerlaw_nodes(rng, total, n_wr) % total
+    col = np.empty(n, dtype=np.int64)
+    wr = np.empty(n, dtype=bool)
+    col[: reads.shape[0]] = reads
+    wr[: reads.shape[0]] = False
+    col[reads.shape[0]:] = wr_nodes
+    wr[reads.shape[0]:] = True
+    # Interleave reads and writes.
+    perm = rng.permutation(n)
+    return Trace(name, col[perm], wr[perm], footprint)
+
+
+def gen_kcore(footprint=28 * MiB, n=200_000, seed=1, name="kcore"):
+    t = gen_bfs(footprint, n, seed, name=name, write_frac=0.15, burst=2)
+    return t
+
+
+def gen_color(footprint=24 * MiB, n=200_000, seed=2, name="clr"):
+    t = gen_bfs(footprint, n, seed, name=name, write_frac=0.05, burst=6)
+    return t
+
+
+def gen_zipf_mixed(footprint=16 * MiB, n=200_000, seed=3, name="zipf",
+                   write_frac=0.3):
+    """Synthetic hot/cold: a small hot set absorbs most accesses."""
+    rng = np.random.default_rng(seed)
+    total = _cols(footprint)
+    hot = total // 16
+    is_hot = rng.random(n) < 0.8
+    col = np.where(
+        is_hot,
+        rng.integers(0, hot, size=n),
+        rng.integers(hot, total, size=n),
+    )
+    wr = rng.random(n) < write_frac
+    return Trace(name, col.astype(np.int64), wr, footprint)
+
+
+def gen_bert_layer(footprint=24 * MiB, n=220_000, seed=4, name="bert_inf"):
+    """BERT-style inference layer: stream weights (read), write activations.
+
+    Weights: large sequential read region reused every 'layer iteration';
+    activations: smaller region, written then read back.
+    """
+    total = _cols(footprint)
+    w_region = int(total * 0.8)
+    a_region = total - w_region
+    iters = 6
+    chunks = []
+    for m in split_exact(n, iters):
+        nw, na, nr = split_weighted(int(m), (6, 1, 1))
+        wcols = (np.arange(nw, dtype=np.int64)
+                 * max(1, w_region // max(1, nw))) % w_region
+        awr = np.arange(na, dtype=np.int64) % a_region + w_region
+        ard = np.arange(nr, dtype=np.int64) % a_region + w_region
+        c = np.concatenate([wcols, awr, ard])
+        w = np.concatenate([
+            np.zeros(wcols.shape[0], bool),
+            np.ones(awr.shape[0], bool),
+            np.zeros(ard.shape[0], bool),
+        ])
+        chunks.append((c, w))
+    col = np.concatenate([c for c, _ in chunks])
+    wr = np.concatenate([w for _, w in chunks])
+    return Trace(name, col, wr, footprint)
+
+
+def gen_gpt_train(footprint=32 * MiB, n=260_000, seed=5, name="gpt_train"):
+    """GPT training step: fwd weight stream, bwd weight re-stream + grad and
+    optimizer-state read-modify-writes (write-heavy tail per layer)."""
+    total = _cols(footprint)
+    w = int(total * 0.45)          # params
+    g = int(total * 0.25)          # grads
+    o = total - w - g              # optimizer state
+    nf, nb, ng, nor, now = split_weighted(n, (2, 2, 1, 1, 1))
+    fwd = np.arange(nf, dtype=np.int64) * max(1, w // max(1, nf)) % w
+    bwd = (np.arange(nb, dtype=np.int64) * max(1, w // max(1, nb)) % w)[::-1]
+    opt_rd = (np.arange(nor, dtype=np.int64) * 2) % o + w + g
+    opt_wr = (np.arange(now, dtype=np.int64) * 2) % o + w + g
+    grad_wr = np.arange(ng, dtype=np.int64) % g + w
+    col = np.concatenate([fwd, bwd, grad_wr, opt_rd, opt_wr])
+    wr = np.concatenate([
+        np.zeros(nf, bool), np.zeros(nb, bool),
+        np.ones(ng, bool), np.zeros(nor, bool),
+        np.ones(now, bool),
+    ])
+    return Trace(name, col, wr, footprint)
+
+
+def gen_llm_decode(footprint=24 * MiB, n=220_000, seed=6, name="llm_dec"):
+    """Autoregressive decode: weights streamed per token (read, sequential),
+    KV cache appended (small writes) and scanned (reads, growing region)."""
+    rng = np.random.default_rng(seed)
+    total = _cols(footprint)
+    w = int(total * 0.7)
+    kv = total - w
+    toks = 24
+    chunks = []
+    for t, m in enumerate(split_exact(n, toks)):
+        nw, nkr, nkw = split_weighted(int(m), (5, 2, 1))
+        wcols = (np.arange(nw, dtype=np.int64)
+                 * max(1, w // max(1, nw))) % w
+        kv_len = max(16, int(kv * (t + 1) / toks))
+        kvr = rng.integers(0, kv_len, size=nkr).astype(np.int64) + w
+        kvw = (np.arange(nkw, dtype=np.int64) % kv) + w
+        c = np.concatenate([wcols, kvr, kvw])
+        wmask = np.concatenate([
+            np.zeros(wcols.shape[0], bool),
+            np.zeros(kvr.shape[0], bool),
+            np.ones(kvw.shape[0], bool),
+        ])
+        chunks.append((c, wmask))
+    col = np.concatenate([c for c, _ in chunks])
+    wr = np.concatenate([m for _, m in chunks])
+    return Trace(name, col, wr, footprint)
+
+
+# Partials (not lambdas) so generator signatures — in particular the default
+# footprint — stay introspectable for make_trace's scaling path.
+WORKLOADS: Dict[str, Callable[..., Trace]] = {
+    "stream_r": gen_streaming_read,
+    "stencil": gen_stencil,
+    "pathfnd": gen_pathfinder,
+    "bfs_tu": functools.partial(gen_bfs, name="bfs_tu", seed=10),
+    "bfs_ta": functools.partial(gen_bfs, name="bfs_ta", seed=11, burst=8),
+    "sssp_ttc": functools.partial(gen_sssp, name="sssp_ttc", seed=12),
+    "kcore": gen_kcore,
+    "clr": gen_color,
+    "zipf": gen_zipf_mixed,
+    "bert_inf": gen_bert_layer,
+    "gpt_train": gen_gpt_train,
+    "llm_dec": gen_llm_decode,
+}
+
+
+def workload_default_footprint(gen: Callable[..., Trace]) -> int:
+    """Default footprint of a registered generator, read off its signature
+    (so scaled ``make_trace`` calls never generate a throwaway trace just to
+    learn the footprint)."""
+    param = inspect.signature(gen).parameters.get("footprint")
+    assert param is not None and param.default is not inspect.Parameter.empty, (
+        "workload generators must expose a defaulted 'footprint' kwarg")
+    return int(param.default)
+
+
+def make_trace(name: str, scale: float = 1.0, n: int | None = None) -> Trace:
+    gen = WORKLOADS[name]
+    kw = {}
+    if n is not None:
+        kw["n"] = n
+    if scale != 1.0:
+        fp = int(workload_default_footprint(gen) * scale)
+        kw["footprint"] = max(2 * MiB, fp)
+    return gen(**kw)
+
+
+# ---------------------------------------------------------------------------
+# Preprocessing: MSHR-window run segmentation + address decomposition.
+# ---------------------------------------------------------------------------
+
+def geometry_key(cfg: HMSConfig) -> tuple:
+    """Everything ``preprocess`` depends on besides the trace itself."""
+    return (cfg.line_bytes, cfg.dram_cache_capacity,
+            cfg.ctc_sectors_per_line, cfg.act_page_bytes)
+
+
+# Per-trace caches, keyed weakly so dropping a Trace drops its derived data.
+# Values: {geometry_key: pre} and {(geometry_key, ...): plan/loads/lpt}.
+# Entries are bounded per trace (FIFO) so a long geometry sweep over a
+# pinned trace cannot grow O(n) arrays without limit.
+_PRE_CACHE: "weakref.WeakKeyDictionary[Trace, dict]" = \
+    weakref.WeakKeyDictionary()
+_PLAN_CACHE: "weakref.WeakKeyDictionary[Trace, dict]" = \
+    weakref.WeakKeyDictionary()
+_MAX_CACHED_PER_TRACE = 24
+
+
+def _cache_put(per_trace: dict, key, value):
+    if len(per_trace) >= _MAX_CACHED_PER_TRACE:
+        per_trace.pop(next(iter(per_trace)))
+    per_trace[key] = value
+    return value
+
+
+def preprocess(trace: Trace, cfg: HMSConfig) -> Dict[str, np.ndarray]:
+    """Cached wrapper around :func:`_preprocess` — traces are simulated under
+    many configs sharing one geometry (runtime-scalar sweeps), and the run
+    segmentation is the dominant host-side cost for 10^5+-request traces."""
+    per_trace = _PRE_CACHE.setdefault(trace, {})
+    gk = geometry_key(cfg)
+    if gk not in per_trace:
+        _cache_put(per_trace, gk, _preprocess(trace, cfg))
+    return per_trace[gk]
+
+
+def _preprocess(trace: Trace, cfg: HMSConfig) -> Dict[str, np.ndarray]:
+    """Decompose addresses and segment the trace into row-activation runs.
+
+    Returns a dict of per-request arrays consumed by the simulator scan.
+    Runs are maximal stretches of consecutive requests touching the same SCM
+    row — the paper's MSHR records exactly this (8-bit column mask + write
+    bit per in-flight cacheline, §IV-F).
+    """
+    col = trace.col.astype(np.int64)
+    is_write = trace.is_write.astype(bool)
+
+    cpl = cfg.columns_per_line
+    lpr = cfg.lines_per_row
+    num_lines = cfg.num_lines
+
+    line = col // cpl                       # global (SCM) line address
+    scm_row = col // COLUMNS_PER_ROW
+    slot = line % num_lines                 # direct-mapped DRAM cache slot
+    tag = line // num_lines
+    coff = col % cpl                        # column offset within line
+    line_in_row = slot % lpr
+    dram_row = slot // lpr
+    row_group = dram_row // cfg.ctc_sectors_per_line
+    sector = dram_row % cfg.ctc_sectors_per_line
+    page = (col * COLUMN_BYTES) // cfg.act_page_bytes
+
+    # Run segmentation on the SCM row stream.
+    new_run = np.ones(trace.n, dtype=bool)
+    new_run[1:] = scm_row[1:] != scm_row[:-1]
+    run_id = np.cumsum(new_run) - 1
+    n_runs = int(run_id[-1]) + 1 if trace.n else 0
+    run_ncols = np.bincount(run_id, minlength=n_runs)
+    run_haswrite = np.zeros(n_runs, dtype=bool)
+    np.maximum.at(run_haswrite.view(np.int8), run_id, is_write.view(np.int8))
+
+    # AMIL: data mapping to the last column of a DRAM row always bypasses.
+    amil_excluded = (line_in_row == lpr - 1) & (coff == cpl - 1)
+
+    n_pages = int(page.max(initial=0)) + 1 if trace.n else 1
+
+    # Per-request activation-counter values, hoisted out of the simulator's
+    # sequential scan: page_act[i] is the count of run starts for request i's
+    # page among requests 0..i (what the scan-carried counter array would
+    # read after its own increment), max_act its running maximum.  Computed
+    # as a segmented inclusive prefix sum over a stable page-sort.
+    if trace.n:
+        order = np.argsort(page, kind="stable")
+        rs_sorted = new_run[order].astype(np.int64)
+        cs = np.cumsum(rs_sorted)
+        p_sorted = page[order]
+        grp_first = np.ones(trace.n, dtype=bool)
+        grp_first[1:] = p_sorted[1:] != p_sorted[:-1]
+        first_idx = np.maximum.accumulate(
+            np.where(grp_first, np.arange(trace.n), 0))
+        grp_base = (cs - rs_sorted)[first_idx]
+        page_act = np.empty(trace.n, dtype=np.int64)
+        page_act[order] = cs - grp_base
+        max_act = np.maximum.accumulate(page_act)
+    else:
+        page_act = np.zeros(0, dtype=np.int64)
+        max_act = np.zeros(0, dtype=np.int64)
+
+    return {
+        "col": col,
+        "is_write": is_write,
+        "line": line,
+        "slot": slot.astype(np.int32),
+        "tag": tag.astype(np.int32),
+        "line_in_row": line_in_row.astype(np.int32),
+        "dram_row": dram_row.astype(np.int32),
+        "row_group": row_group.astype(np.int32),
+        "sector": sector.astype(np.int32),
+        "page": page.astype(np.int32),
+        "run_start": new_run,
+        "run_ncols": run_ncols[run_id].astype(np.float32),
+        "run_haswrite": run_haswrite[run_id],
+        "amil_excluded": amil_excluded,
+        "page_act": page_act.astype(np.int32),
+        "max_act": max_act.astype(np.int32),
+        "n_pages": n_pages,
+    }
+
+
+# ---------------------------------------------------------------------------
+# Shard partition: the precompute behind the shard-parallel engine.
+# ---------------------------------------------------------------------------
+#
+# The simulator's sequential scan carries only per-slot DRAM-cache words and
+# per-set CTC state, and both partition by address: a cache slot belongs to
+# exactly one row group (row_group = slot // slots_per_group), and a row
+# group to exactly one CTC set (row_group % ctc_sets).  Any assignment of
+# *whole CTC sets* to shards therefore yields state-disjoint shards; within
+# a shard every slot/set still sees exactly its original request
+# subsequence, so S independent scans reproduce the sequential scan's
+# per-request decisions bit-for-bit.  Real traces are zipf-skewed, so the
+# assignment is an LPT bin-packing of per-set request loads rather than a
+# blind ``set % S`` — the padded shard depth (the compiled scan length) is
+# the max bin load.  Policies that carry no CTC state partition on raw row
+# groups, which bin-packs nearly perfectly.
+
+def _partition_domain(cfg: HMSConfig) -> int:
+    """Number of atomic state partitions a shard assignment may permute:
+    CTC sets when the policy carries CTC state, else row groups."""
+    from .timing import POLICIES_WITH_CTC
+
+    if cfg.policy in POLICIES_WITH_CTC:
+        return cfg.ctc_sets
+    spg = cfg.lines_per_row * cfg.ctc_sectors_per_line
+    return max(1, (cfg.num_lines - 1) // spg + 1)
+
+
+def _lpt_bins(loads: np.ndarray, shards: int):
+    """Longest-processing-time bin packing: heaviest set first into the
+    lightest bin.  Deterministic (ties break on set / bin index).  Returns
+    (bin_of_set, rank_of_set_within_bin, max_sets_per_bin, max_bin_load)."""
+    import heapq
+
+    k = loads.shape[0]
+    order = np.lexsort((np.arange(k), -loads))
+    bin_of = np.zeros(k, dtype=np.int64)
+    rank_of = np.zeros(k, dtype=np.int64)
+    fill = [(0, b, 0) for b in range(shards)]      # (load, bin, n_sets)
+    heapq.heapify(fill)
+    nsl = 1
+    for s in order:
+        load, b, cnt = heapq.heappop(fill)
+        bin_of[s] = b
+        rank_of[s] = cnt
+        nsl = max(nsl, cnt + 1)
+        heapq.heappush(fill, (load + int(loads[s]), b, cnt + 1))
+    depth = max(int(max(f[0] for f in fill)), 1)
+    return bin_of, rank_of, nsl, depth
+
+
+def _set_loads(trace: Trace, cfg: HMSConfig) -> np.ndarray:
+    """Per-partition request counts (cached; shared by every shard count)."""
+    per_trace = _PLAN_CACHE.setdefault(trace, {})
+    cs = _partition_domain(cfg)
+    key = ("loads", geometry_key(cfg), cs)
+    if key not in per_trace:
+        rg = preprocess(trace, cfg)["row_group"].astype(np.int64)
+        _cache_put(per_trace, key, np.bincount(rg % cs, minlength=cs))
+    return per_trace[key]
+
+
+def _lpt_cached(trace: Trace, cfg: HMSConfig, shards: int):
+    """Cached (bin_of_set, rank_of_set, max_sets_per_bin, depth) — shard
+    selection probes every power-of-two candidate on each simulate call, so
+    the interpreted LPT loop must not re-run once warm."""
+    per_trace = _PLAN_CACHE.setdefault(trace, {})
+    key = ("lpt", geometry_key(cfg), _partition_domain(cfg), shards)
+    if key not in per_trace:
+        _cache_put(per_trace, key, _lpt_bins(_set_loads(trace, cfg), shards))
+    return per_trace[key]
+
+
+def shard_depth(trace: Trace, cfg: HMSConfig, shards: int) -> int:
+    """Padded scan length if ``trace`` is partitioned into ``shards`` —
+    the cost model behind shard-count selection, without building a plan."""
+    if shards == 1:
+        return trace.n
+    return _lpt_cached(trace, cfg, shards)[3]
+
+
+def shard_plan(trace: Trace, cfg: HMSConfig, shards: int) -> Dict[str, object]:
+    """Stable-partition ``trace`` into ``shards`` state-disjoint shards.
+
+    Returns (cached per (trace, geometry, partition domain, shards)):
+      pos          int32[shards, depth] — trace positions, trace order per
+                   shard, padded with ``trace.n`` (sentinel)
+      depth        int — max per-shard request count
+      slot_local   int32[n] — shard-local DRAM-cache slot index
+      rg_local     int32[n] — shard-local row-group id; its residue modulo
+                   ``n_sets_local`` is the shard-local CTC set index
+      n_sets_local int — CTC sets per shard (runtime set count for the scan)
+      lines_bound  int — exclusive upper bound on slot_local (geometry-
+                   derived, trace-independent, so engine shapes stay stable)
+    """
+    per_trace = _PLAN_CACHE.setdefault(trace, {})
+    cs = _partition_domain(cfg)
+    key = (geometry_key(cfg), cs, shards)
+    if key in per_trace:
+        return per_trace[key]
+
+    pre = preprocess(trace, cfg)
+    rg = pre["row_group"].astype(np.int64)
+    slot = pre["slot"].astype(np.int64)
+    spg = cfg.lines_per_row * cfg.ctc_sectors_per_line  # slots per row group
+    n = trace.n
+    # The shard-local remap below is only injective if preprocess derives
+    # row_group as slot // spg; enforce that instead of assuming it, so a
+    # future address-decomposition change fails loudly rather than letting
+    # shards alias each other's cache slots.
+    assert np.array_equal(slot // spg, rg), (
+        "preprocess slot/row_group decomposition inconsistent with shard "
+        "partition (row_group must equal slot // lines_per_row*sectors)")
+
+    bin_of, rank_of, nsl, _ = _lpt_cached(trace, cfg, shards)
+    set_id = rg % cs
+    shard = bin_of[set_id]
+    # Shard-local row-group id: distinct groups stay distinct within a
+    # shard, and groups sharing a CTC set keep sharing one (rg_local mod
+    # n_sets_local == the set's rank in its bin).
+    rg_local = (rg // cs) * nsl + rank_of[set_id]
+    slot_local = rg_local * spg + (slot - rg * spg)
+
+    counts = np.bincount(shard, minlength=shards)
+    depth = int(counts.max(initial=1))
+    order = np.argsort(shard, kind="stable")     # trace order within shards
+    pos = np.full((shards, depth), n, dtype=np.int32)
+    offs = np.concatenate([[0], np.cumsum(counts)])
+    for s in range(shards):
+        seg = order[offs[s]:offs[s + 1]]
+        pos[s, : seg.shape[0]] = seg
+
+    max_rg = max(0, (cfg.num_lines - 1) // spg)
+    lines_bound = (max_rg // cs + 1) * nsl * spg
+
+    plan = {
+        "pos": pos,
+        "depth": depth,
+        "slot_local": slot_local.astype(np.int32),
+        "rg_local": rg_local.astype(np.int32),
+        "n_sets_local": int(nsl),
+        "lines_bound": int(lines_bound),
+    }
+    return _cache_put(per_trace, key, plan)
