@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of the HMS simulator on one NVIDIA card.
+"""Drive the PyTorch/CUDA port (HMS simulator, dense serving) on one card.
 
     python3 chip_smoke.py [--out DIR]
 
@@ -26,14 +26,41 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                workload (12 generators + 5 scenarios) at its default size,
                plus zipf at 10^6 requests, through the scan kernels; launch
                counts are reset just before and read just after.
-  6. the ``kernels`` summary line, then the ``ok`` line.
+  6. attention kernels against their plain versions: flash_attention at the
+               serving slice's shape (B 4, S = T = 1024, 16 heads over 2 KV
+               heads, hd 128; bf16 and float32, ragged, non-causal, softcap
+               30) and paged_attention (page 16, 128 pages per sequence,
+               random tables and lengths; bf16 and float32), float32 to
+               atol = rtol = 1e-4 (another summation order) and bf16 to
+               2e-2, each timed beside its bound and one PyTorch call
+               (scaled_dot_product_attention) as a yardstick.
+  7. serve   - qwen2.5-3b at full width (36 layers, bf16, random weights
+               from seed 0) through ``repro_torch.serving.Engine``: (a) the
+               launcher's traffic (8 requests of 4-12 tokens, 16 new
+               tokens each, ServeConfig defaults) and (b) 4 requests of 1024
+               tokens, 32 new each, ServeConfig(max_batch=4, max_len=2048);
+               prefill and decode times, tokens/s, peak memory, KV stats,
+               and 36 flash_attention launches per prefill and 36
+               paged_attention launches per decode step (counts reset just
+               before, read just after); a torch.profiler window over 3
+               decode steps of each gives the device's busy share and its
+               top kernels.  Then paged_attention on the identity table of
+               (b)'s real cache against its plain version and a masked
+               SDPA.
+  8. serve_card_vs_cpu - qwen2.5-3b width, 2 layers, float32, TF32 off:
+               the same requests served on the card and through the port's
+               CPU path give the same tokens and KV stats; the largest
+               logit difference over a prefill and 3 decode steps is shown.
+  9. the ``kernels`` summary line, then the ``ok`` line.
 
 ``--out DIR`` also writes every JSON line to DIR/chip_smoke.jsonl;
 ``--write-traces`` (no card needed) rewrites
 ``chip_smoke_traces.npz`` from ``make_trace``, refusing unless every trace
 matches its baseline fingerprint.
 Needs one CUDA card, nvcc, and this checkout's ``src/`` and
-``benchmarks/baselines/``; imports nothing of JAX.
+``benchmarks/baselines/``; imports nothing of JAX.  Bounds use the H100
+SXM data sheet: 3.35 TB/s, 989 TFLOP/s bf16 (tensor cores), 67 TFLOP/s
+float32.
 """
 
 from __future__ import annotations
@@ -51,6 +78,9 @@ ROOT = Path(__file__).resolve().parent
 BASELINE = ROOT / "benchmarks" / "baselines" / "BENCH_sweep.json"
 TRACES = ROOT / "chip_smoke_traces.npz"
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (data sheet)
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, data sheet
+ATTN_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+N_LAYERS_FULL = 36               # qwen2.5-3b
 STEP_CYCLES = 30                 # one dependent L1/shared-memory round trip
 EMA_STEP_CYCLES = 16             # two dependent float64 operations
 FRACTIONAL = {"dram_busy", "scm_busy", "dram_acts", "scm_acts",
@@ -220,6 +250,401 @@ def counter_diffs(got, ref):
 def compare_counters(got, ref, what: str) -> None:
     bad = counter_diffs(got, ref)
     need(not bad, f"{what}: counters differ {bad[:4]}")
+
+
+# ---- attention kernels and the serving path --------------------------------
+
+def dtype_name(dt) -> str:
+    return str(dt).split(".")[-1]
+
+
+def close(torch, got, want, what: str) -> float:
+    """Max |got - want|; raises unless finite and within ATTN_TOL."""
+    need(got.shape == want.shape and got.dtype == want.dtype,
+         f"{what}: {got.shape} {got.dtype} vs {want.shape} {want.dtype}")
+    tol = ATTN_TOL[dtype_name(got.dtype)]
+    g, w = got.float(), want.float()
+    err = float((g - w).abs().max()) if g.numel() else 0.0
+    need(bool(torch.isfinite(g).all()), f"{what}: non-finite output")
+    need(torch.allclose(g, w, atol=tol, rtol=tol),
+         f"{what}: max |kernel - plain| {err} beyond atol = rtol = {tol}")
+    return err
+
+
+def bound(flops: float, nbytes: float, dt):
+    """(bound_ms, bound_by): the larger of operations at the type's peak
+    and bytes at the memory rate."""
+    t_ops = flops / PEAK_FLOPS[dtype_name(dt)] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def flash_checks(torch, dev, flush):
+    """flash_attention against its plain version; returns the slice row."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    g = torch.Generator(device=dev).manual_seed(12)
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows = {}
+    for case, B, S, T, dt, causal, cap in (
+            ("slice", 4, 1024, 1024, bf16, True, 0.0),
+            ("slice_float32", 4, 1024, 1024, f32, True, 0.0),
+            ("ragged", 2, 130, 200, bf16, True, 0.0),
+            ("non_causal", 4, 1024, 1024, bf16, False, 0.0),
+            ("softcap_30", 4, 1024, 1024, bf16, True, 30.0)):
+        H, KV, hd = 16, 2, 128
+        q, k, v = (torch.randn(B, n, h, hd, generator=g, device=dev).to(dt)
+                   for n, h in ((S, H), (T, KV), (T, KV)))
+        run_k = lambda: ops.flash_attention(q, k, v, causal=causal,
+                                            softcap=cap)
+        run_p = lambda: ref.flash_attention_reference(q, k, v, causal=causal,
+                                                      softcap=cap)
+        got, want = run_k(), run_p()
+        torch.cuda.synchronize()
+        err = close(torch, got, want, f"flash_attention {case}")
+        # (query, key) pairs this run's masks keep
+        pairs = sum(min(T, s + T - S + 1) for s in range(S)) if causal \
+            else S * T
+        bound_ms, bound_by = bound(
+            4 * B * H * hd * pairs,
+            (2 * q.numel() + k.numel() + v.numel()) * q.element_size(), dt)
+        event_ms(torch, run_k, reps=3, flush=flush)         # warm-up
+        library_ms = None
+        if S == T and cap == 0.0:        # SDPA aligns causal masks top-left
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            run_l = lambda: sdpa(qt, kt, vt, is_causal=causal,
+                                 enable_gqa=True)
+            event_ms(torch, run_l, reps=3, flush=flush)
+            library_ms = event_ms(torch, run_l, reps=20, flush=flush)
+        row = {"name": "flash_attention", "case": case,
+               "shape": {"B": B, "S": S, "T": T, "H": H, "KV": KV, "hd": hd},
+               "dtype": dtype_name(dt), "causal": causal, "softcap": cap,
+               "max_abs_err": err,
+               "ms": event_ms(torch, run_k, reps=20, flush=flush),
+               "plain_ms": event_ms(torch, run_p, reps=3, flush=flush),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": library_ms}
+        emit({"phase": "kernel_vs_plain", **row})
+        rows[case] = row
+    return rows["slice"]
+
+
+def paged_row(torch, case, q, kp, vp, table, lengths, dense, flush):
+    """paged_attention against its plain version on one input set, timed
+    beside its bound and a masked SDPA over ``dense`` (k, v) caches."""
+    from repro_torch.kernels.paged_attention import ops, ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    B, _, H, hd = q.shape
+    page, KV = kp.shape[1], kp.shape[2]
+    run_k = lambda: ops.paged_decode_attention(q, kp, vp, table, lengths)
+    run_p = lambda: ref.paged_attention_reference(
+        q.reshape(B, KV, H // KV, hd), kp, vp, table, lengths).reshape(
+            q.shape)
+    got, want = run_k(), run_p()
+    torch.cuda.synchronize()
+    err = close(torch, got, want, f"paged_attention {case}")
+    tokens = int(lengths.sum())
+    live_pages = int(((lengths + page - 1) // page).sum())
+    bound_ms, bound_by = bound(
+        4 * H * hd * tokens,
+        2 * tokens * KV * hd * kp.element_size()
+        + 2 * q.numel() * q.element_size() + 4 * live_pages + 4 * B, q.dtype)
+    kd, vd = (x.transpose(1, 2) for x in dense)
+    T = kd.shape[2]
+    mask = (torch.arange(T, device=q.device)[None, :]
+            < lengths[:, None])[:, None, None, :]
+    qt = q.transpose(1, 2)
+    run_l = lambda: sdpa(qt, kd, vd, attn_mask=mask, enable_gqa=True)
+    lib = run_l()
+    torch.cuda.synchronize()
+    need(bool(torch.isfinite(lib).all()), f"{case}: SDPA not finite")
+    event_ms(torch, run_k, reps=3, flush=flush)             # warm-up
+    event_ms(torch, run_l, reps=3, flush=flush)
+    row = {"name": "paged_attention", "case": case,
+           "shape": {"B": B, "H": H, "KV": KV, "hd": hd, "page": page,
+                     "n_pages": table.shape[1], "pool": kp.shape[0]},
+           "dtype": dtype_name(q.dtype), "live_tokens": tokens,
+           "max_abs_err": err,
+           "ms": event_ms(torch, run_k, reps=20, flush=flush),
+           "plain_ms": event_ms(torch, run_p, reps=3, flush=flush),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": event_ms(torch, run_l, reps=20, flush=flush)}
+    emit({"phase": "kernel_vs_plain", **row})
+    return row
+
+
+def paged_checks(torch, dev, flush) -> None:
+    """paged_attention on random block tables and lengths."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    B, H, KV, hd, page, n_pages = 4, 16, 2, 128, 16, 128
+    pool = B * n_pages + 16
+    for dt in (torch.bfloat16, torch.float32):
+        q = torch.randn(B, 1, H, hd, generator=g, device=dev).to(dt)
+        kp, vp = (torch.randn(pool, page, KV, hd, generator=g,
+                              device=dev).to(dt) for _ in range(2))
+        table = torch.randint(0, pool, (B, n_pages), generator=g, device=dev,
+                              dtype=torch.int32)
+        lengths = torch.randint(1, n_pages * page + 1, (B,), generator=g,
+                                device=dev, dtype=torch.int32)
+        dense = tuple(x[table.long()].reshape(B, n_pages * page, KV, hd)
+                      for x in (kp, vp))
+        paged_row(torch, f"random_table_{dtype_name(dt)}", q, kp, vp, table,
+                  lengths, dense, flush)
+
+
+class StepClock:
+    """Wraps the engine's prefill/decode_step: device-synchronized wall
+    time per call, finiteness of every logit, and the last cache."""
+
+    def __init__(self, torch, engine_module):
+        self.torch, self.mod = torch, engine_module
+        self.prefill, self.decode = [], []
+        self.finite, self.cache = True, None
+
+    def _wrap(self, fn, bucket):
+        torch = self.torch
+
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = fn(*args, **kw)
+            torch.cuda.synchronize()
+            bucket.append(time.perf_counter() - t0)
+            self.finite &= bool(torch.isfinite(logits).all())
+            self.cache = cache
+            return logits, cache
+        return run
+
+    def __enter__(self):
+        self._orig = (self.mod.prefill, self.mod.decode_step)
+        self.mod.prefill = self._wrap(self._orig[0], self.prefill)
+        self.mod.decode_step = self._wrap(self._orig[1], self.decode)
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.prefill, self.mod.decode_step = self._orig
+
+
+def launcher_traffic(Request, vocab):
+    """What ``python -m repro_torch.launch.serve --requests 8 --max-new 16``
+    submits."""
+    from repro_torch.launch.serve import requests
+    return requests(Request, vocab, 8, 16)
+
+
+def long_traffic(Request, vocab):
+    import numpy as np
+    rng = np.random.default_rng(1)
+    return [Request(rid, rng.integers(1, vocab, size=1024).astype(np.int32),
+                    max_new=32) for rid in range(4)]
+
+
+def serve(torch, dev, model, cfg, scfg, traffic, name):
+    """One warm-up and one measured ``Engine.run``; emits the serve line and
+    returns (row, clock, outputs)."""
+    from repro_torch import _build
+    from repro_torch.serving import Engine, Request
+    from repro_torch.serving import engine as engine_mod
+    eng = Engine(cfg, model, scfg, device=dev)              # warm-up
+    for r in traffic(Request, cfg.vocab):
+        eng.submit(r)
+    eng.run()
+    reqs = traffic(Request, cfg.vocab)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_counts()
+    with StepClock(torch, engine_mod) as clock:
+        t0 = time.perf_counter()
+        eng = Engine(cfg, model, scfg, device=dev)
+        for r in reqs:
+            eng.submit(r)
+        outs = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    need(sorted(outs) == [r.rid for r in reqs], f"{name}: requests lost")
+    need(all(len(outs[r.rid]) == r.max_new for r in reqs),
+         f"{name}: wrong number of generated tokens")
+    need(clock.finite, f"{name}: non-finite logits")
+    per = cfg.n_layers
+    need(launches.get("flash_attention", 0) == per * len(clock.prefill),
+         f"{name}: flash_attention launched {launches.get('flash_attention')}"
+         f" times for {len(clock.prefill)} prefills of {per} layers")
+    need(launches.get("paged_attention", 0) == per * len(clock.decode),
+         f"{name}: paged_attention launched {launches.get('paged_attention')}"
+         f" times for {len(clock.decode)} decode steps of {per} layers")
+    generated = sum(len(v) for v in outs.values())
+    row = {"phase": "serve", "traffic": name, "model": cfg.name,
+           "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+           "requests": len(reqs),
+           "prompt_tokens": [int(r.prompt.shape[0]) for r in reqs],
+           "max_new": max(r.max_new for r in reqs),
+           "serve_config": {"max_batch": scfg.max_batch,
+                            "max_len": scfg.max_len,
+                            "page_size": scfg.page_size,
+                            "fast_pages": scfg.fast_pages},
+           "prefill_ms": [t * 1e3 for t in clock.prefill],
+           "decode_steps": len(clock.decode),
+           "decode_ms_per_step_median": statistics.median(clock.decode) * 1e3,
+           "decode_ms_per_step_mean": statistics.mean(clock.decode) * 1e3,
+           "wall_s": wall, "generated_tokens": generated,
+           "tokens_per_s": generated / wall,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "kv_stats": eng.kv_stats, "launches": launches,
+           "logits_finite": clock.finite}
+    emit(row)
+    return row, clock, outs
+
+
+def decode_profile(torch, dev, model, cfg, scfg, traffic, name, steps=3):
+    """torch.profiler over ``steps`` decode steps of the traffic's first
+    batch: wall time, device (kernel) time, the device's busy share, and
+    the kernels that take the most of it.  Device time is None when the
+    profiler records no kernel on this machine."""
+    import numpy as np
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.serving import Request
+    reqs = traffic(Request, cfg.vocab)[:scfg.max_batch]
+    S = max(r.prompt.shape[0] for r in reqs)
+    toks = np.zeros((len(reqs), S), np.int32)
+    for i, r in enumerate(reqs):
+        toks[i, S - r.prompt.shape[0]:] = r.prompt
+    logits, cache = prefill(model, {"tokens": torch.from_numpy(toks).to(dev)},
+                            cfg, max_len=scfg.max_len)
+    tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+    logits, cache = decode_step(model, tok, cache, S, cfg)       # warm-up
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for pos in range(S + 1, S + 1 + steps):
+            logits, cache = decode_step(model, tok, cache, pos, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[e.name] = kernels.get(e.name, 0.0) \
+                + e.time_range.elapsed_us() / 1e3
+    device_ms = sum(kernels.values()) if kernels else None
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    cpu_ops = sum(1 for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CPU
+                  and e.name.startswith("aten::"))
+    row = {"phase": "decode_profile", "traffic": name, "steps": steps,
+           "batch": len(reqs), "wall_ms_per_step": wall * 1e3 / steps,
+           "device_ms_per_step": None if device_ms is None
+           else device_ms / steps,
+           "device_busy_share": None if device_ms is None
+           else device_ms / (wall * 1e3),
+           "aten_ops_per_step": cpu_ops / steps,
+           "top_kernels_ms_per_step": [(k[:60], v / steps) for k, v in top]}
+    emit(row)
+    return row
+
+
+def serve_card_vs_cpu(torch, dev) -> dict:
+    """qwen2.5-3b width, 2 layers, float32, TF32 off: the card's serving
+    path against the port's CPU path on the same weights and requests."""
+    import copy
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import Transformer, decode_step, prefill
+    from repro_torch.serving import Engine, Request, ServeConfig
+    cfg = dataclasses.replace(get_config("qwen2.5-3b"), n_layers=2,
+                              dtype="float32")
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        card = Transformer(cfg, generator=torch.Generator(
+            device=dev).manual_seed(1), device=dev)
+        host = copy.deepcopy(card).to("cpu")
+        outs, stats = [], []
+        for model, where in ((card, dev), (host, "cpu")):
+            eng = Engine(cfg, model, ServeConfig(), device=where)
+            for r in launcher_traffic(Request, cfg.vocab):
+                eng.submit(r)
+            outs.append(eng.run())
+            stats.append(eng.kv_stats)
+        # logits of one prefill and three decode steps, fed the same tokens
+        toks = torch.randint(1, cfg.vocab, (4, 12), generator=torch.Generator(
+        ).manual_seed(2), dtype=torch.int32)
+        lc, cc = prefill(card, {"tokens": toks.to(dev)}, cfg, max_len=32)
+        lh, ch = prefill(host, {"tokens": toks}, cfg, max_len=32)
+        diffs = [float((lc.cpu() - lh).abs().max())]
+        for pos in range(12, 15):
+            tok = lh.argmax(-1, keepdim=True).to(torch.int32)
+            lc, cc = decode_step(card, tok.to(dev), cc, pos, cfg)
+            lh, ch = decode_step(host, tok, ch, pos, cfg)
+            diffs.append(float((lc.cpu() - lh).abs().max()))
+        diff, scale = max(diffs), float(lh.abs().max())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = old
+    same_tokens = sorted(outs[0]) == sorted(outs[1]) and all(
+        (outs[0][k] == outs[1][k]).all() for k in outs[0])
+    row = {"phase": "serve_card_vs_cpu", "model": cfg.name, "n_layers": 2,
+           "dtype": "float32", "allow_tf32": False,
+           "requests": len(outs[0]), "tokens_equal": bool(same_tokens),
+           "kv_stats_equal": stats[0] == stats[1], "kv_stats": stats[0],
+           "max_logit_diff": diff, "logit_scale": scale}
+    emit(row)
+    need(same_tokens, f"card and CPU generate different tokens (max logit "
+         f"difference {diff} over logits up to {scale})")
+    need(stats[0] == stats[1], f"KV stats differ: {stats}")
+    return row
+
+
+def serving_phases(torch, dev, flush):
+    """Phases 7 and 8; returns the summary rows of the two attention
+    kernels with their launches on the serving path."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Transformer, layers
+    from repro_torch.serving import ServeConfig
+    cfg = get_config("qwen2.5-3b")
+    need(cfg.n_layers == N_LAYERS_FULL, "qwen2.5-3b is not 36 layers")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = Transformer(cfg, generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    emit({"phase": "serve_model", "model": cfg.name,
+          "params": sum(p.numel() for p in model.parameters()),
+          "param_bytes": sum(p.numel() * p.element_size()
+                             for p in model.parameters()),
+          "init_s": time.perf_counter() - t0})
+    total = {}
+    a, _, _ = serve(torch, dev, model, cfg, ServeConfig(), launcher_traffic,
+                    "launcher")
+    b, clock, _ = serve(torch, dev, model, cfg,
+                        ServeConfig(max_batch=4, max_len=2048), long_traffic,
+                        "long_1024")
+    decode_profile(torch, dev, model, cfg, ServeConfig(), launcher_traffic,
+                   "launcher")
+    decode_profile(torch, dev, model, cfg,
+                   ServeConfig(max_batch=4, max_len=2048), long_traffic,
+                   "long_1024")
+    for row in (a, b):
+        for k, n in row["launches"].items():
+            total[k] = total.get(k, 0) + n
+    # paged_attention on the identity table of (b)'s real cache: layer 0,
+    # every row at its last decode position
+    kc, vc = clock.cache["kv"]["k"][0], clock.cache["kv"]["v"][0]
+    B, max_len, KV, hd = kc.shape
+    pos = 1024 + 32 - 2                      # last write of 31 decode steps
+    table, lengths = layers.decode_pages(B, max_len, pos, dev)
+    pool = (B * max_len // layers.DECODE_PAGE, layers.DECODE_PAGE, KV, hd)
+    q = torch.randn(B, 1, cfg.n_heads, hd, generator=torch.Generator(
+        device=dev).manual_seed(14), device=dev).to(kc.dtype)
+    paged = paged_row(torch, "identity_table_serve_cache", q, kc.view(pool),
+                      vc.view(pool), table, lengths, (kc, vc), flush)
+    del model, clock
+    torch.cuda.empty_cache()
+    serve_card_vs_cpu(torch, dev)
+    return paged, total
 
 
 def main(argv=None) -> int:
@@ -494,9 +919,15 @@ def main(argv=None) -> int:
     probe_launches = _build.launches.get("amil_probe", 0)
     need(probe_launches > 0, "amil_probe was never launched on its path")
 
+    # ---- 6-8. attention kernels and the serving path ----------------------
+    summary["flash_attention"] = flash_checks(torch, dev, flush)
+    paged_checks(torch, dev, flush)
+    summary["paged_attention"], serve_launches = serving_phases(
+        torch, dev, flush)
+
     need(not deferred, "; ".join(deferred))
 
-    # ---- 6. summary --------------------------------------------------------
+    # ---- 9. summary --------------------------------------------------------
     kernels = []
     for name, src, replaces, launches in (
             ("amil_probe", "src/repro_torch/kernels/amil_probe/csrc/"
@@ -506,7 +937,15 @@ def main(argv=None) -> int:
             ("hms_scan", "src/repro_torch/kernels/hms_scan/csrc/hms_scan.cu",
              "src/repro/core/simulator.py:502", main_launches["hms_scan"]),
             ("ema_scan", "src/repro_torch/kernels/hms_scan/csrc/hms_scan.cu",
-             "src/repro/core/simulator.py:418", main_launches["ema_scan"])):
+             "src/repro/core/simulator.py:418", main_launches["ema_scan"]),
+            ("flash_attention", "src/repro_torch/kernels/flash_attention/"
+             "csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention/flash_attention.py:94",
+             serve_launches["flash_attention"]),
+            ("paged_attention", "src/repro_torch/kernels/paged_attention/"
+             "csrc/paged_attention.cu",
+             "src/repro/kernels/paged_attention/paged_attention.py:82",
+             serve_launches["paged_attention"])):
         row = summary[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src,

@@ -34,11 +34,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
+_F = ctypes.c_float
 _SIGNATURES = {
     "hms_scan_launch": (_I, _P, _P, _I, _L, _P, _L, _P, _I, _I, _I, _I, _P,
                         _P),
     "ema_scan_launch": (_P, _L, ctypes.c_double, _P, _P),
     "amil_probe_launch": (_P, _I, _P, _P, _L, _P, _P, _P, _I, _P),
+    # q, k, v, o, B, S, T, H, KV, hd, causal, softcap, scale, dtype, stream
+    "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                               _F, _F, _I, _P),
+    # q, k_pages, v_pages, block_table, lengths, o, workspace, B, KV, G,
+    # hd, pool, page, n_pages, n_split, softcap, scale, dtype, stream
+    "paged_attention_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _I, _I, _I, _I, _F, _F, _I, _P),
 }
 
 launches: Dict[str, int] = {}
@@ -140,6 +148,17 @@ def reset_counts() -> None:
 def stream_ptr(t) -> int:
     import torch
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def dtype_code(name: str, t) -> int:
+    """The element-type enum of the attention kernels' C entries
+    (0 float32, 1 bfloat16); any other type raises."""
+    import torch
+    codes = {torch.float32: 0, torch.bfloat16: 1}
+    if t.dtype not in codes:
+        raise ValueError(f"{name}: dtype {t.dtype} not supported (float32 or "
+                         "bfloat16)")
+    return codes[t.dtype]
 
 
 def placement(name: str, *tensors) -> str:

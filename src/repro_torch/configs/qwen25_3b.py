@@ -1,0 +1,17 @@
+"""qwen2.5-3b: 36L d2048 16H (GQA kv=2) d_ff=11008 vocab=151936, QKV bias,
+tied embeddings.  [hf:Qwen/Qwen2.5-3B family; hf]."""
+from ..models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2.5-3b", family="dense",
+    n_layers=36, d_model=2048, n_heads=16, n_kv_heads=2,
+    d_ff=11008, vocab=151936,
+    qkv_bias=True, tie_embeddings=True, rope_theta=1_000_000.0,
+)
+
+SMOKE = ModelConfig(
+    name="qwen2.5-3b-smoke", family="dense",
+    n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+    d_ff=128, vocab=256,
+    qkv_bias=True, tie_embeddings=True,
+)

@@ -1,19 +1,23 @@
-"""Carry a simulation's inputs into the port.
+"""Carry inputs made elsewhere into the port.
 
-A simulator has no weights: the state a user brings is a trace and a
-config.  These helpers build the port's :class:`~repro_torch.core.Trace`
-from plain arrays and its :class:`~repro_torch.core.HMSConfig` from a
-dict — e.g. ``dataclasses.asdict`` of a config made elsewhere, nested
-``energy`` included — so the same point can be simulated by two
-implementations without either importing the other.
+A simulation's state is a trace and a config: :func:`trace_from_arrays`
+builds the port's :class:`~repro_torch.core.Trace` from plain arrays and
+:func:`config_from_dict` its :class:`~repro_torch.core.HMSConfig` from a
+dict (e.g. ``dataclasses.asdict`` of a config made elsewhere, nested
+``energy`` included).  A model's state is its weights:
+:func:`model_params_from_jax` turns the JAX package's parameter tree, as
+numpy arrays, into a state dict of the port's
+:class:`~repro_torch.models.Transformer`.  Neither package imports the
+other.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Optional, Sequence
+from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
+import torch
 
 from .core.timing import EnergyParams, HMSConfig
 from .core.traces import Trace
@@ -43,3 +47,33 @@ def config_from_dict(d: Mapping[str, object]) -> HMSConfig:
     if energy is not None:
         kw["energy"] = energy
     return HMSConfig(**kw)
+
+
+def model_params_from_jax(params: Mapping, cfg) -> Dict[str, torch.Tensor]:
+    """A :class:`~repro_torch.models.Transformer` state dict (CPU tensors)
+    from the JAX parameter tree of the same dense config, given as nested
+    dicts of numpy arrays (``jax.tree.map(np.asarray, params)``).
+
+    The stacked ``params["blocks"]`` leaves are split along their leading
+    layer axis into ``blocks.{i}.*``.  Norm scales stay float32, every
+    other leaf takes ``cfg.torch_dtype``; bf16 values handed over as
+    float32 come back exactly.  Load with ``model.load_state_dict(...)``."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def put(name: str, leaf) -> None:
+        dt = torch.float32 if name.endswith("scale") else cfg.torch_dtype
+        out[name] = torch.from_numpy(
+            np.array(leaf, dtype=np.float32)).to(dt)
+
+    def walk(prefix: str, tree: Mapping, layer: Optional[int]) -> None:
+        for key, val in tree.items():
+            name = f"{prefix}.{key}" if prefix else key
+            if isinstance(val, Mapping):
+                walk(name, val, layer)
+            else:
+                put(name, val if layer is None else np.asarray(val)[layer])
+
+    walk("", {k: v for k, v in params.items() if k != "blocks"}, None)
+    for i in range(cfg.n_layers):
+        walk(f"blocks.{i}", params["blocks"], i)
+    return out

@@ -40,6 +40,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from ..resilience import validate as _rvalidate
 from . import bypass as bp
 from .timing import COLUMN_BYTES, POLICIES_WITH_CTC, HMSConfig
@@ -126,19 +127,6 @@ class SimResult:
 # ---------------------------------------------------------------------------
 # Device, shard count and engine shapes.
 # ---------------------------------------------------------------------------
-
-def _resolve_device(device) -> torch.device:
-    """``None`` means the card.  Never falls back to the CPU silently."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "repro_torch: no CUDA device is available (simulate runs on the "
-            "card by default); pass device='cpu' to run the kernels' plain "
-            "versions on the host")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"repro_torch: unsupported device {dev}")
-    return dev
-
 
 _FORCED_SHARDS: Optional[int] = None
 
@@ -658,7 +646,7 @@ def simulate(trace: Trace, cfg: HMSConfig, nvlink: bool = False, *,
     ``device="cpu"`` runs the kernels' plain versions on the host.
     ``nvlink`` selects the host link of the UM paging model, which this
     port does not have yet (see the ``NotImplementedError`` cases)."""
-    dev = _resolve_device(device)
+    dev = resolve_device(device, "simulate")
     cfg = cfg.validate()
     _rvalidate.validate_trace(trace)
     org = cfg.organization

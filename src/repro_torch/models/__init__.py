@@ -1,0 +1,16 @@
+"""Model definitions of the port: the dense transformer family."""
+
+from .config import ModelConfig
+from .transformer import (
+    Transformer,
+    decode_step,
+    init_cache,
+    init_params,
+    prefill,
+    train_logits,
+)
+
+__all__ = [
+    "ModelConfig", "Transformer", "decode_step", "init_cache", "init_params",
+    "prefill", "train_logits",
+]

@@ -1,0 +1,124 @@
+"""Batched serving engine with a two-tier paged KV cache (the port of the
+JAX package's ``serving/engine.py``).
+
+Continuous-batching-lite: a fixed pool of sequence slots; each batch of
+queued requests is prefilled together (left-padded with token 0, the pad
+tokens attended like any other, as in the reference) and decoded greedily
+in lockstep.  Prefill attention runs the ``flash_attention`` kernel and
+decode attention the ``paged_attention`` kernel over the per-slot cache;
+the memtier ``PagedKVManager`` keeps the two-tier page plan beside it, so
+the paper's write-filtering and bypass behaviour shows in the engine stats.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from ..memtier.paged_kv import PagedKVConfig, PagedKVManager
+from ..models import decode_step, prefill
+from ..models.config import ModelConfig
+from ..models.transformer import Transformer, require_dense
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray           # (S,) int32
+    max_new: int = 16
+    out: Optional[np.ndarray] = None
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    max_batch: int = 4
+    max_len: int = 256
+    page_size: int = 16
+    fast_pages: int = 48
+
+
+class Engine:
+    """Single-device engine: dense per-slot caches, with the paged pool's
+    bookkeeping kept in parallel by the memtier manager.
+
+    ``device=None`` serves on the CUDA card and raises if there is none;
+    the model must already lie on the engine's device.  As in the
+    reference, the manager's slots are the batch indices and are never
+    released, so a slot's length grows across batches until it reaches
+    ``max_len`` (the manager then asserts "sequence too long")."""
+
+    def __init__(self, cfg: ModelConfig, model: Transformer,
+                 scfg: ServeConfig, *, device=None):
+        cfg = require_dense(cfg)
+        self.device = resolve_device(device, "Engine")
+        wdev = model.embed.tok.device
+        if (wdev.type, wdev.index or 0) != (self.device.type,
+                                            self.device.index or 0):
+            raise ValueError(f"Engine on {self.device}: the model's weights "
+                             f"lie on {wdev}")
+        self.cfg = cfg
+        self.model = model
+        self.scfg = scfg
+        self.kv_mgr = PagedKVManager(
+            PagedKVConfig(
+                n_layers=cfg.n_layers, n_kv_heads=max(1, cfg.n_kv_heads),
+                head_dim=cfg.hd, page_size=scfg.page_size,
+                fast_pages=scfg.fast_pages,
+                max_pages_per_seq=scfg.max_len // scfg.page_size),
+            max_seqs=scfg.max_batch)
+        self.queue: List[Request] = []
+        self.done: Dict[int, Request] = {}
+
+    def submit(self, req: Request) -> None:
+        self.queue.append(req)
+
+    def _prefill_batch(self, reqs: List[Request]):
+        S = max(r.prompt.shape[0] for r in reqs)
+        toks = np.zeros((len(reqs), S), np.int32)
+        for i, r in enumerate(reqs):
+            toks[i, S - r.prompt.shape[0]:] = r.prompt   # left-pad
+        batch = {"tokens": torch.from_numpy(toks).to(self.device)}
+        logits, cache = prefill(self.model, batch, self.cfg,
+                                max_len=self.scfg.max_len)
+        for i in range(len(reqs)):
+            for _ in range(S):
+                self.kv_mgr.append_token(i)
+        return logits, cache, S
+
+    def run(self) -> Dict[int, np.ndarray]:
+        """Drain the queue; returns rid -> generated tokens."""
+        while self.queue:
+            reqs = [self.queue.pop(0)
+                    for _ in range(min(self.scfg.max_batch,
+                                       len(self.queue)))]
+            logits, cache, S = self._prefill_batch(reqs)
+            tok = logits.argmax(dim=-1, keepdim=True).to(torch.int32)
+            outs = [[int(t)] for t in tok[:, 0].tolist()]
+            pos = S
+            max_new = max(r.max_new for r in reqs)
+            for stepi in range(max_new - 1):
+                # two-tier page plan for this step: resolves residency,
+                # stages slow-tier pages into streaming slots, counts
+                # fast hits / slow fetches (the paper's probe path)
+                self.kv_mgr.plan_step(list(range(len(reqs))))
+                lg, cache = decode_step(self.model, tok, cache, pos,
+                                        self.cfg)
+                tok = lg.argmax(dim=-1, keepdim=True).to(torch.int32)
+                step = tok[:, 0].tolist()
+                for i in range(len(reqs)):
+                    if stepi < reqs[i].max_new - 1:
+                        outs[i].append(step[i])
+                    self.kv_mgr.append_token(i)
+                pos += 1
+            for i, r in enumerate(reqs):
+                r.out = np.asarray(outs[i][:r.max_new], np.int32)
+                self.done[r.rid] = r
+        return {rid: r.out for rid, r in self.done.items()}
+
+    @property
+    def kv_stats(self) -> Dict[str, int]:
+        return dict(self.kv_mgr.stats)
