@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port (HMS simulator, dense serving) on one card.
+"""Drive the PyTorch/CUDA port (HMS simulator, dense and SSM serving) on
+one card.
 
     python3 chip_smoke.py [--out DIR]
 
@@ -12,7 +13,8 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                rounded float64 EMA): amil_probe at 256 and 8192 table
                lanes x 2^20 requests; hms_scan + ema_scan on the golden
                trace under all 8 policies and on one workload at its full
-               default size.  Times each kernel and its plain version.
+               default size (there the plain step loop runs once, timed
+               and compared).  Times each kernel and its plain version.
   4. sweep   - the 12-point grid of benchmarks/baselines/BENCH_sweep.json
                on its 3 workloads at n = 20000, against the committed
                counters and runtimes (integer-valued counters exactly,
@@ -26,31 +28,43 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                workload (12 generators + 5 scenarios) at its default size,
                plus zipf at 10^6 requests, through the scan kernels; launch
                counts are reset just before and read just after.
-  6. attention kernels against their plain versions: flash_attention at the
+  6. serving kernels against their plain versions: flash_attention at the
                serving slice's shape (B 4, S = T = 1024, 16 heads over 2 KV
                heads, hd 128; bf16 and float32, ragged, non-causal, softcap
-               30) and paged_attention (page 16, 128 pages per sequence,
-               random tables and lengths; bf16 and float32), float32 to
-               atol = rtol = 1e-4 (another summation order) and bf16 to
-               2e-2, each timed beside its bound and one PyTorch call
-               (scaled_dot_product_attention) as a yardstick.
+               30) and at zamba2-2.7b's (32 heads, hd 80); paged_attention
+               (page 16, 128 pages per sequence, random tables and lengths;
+               bf16 and float32, both head shapes), float32 to atol = rtol
+               = 1e-4 (another summation order) and bf16 to 2e-2, each timed
+               beside its bound and one PyTorch call
+               (scaled_dot_product_attention) as a yardstick; ssd_scan
+               (y and final state) at mamba2-1.3b's prefill shape (B 4,
+               L 1024, H 64, P 64, G 1, N 128, chunk 128) and zamba2's
+               (H 80, N 64) in bf16 and float32, ragged L 11 and 130, a
+               nonzero initial state and G = 2 (see ``ssd_checks``).
   7. serve   - qwen2.5-3b at full width (36 layers, bf16, random weights
                from seed 0) through ``repro_torch.serving.Engine``: (a) the
                launcher's traffic (8 requests of 4-12 tokens, 16 new
                tokens each, ServeConfig defaults) and (b) 4 requests of 1024
                tokens, 32 new each, ServeConfig(max_batch=4, max_len=2048);
                prefill and decode times, tokens/s, peak memory, KV stats,
-               and 36 flash_attention launches per prefill and 36
-               paged_attention launches per decode step (counts reset just
-               before, read just after); a torch.profiler window over 3
-               decode steps of each gives the device's busy share and its
-               top kernels.  Then paged_attention on the identity table of
-               (b)'s real cache against its plain version and a masked
-               SDPA.
-  8. serve_card_vs_cpu - qwen2.5-3b width, 2 layers, float32, TF32 off:
-               the same requests served on the card and through the port's
-               CPU path give the same tokens and KV stats; the largest
-               logit difference over a prefill and 3 decode steps is shown.
+               and the launches of each kernel against ``path_launches``
+               (counts reset just before, read just after); a
+               torch.profiler window over one prefill and 3 decode steps of
+               each gives the device's busy share and its top kernels.
+               Then paged_attention on the identity table of (b)'s real
+               cache against its plain version and a masked SDPA.  The same
+               two mixes then serve mamba2-1.3b (48 layers: 48 ssd_scan
+               launches per prefill) and zamba2-2.7b (54 Mamba2 layers and
+               9 applications of the shared attention block: 54 ssd_scan
+               and 9 flash_attention launches per prefill, 9
+               paged_attention per decode step), each freed before the
+               next.
+  8. serve_card_vs_cpu - float32 cuts at full width, TF32 off for matmuls
+               and cuDNN: qwen2.5-3b and mamba2-1.3b at 2 layers, zamba2-2.7b
+               at one super-block (6 Mamba2 layers + the shared block); the
+               same requests served on the card and through the port's CPU
+               path give the same tokens and KV stats; the largest logit
+               difference over a prefill and 3 decode steps is shown.
   9. the ``kernels`` summary line, then the ``ok`` line.
 
 ``--out DIR`` also writes every JSON line to DIR/chip_smoke.jsonl;
@@ -286,13 +300,17 @@ def flash_checks(torch, dev, flush):
     g = torch.Generator(device=dev).manual_seed(12)
     bf16, f32 = torch.bfloat16, torch.float32
     rows = {}
-    for case, B, S, T, dt, causal, cap in (
-            ("slice", 4, 1024, 1024, bf16, True, 0.0),
-            ("slice_float32", 4, 1024, 1024, f32, True, 0.0),
-            ("ragged", 2, 130, 200, bf16, True, 0.0),
-            ("non_causal", 4, 1024, 1024, bf16, False, 0.0),
-            ("softcap_30", 4, 1024, 1024, bf16, True, 30.0)):
-        H, KV, hd = 16, 2, 128
+    qwen = (16, 2, 128)                 # qwen2.5-3b: H, KV, hd
+    zamba = (32, 32, 80)                # zamba2-2.7b's shared block
+    for case, B, S, T, dt, causal, cap, (H, KV, hd) in (
+            ("slice", 4, 1024, 1024, bf16, True, 0.0, qwen),
+            ("slice_float32", 4, 1024, 1024, f32, True, 0.0, qwen),
+            ("ragged", 2, 130, 200, bf16, True, 0.0, qwen),
+            ("non_causal", 4, 1024, 1024, bf16, False, 0.0, qwen),
+            ("softcap_30", 4, 1024, 1024, bf16, True, 30.0, qwen),
+            ("zamba2_hd80", 4, 1024, 1024, bf16, True, 0.0, zamba),
+            ("zamba2_hd80_float32", 4, 1024, 1024, f32, True, 0.0, zamba),
+            ("zamba2_hd80_ragged", 4, 11, 11, bf16, True, 0.0, zamba)):
         q, k, v = (torch.randn(B, n, h, hd, generator=g, device=dev).to(dt)
                    for n, h in ((S, H), (T, KV), (T, KV)))
         run_k = lambda: ops.flash_attention(q, k, v, causal=causal,
@@ -374,11 +392,16 @@ def paged_row(torch, case, q, kp, vp, table, lengths, dense, flush):
 
 
 def paged_checks(torch, dev, flush) -> None:
-    """paged_attention on random block tables and lengths."""
+    """paged_attention on random block tables and lengths, at qwen2.5-3b's
+    heads (bf16 and float32) and zamba2-2.7b's (32 over 32, hd 80)."""
     g = torch.Generator(device=dev).manual_seed(13)
-    B, H, KV, hd, page, n_pages = 4, 16, 2, 128, 16, 128
-    pool = B * n_pages + 16
-    for dt in (torch.bfloat16, torch.float32):
+    page, n_pages = 16, 128
+    for dt, (B, H, KV, hd), tag in (
+            (torch.bfloat16, (4, 16, 2, 128), ""),
+            (torch.float32, (4, 16, 2, 128), ""),
+            (torch.bfloat16, (4, 32, 32, 80), "_hd80"),
+            (torch.float32, (4, 32, 32, 80), "_hd80")):
+        pool = B * n_pages + 16
         q = torch.randn(B, 1, H, hd, generator=g, device=dev).to(dt)
         kp, vp = (torch.randn(pool, page, KV, hd, generator=g,
                               device=dev).to(dt) for _ in range(2))
@@ -388,8 +411,98 @@ def paged_checks(torch, dev, flush) -> None:
                                 device=dev, dtype=torch.int32)
         dense = tuple(x[table.long()].reshape(B, n_pages * page, KV, hd)
                       for x in (kp, vp))
-        paged_row(torch, f"random_table_{dtype_name(dt)}", q, kp, vp, table,
-                  lengths, dense, flush)
+        paged_row(torch, f"random_table{tag}_{dtype_name(dt)}", q, kp, vp,
+                  table, lengths, dense, flush)
+
+
+def ssd_bound(x, B, l, chunk, has_init):
+    """(flops, bytes) one SSD scan needs: the causal half of each chunk's
+    (C B^T) X product and its scores over the positions < l, the
+    inter-chunk term and the state update per position; x read and y
+    written once, dt read, B and C read once per group (not per head), the
+    final state written and the initial state read."""
+    b, _, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    pairs = 0
+    for c0 in range(0, l, chunk):
+        v = min(chunk, l - c0)
+        pairs += v * (v + 1) // 2
+    flops = 2 * b * h * (pairs * (n + p) + 2 * l * n * p)
+    nbytes = (2 * b * l * h * p * x.element_size() + 4 * b * l * h
+              + 2 * b * l * g * n * B.element_size()
+              + 4 * b * h * p * n * (2 if has_init else 1))
+    return flops, nbytes
+
+
+def ssd_checks(torch, dev, flush):
+    """ssd_scan against its plain version (y and the final state) at the
+    serving shapes: float32 y and states to atol = rtol = 3e-4 (the
+    reference's own Pallas-vs-oracle tolerance: 128- to 256-term float32
+    sums in another order), bf16 y to 2e-2 (both round one float32 value
+    to bf16; they differ where that value straddles a rounding step).  B
+    and C are column slices of one (b, l, 2gn) projection, as the model
+    hands them over.  Returns the mamba2 bf16 row."""
+    from repro_torch.kernels.ssd_scan import ops, ref
+    g = torch.Generator(device=dev).manual_seed(15)
+    bf16, f32 = torch.bfloat16, torch.float32
+    mamba = (64, 1, 128)                # H, G, n of mamba2-1.3b
+    zamba = (80, 1, 64)                 # of zamba2-2.7b
+    rows = {}
+    for case, b, l, (h, G, n), dt_, init in (
+            ("mamba2", 4, 1024, mamba, bf16, False),
+            ("mamba2_float32", 4, 1024, mamba, f32, False),
+            ("zamba2", 4, 1024, zamba, bf16, False),
+            ("zamba2_float32", 4, 1024, zamba, f32, False),
+            ("ragged_11", 4, 11, mamba, bf16, False),
+            ("ragged_130", 4, 130, zamba, bf16, False),
+            ("initial_state", 4, 1024, mamba, bf16, True),
+            ("initial_state_float32", 2, 300, zamba, f32, True),
+            ("groups_2", 2, 512, (64, 2, 128), bf16, False)):
+        p, chunk = 64, 128
+        x = (torch.randn(b, l, h, p, generator=g, device=dev) * 0.5).to(dt_)
+        dt = torch.rand(b, l, h, generator=g, device=dev) * 0.5 + 0.1
+        A = -(torch.rand(h, generator=g, device=dev) * 0.5 + 0.5)
+        bc = (torch.randn(b, l, 2 * G * n, generator=g, device=dev)
+              * 0.3).to(dt_)
+        Bm = bc[..., :G * n].reshape(b, l, G, n)
+        Cm = bc[..., G * n:].reshape(b, l, G, n)
+        s0 = (torch.randn(b, h, p, n, generator=g, device=dev) * 0.5) \
+            if init else None
+        run_k = lambda: ops.ssd(x, dt, A, Bm, Cm, chunk, initial_state=s0)
+        run_p = lambda: ref.ssd_plain(x, dt, A, Bm, Cm, chunk,
+                                      initial_state=s0)
+        (y, st), (yw, sw) = run_k(), run_p()
+        torch.cuda.synchronize()
+        tol = 2e-2 if dt_ == bf16 else 3e-4
+        need(y.shape == yw.shape and y.dtype == yw.dtype, f"ssd {case}: y")
+        need(bool(torch.isfinite(y.float()).all())
+             and bool(torch.isfinite(st).all()), f"ssd {case}: not finite")
+        err = float((y.float() - yw.float()).abs().max())
+        serr = float((st - sw).abs().max())
+        need(torch.allclose(y.float(), yw.float(), atol=tol, rtol=tol),
+             f"ssd {case}: max |y - plain| {err} beyond {tol}")
+        need(torch.allclose(st, sw, atol=3e-4, rtol=3e-4),
+             f"ssd {case}: max |state - plain| {serr} beyond 3e-4")
+        flops, nbytes = ssd_bound(x, Bm, l, chunk, init)
+        t_ops = flops / PEAK_FLOPS[dtype_name(dt_)] * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        event_ms(torch, run_k, reps=3, flush=flush)          # warm-up
+        row = {"name": "ssd_scan", "case": case,
+               "shape": {"b": b, "l": l, "h": h, "p": p, "g": G, "n": n,
+                         "chunk": chunk},
+               "dtype": dtype_name(dt_), "initial_state": init,
+               "max_abs_err": max(err, serr), "y_max_abs_err": err,
+               "state_max_abs_err": serr,
+               "y_scale": float(yw.float().abs().max()),
+               "ms": event_ms(torch, run_k, reps=20, flush=flush),
+               "plain_ms": event_ms(torch, run_p, reps=3, flush=flush),
+               "flops": flops, "bytes": nbytes,
+               "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "library_ms": None}
+        emit({"phase": "kernel_vs_plain", **row})
+        rows[case] = row
+    return rows["mamba2"]
 
 
 class StepClock:
@@ -423,6 +536,22 @@ class StepClock:
 
     def __exit__(self, *exc):
         self.mod.prefill, self.mod.decode_step = self._orig
+
+
+def path_launches(cfg):
+    """Kernel launches of one prefill and of one decode step: every
+    attention layer runs flash_attention in prefill and paged_attention in
+    decode, every Mamba2 layer ssd_scan in prefill (its decode step is
+    plain torch ops); the hybrid applies its shared attention block after
+    every ``attn_every`` Mamba2 layers."""
+    L = cfg.n_layers
+    if cfg.family == "dense":
+        return {"flash_attention": L}, {"paged_attention": L}
+    if cfg.family == "ssm":
+        return {"ssd_scan": L}, {}
+    n_attn = L // cfg.attn_every
+    return {"ssd_scan": L, "flash_attention": n_attn}, \
+        {"paged_attention": n_attn}
 
 
 def launcher_traffic(Request, vocab):
@@ -466,13 +595,14 @@ def serve(torch, dev, model, cfg, scfg, traffic, name):
     need(all(len(outs[r.rid]) == r.max_new for r in reqs),
          f"{name}: wrong number of generated tokens")
     need(clock.finite, f"{name}: non-finite logits")
-    per = cfg.n_layers
-    need(launches.get("flash_attention", 0) == per * len(clock.prefill),
-         f"{name}: flash_attention launched {launches.get('flash_attention')}"
-         f" times for {len(clock.prefill)} prefills of {per} layers")
-    need(launches.get("paged_attention", 0) == per * len(clock.decode),
-         f"{name}: paged_attention launched {launches.get('paged_attention')}"
-         f" times for {len(clock.decode)} decode steps of {per} layers")
+    per_prefill, per_decode = path_launches(cfg)
+    for k in sorted(set(per_prefill) | set(per_decode) | set(launches)):
+        want = per_prefill.get(k, 0) * len(clock.prefill) \
+            + per_decode.get(k, 0) * len(clock.decode)
+        need(launches.get(k, 0) == want,
+             f"{name}: {k} launched {launches.get(k, 0)} times, expected "
+             f"{want} for {len(clock.prefill)} prefills and "
+             f"{len(clock.decode)} decode steps")
     generated = sum(len(v) for v in outs.values())
     row = {"phase": "serve", "traffic": name, "model": cfg.name,
            "n_layers": cfg.n_layers, "dtype": cfg.dtype,
@@ -496,11 +626,21 @@ def serve(torch, dev, model, cfg, scfg, traffic, name):
     return row, clock, outs
 
 
+def kernel_ms(torch, prof):
+    """{kernel name: device ms} summed over a profiler window."""
+    kernels = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[e.name] = kernels.get(e.name, 0.0) \
+                + e.time_range.elapsed_us() / 1e3
+    return kernels
+
+
 def decode_profile(torch, dev, model, cfg, scfg, traffic, name, steps=3):
-    """torch.profiler over ``steps`` decode steps of the traffic's first
-    batch: wall time, device (kernel) time, the device's busy share, and
-    the kernels that take the most of it.  Device time is None when the
-    profiler records no kernel on this machine."""
+    """torch.profiler over one prefill and then ``steps`` decode steps of
+    the traffic's first batch: wall time, device (kernel) time, the
+    device's busy share, and the kernels that take the most of it.  Device
+    time is None when the profiler records no kernel on this machine."""
     import numpy as np
     from repro_torch.models import decode_step, prefill
     from repro_torch.serving import Request
@@ -509,30 +649,39 @@ def decode_profile(torch, dev, model, cfg, scfg, traffic, name, steps=3):
     toks = np.zeros((len(reqs), S), np.int32)
     for i, r in enumerate(reqs):
         toks[i, S - r.prompt.shape[0]:] = r.prompt
-    logits, cache = prefill(model, {"tokens": torch.from_numpy(toks).to(dev)},
-                            cfg, max_len=scfg.max_len)
-    tok = logits.argmax(-1, keepdim=True).to(torch.int32)
-    logits, cache = decode_step(model, tok, cache, S, cfg)       # warm-up
+    batch = {"tokens": torch.from_numpy(toks).to(dev)}
+    prefill(model, batch, cfg, max_len=scfg.max_len)            # warm-up
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as pprof:
+        t0 = time.perf_counter()
+        logits, cache = prefill(model, batch, cfg, max_len=scfg.max_len)
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+    pkern = kernel_ms(torch, pprof)
+    tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+    logits, cache = decode_step(model, tok, cache, S, cfg)       # warm-up
+    torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for pos in range(S + 1, S + 1 + steps):
             logits, cache = decode_step(model, tok, cache, pos, cfg)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            kernels[e.name] = kernels.get(e.name, 0.0) \
-                + e.time_range.elapsed_us() / 1e3
+    kernels = kernel_ms(torch, prof)
     device_ms = sum(kernels.values()) if kernels else None
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     cpu_ops = sum(1 for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CPU
                   and e.name.startswith("aten::"))
-    row = {"phase": "decode_profile", "traffic": name, "steps": steps,
+    pdev = sum(pkern.values()) if pkern else None
+    row = {"phase": "decode_profile", "model": cfg.name, "traffic": name,
+           "prefill_wall_ms": pwall * 1e3, "prefill_device_ms": pdev,
+           "prefill_top_kernels_ms": [
+               (k[:60], v) for k, v in sorted(pkern.items(),
+                                              key=lambda kv: -kv[1])[:8]],
+           "steps": steps,
            "batch": len(reqs), "wall_ms_per_step": wall * 1e3 / steps,
            "device_ms_per_step": None if device_ms is None
            else device_ms / steps,
@@ -544,15 +693,16 @@ def decode_profile(torch, dev, model, cfg, scfg, traffic, name, steps=3):
     return row
 
 
-def serve_card_vs_cpu(torch, dev) -> dict:
-    """qwen2.5-3b width, 2 layers, float32, TF32 off: the card's serving
-    path against the port's CPU path on the same weights and requests."""
+def serve_card_vs_cpu(torch, dev, arch: str, n_layers: int) -> dict:
+    """``arch`` at full width cut to ``n_layers``, float32, TF32 off for
+    matmuls and cuDNN: the card's serving path against the port's CPU path
+    on the same weights and requests."""
     import copy
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import Transformer, decode_step, prefill
     from repro_torch.serving import Engine, Request, ServeConfig
-    cfg = dataclasses.replace(get_config("qwen2.5-3b"), n_layers=2,
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers,
                               dtype="float32")
     old = (torch.backends.cuda.matmul.allow_tf32,
            torch.backends.cudnn.allow_tf32)
@@ -581,20 +731,22 @@ def serve_card_vs_cpu(torch, dev) -> dict:
             lh, ch = decode_step(host, tok, ch, pos, cfg)
             diffs.append(float((lc.cpu() - lh).abs().max()))
         diff, scale = max(diffs), float(lh.abs().max())
+        del card, host, cc, ch
     finally:
         torch.backends.cuda.matmul.allow_tf32, \
             torch.backends.cudnn.allow_tf32 = old
     same_tokens = sorted(outs[0]) == sorted(outs[1]) and all(
         (outs[0][k] == outs[1][k]).all() for k in outs[0])
-    row = {"phase": "serve_card_vs_cpu", "model": cfg.name, "n_layers": 2,
+    row = {"phase": "serve_card_vs_cpu", "model": cfg.name,
+           "family": cfg.family, "n_layers": n_layers,
            "dtype": "float32", "allow_tf32": False,
            "requests": len(outs[0]), "tokens_equal": bool(same_tokens),
            "kv_stats_equal": stats[0] == stats[1], "kv_stats": stats[0],
            "max_logit_diff": diff, "logit_scale": scale}
     emit(row)
-    need(same_tokens, f"card and CPU generate different tokens (max logit "
-         f"difference {diff} over logits up to {scale})")
-    need(stats[0] == stats[1], f"KV stats differ: {stats}")
+    need(same_tokens, f"{cfg.name}: card and CPU generate different tokens "
+         f"(max logit difference {diff} over logits up to {scale})")
+    need(stats[0] == stats[1], f"{cfg.name}: KV stats differ: {stats}")
     return row
 
 
@@ -643,8 +795,50 @@ def serving_phases(torch, dev, flush):
                       vc.view(pool), table, lengths, (kc, vc), flush)
     del model, clock
     torch.cuda.empty_cache()
-    serve_card_vs_cpu(torch, dev)
+    serve_card_vs_cpu(torch, dev, "qwen2.5-3b", 2)
     return paged, total
+
+
+def ssm_serving_phases(torch, dev):
+    """mamba2-1.3b (48 Mamba2 layers) and zamba2-2.7b (54 Mamba2 layers and
+    one shared attention block after every 6th) at full width, bf16,
+    random weights from seed 0, on the two mixes that serve qwen2.5-3b;
+    each model is freed before the next is made.  Then the float32 cuts on
+    card and CPU: 2 layers of mamba2, one super-block (6 + shared) of
+    zamba2.  Returns the launches of the serving runs, summed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Transformer
+    from repro_torch.serving import ServeConfig
+    total = {}
+    for arch, n_layers in (("mamba2-1.3b", 48), ("zamba2-2.7b", 54)):
+        cfg = get_config(arch)
+        need(cfg.n_layers == n_layers, f"{arch} is not {n_layers} layers")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = Transformer(cfg, generator=torch.Generator(
+            device=dev).manual_seed(0), device=dev)
+        torch.cuda.synchronize()
+        emit({"phase": "serve_model", "model": cfg.name,
+              "params": sum(p.numel() for p in model.parameters()),
+              "param_bytes": sum(p.numel() * p.element_size()
+                                 for p in model.parameters()),
+              "init_s": time.perf_counter() - t0})
+        for scfg, traffic, name in (
+                (ServeConfig(), launcher_traffic, "launcher"),
+                (ServeConfig(max_batch=4, max_len=2048), long_traffic,
+                 "long_1024")):
+            row, clock, _ = serve(torch, dev, model, cfg, scfg, traffic,
+                                  name)
+            for k, n in row["launches"].items():
+                total[k] = total.get(k, 0) + n
+            del clock
+            decode_profile(torch, dev, model, cfg, scfg, traffic, name)
+        del model
+        torch.cuda.empty_cache()
+    serve_card_vs_cpu(torch, dev, "mamba2-1.3b", 2)
+    serve_card_vs_cpu(torch, dev, "zamba2-2.7b",
+                      get_config("zamba2-2.7b").attn_every)
+    return total
 
 
 def main(argv=None) -> int:
@@ -755,11 +949,13 @@ def main(argv=None) -> int:
     run_k = lambda: scan_ops.hms_scan(s["slot"], s["meta"], **s["scan"])
     run_p = lambda: scan_ref.hms_scan_reference(s["slot"], s["meta"],
                                                 **s["scan"])
-    got, want = run_k(), run_p()
-    torch.cuda.synchronize()
-    err = max(same(torch, a, b) for a, b in zip(got, want))
+    got = run_k()
+    # the plain step loop takes minutes at this size: its one run is both
+    # timed and compared
+    plain = []
+    plain_ms = event_ms(torch, lambda: plain.append(run_p()), reps=1)
+    err = max(same(torch, a, b) for a, b in zip(got, plain[0]))
     ms = event_ms(torch, run_k, reps=3, flush=flush)
-    plain_ms = event_ms(torch, run_p, reps=1)
     summary["hms_scan"] = {
         "name": "hms_scan", "trace": t.name, "depth": depth,
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -769,11 +965,12 @@ def main(argv=None) -> int:
     emit({"phase": "kernel_vs_plain", **summary["hms_scan"]})
     pen = s["derived"]["pen64"]
     w = float(s["params"]["ema_weight"])
-    err = same(torch, scan_ops.ema_scan(pen, w),
-               scan_ref.ema_scan_reference(pen, w))
+    plain = []
+    plain_ms = event_ms(
+        torch, lambda: plain.append(scan_ref.ema_scan_reference(pen, w)))
+    err = same(torch, scan_ops.ema_scan(pen, w), plain[0])
     ms = event_ms(torch, lambda: scan_ops.ema_scan(pen, w), reps=3,
                   flush=flush)
-    plain_ms = event_ms(torch, lambda: scan_ref.ema_scan_reference(pen, w))
     summary["ema_scan"] = {
         "name": "ema_scan", "trace": t.name, "depth": pen.shape[0],
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -922,8 +1119,11 @@ def main(argv=None) -> int:
     # ---- 6-8. attention kernels and the serving path ----------------------
     summary["flash_attention"] = flash_checks(torch, dev, flush)
     paged_checks(torch, dev, flush)
+    summary["ssd_scan"] = ssd_checks(torch, dev, flush)
     summary["paged_attention"], serve_launches = serving_phases(
         torch, dev, flush)
+    for k, n in ssm_serving_phases(torch, dev).items():
+        serve_launches[k] = serve_launches.get(k, 0) + n
 
     need(not deferred, "; ".join(deferred))
 
@@ -945,7 +1145,10 @@ def main(argv=None) -> int:
             ("paged_attention", "src/repro_torch/kernels/paged_attention/"
              "csrc/paged_attention.cu",
              "src/repro/kernels/paged_attention/paged_attention.py:82",
-             serve_launches["paged_attention"])):
+             serve_launches["paged_attention"]),
+            ("ssd_scan", "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+             "src/repro/kernels/ssd_scan/ssd_scan.py:71",
+             serve_launches["ssd_scan"])):
         row = summary[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src,

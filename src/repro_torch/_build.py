@@ -47,6 +47,10 @@ _SIGNATURES = {
     # hd, pool, page, n_pages, n_split, softcap, scale, dtype, stream
     "paged_attention_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _I, _I, _I, _I, _F, _F, _I, _P),
+    # x, dt, A, B, C, bc_row, init, y, final_state, b, l, h, g, p, n,
+    # chunk, dtype, stream
+    "ssd_scan_launch": (_P, _P, _P, _P, _P, _L, _P, _P, _P, _I, _I, _I, _I,
+                        _I, _I, _I, _I, _P),
 }
 
 launches: Dict[str, int] = {}

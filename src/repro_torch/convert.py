@@ -49,31 +49,44 @@ def config_from_dict(d: Mapping[str, object]) -> HMSConfig:
     return HMSConfig(**kw)
 
 
+_FLOAT32_LEAVES = ("scale", "A_log", "D", "dt_bias")
+
+
 def model_params_from_jax(params: Mapping, cfg) -> Dict[str, torch.Tensor]:
     """A :class:`~repro_torch.models.Transformer` state dict (CPU tensors)
-    from the JAX parameter tree of the same dense config, given as nested
-    dicts of numpy arrays (``jax.tree.map(np.asarray, params)``).
+    from the JAX parameter tree of the same config (dense, ssm or hybrid),
+    given as nested dicts of numpy arrays
+    (``jax.tree.map(np.asarray, params)``).
 
     The stacked ``params["blocks"]`` leaves are split along their leading
-    layer axis into ``blocks.{i}.*``.  Norm scales stay float32, every
-    other leaf takes ``cfg.torch_dtype``; bf16 values handed over as
-    float32 come back exactly.  Load with ``model.load_state_dict(...)``."""
+    layer axis into ``blocks.{i}.*``, or for the hybrid along its two axes
+    (super-block, Mamba2 layer) into ``blocks.{s}.{j}.*``; ``shared.*`` and
+    the other top-level leaves are carried as they are.  Norm scales and
+    the SSM's ``A_log``, ``D`` and ``dt_bias`` stay float32, every other
+    leaf takes ``cfg.torch_dtype``; bf16 values handed over as float32 come
+    back exactly.  Load with ``model.load_state_dict(...)``."""
     out: Dict[str, torch.Tensor] = {}
 
     def put(name: str, leaf) -> None:
-        dt = torch.float32 if name.endswith("scale") else cfg.torch_dtype
+        dt = torch.float32 if name.rsplit(".", 1)[-1] in _FLOAT32_LEAVES \
+            else cfg.torch_dtype
         out[name] = torch.from_numpy(
             np.array(leaf, dtype=np.float32)).to(dt)
 
-    def walk(prefix: str, tree: Mapping, layer: Optional[int]) -> None:
+    def walk(prefix: str, tree: Mapping, index: tuple) -> None:
         for key, val in tree.items():
             name = f"{prefix}.{key}" if prefix else key
             if isinstance(val, Mapping):
-                walk(name, val, layer)
+                walk(name, val, index)
             else:
-                put(name, val if layer is None else np.asarray(val)[layer])
+                put(name, np.asarray(val)[index])
 
-    walk("", {k: v for k, v in params.items() if k != "blocks"}, None)
-    for i in range(cfg.n_layers):
-        walk(f"blocks.{i}", params["blocks"], i)
+    walk("", {k: v for k, v in params.items() if k != "blocks"}, ())
+    if cfg.family == "hybrid":
+        for s in range(cfg.n_layers // cfg.attn_every):
+            for j in range(cfg.attn_every):
+                walk(f"blocks.{s}.{j}", params["blocks"], (s, j))
+    else:
+        for i in range(cfg.n_layers):
+            walk(f"blocks.{i}", params["blocks"], (i,))
     return out

@@ -29,8 +29,9 @@
 // above the card's ~295 in bf16, so the floor is the tensor cores'
 // 989 TFLOP/s (17 us).  This first kernel multiplies on the float32 FMA
 // pipes (67 TFLOP/s peak), so it cannot come near that floor: wgmma tiles
-// fed by TMA are the later step.  Shared memory (100 KB at hd 128) allows
-// two CTAs per SM.
+// fed by TMA are the later step.  Shared memory (100 KB at hd 128, 64 KB
+// at zamba2-2.7b's hd 80, where each thread owns NC = 5 output columns)
+// allows two CTAs per SM.
 //
 // Built with --fmad=false like every source of the port (the simulator's
 // float64 EMA needs it); here it only keeps the FMA pipes' products rounded
@@ -243,6 +244,9 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
                            scale, st);
     case 64:
       return launch<E, 64>(q, k, v, o, B, S, T, H, KV, causal, softcap,
+                           scale, st);
+    case 80:
+      return launch<E, 80>(q, k, v, o, B, S, T, H, KV, causal, softcap,
                            scale, st);
     case 128:
       return launch<E, 128>(q, k, v, o, B, S, T, H, KV, causal, softcap,

@@ -14,7 +14,7 @@ import torch
 from ... import _build
 from .ref import flash_attention_reference
 
-HEAD_DIMS = (16, 32, 64, 128)       # the kernel's instantiations
+HEAD_DIMS = (16, 32, 64, 80, 128)   # the kernel's instantiations
 
 
 def flash_attention(q, k, v, *, causal: bool = True, softcap: float = 0.0):

@@ -1,6 +1,8 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --arch qwen2.5-3b
 --requests 8`` serves random-weight requests on the CUDA card
-(``--device cpu`` runs the kernels' plain versions on the host)."""
+(``--device cpu`` runs the kernels' plain versions on the host).  Any arch
+of the dense, ssm and hybrid families serves, e.g. ``--arch mamba2-1.3b``
+or ``--arch zamba2-2.7b``."""
 
 from __future__ import annotations
 

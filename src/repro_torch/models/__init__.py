@@ -1,4 +1,5 @@
-"""Model definitions of the port: the dense transformer family."""
+"""Model definitions of the port: the dense, ssm (Mamba2) and hybrid
+(zamba2) families."""
 
 from .config import ModelConfig
 from .transformer import (

@@ -216,10 +216,18 @@ class MLP(nn.Module):
             self.b_down = _zeros(d, dt, device)
 
 
+def silu(x):
+    """``jax.nn.silu``: x * sigmoid(x), with the sigmoid as XLA expands it,
+    1 / (1 + exp(-x)), every step rounded to x's type (in bf16 this differs
+    from ``torch.sigmoid``, which rounds once, in about a third of the
+    values)."""
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
 def mlp(p: MLP, x, cfg: ModelConfig):
     if p.w_gate is not None:
         g = x @ p.w_gate
-        return (g * torch.sigmoid(g) * (x @ p.w_up)) @ p.w_down  # jax.nn.silu
+        return (silu(g) * (x @ p.w_up)) @ p.w_down
     h = F.gelu(x @ p.w_up + p.b_up, approximate="tanh")   # jax.nn.gelu
     return h @ p.w_down + p.b_down
 

@@ -1,0 +1,145 @@
+"""Mamba2 (SSD) block: projections -> causal depthwise conv -> SSD -> gated
+out (the port of the JAX package's ``models/mamba2.py``).
+
+Used standalone for ``mamba2-1.3b`` and as the backbone block of the
+``zamba2`` hybrid.  The projections are split per stream (``z_proj``,
+``x_proj``, ``bc_proj``, ``dt_proj``) as in the reference.  Prefill runs
+the SSD scan through ``kernels.ssd_scan.ops.ssd`` (the CUDA kernel on the
+card, its plain version on the CPU); decode runs the one-token recurrence
+``ssd_decode_step`` as torch ops, as the reference does.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..kernels.ssd_scan.ops import ssd
+from ..kernels.ssd_scan.ref import ssd_decode_step
+from .config import ModelConfig
+from .layers import RMSNorm, _dense_init, _frozen, _zeros, rms_norm, silu
+
+Cache = Dict[str, torch.Tensor]
+
+
+class MambaBlock(nn.Module):
+    """The JAX parameter names; ``A_log``, ``D``, ``dt_bias`` and the gate
+    norm's scale are float32, every other weight ``cfg.torch_dtype``."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator, *,
+                 device=None):
+        super().__init__()
+        d, di = cfg.d_model, cfg.d_inner
+        gn2, h, K = 2 * cfg.ssm_groups * cfg.ssm_state, cfg.ssm_heads, \
+            cfg.ssm_conv
+        dt, f32 = cfg.torch_dtype, torch.float32
+        self.z_proj = _dense_init(gen, (d, di), dt, device)
+        self.x_proj = _dense_init(gen, (d, di), dt, device)
+        self.bc_proj = _dense_init(gen, (d, gn2), dt, device)
+        self.dt_proj = _dense_init(gen, (d, h), dt, device)
+        self.conv_x_w = _dense_init(gen, (K, di), dt, device, scale=0.5)
+        self.conv_x_b = _zeros(di, dt, device)
+        self.conv_bc_w = _dense_init(gen, (K, gn2), dt, device, scale=0.5)
+        self.conv_bc_b = _zeros(gn2, dt, device)
+        self.A_log = _zeros(h, f32, device)
+        self.D = _frozen(torch.ones(h, dtype=f32, device=device))
+        self.dt_bias = _zeros(h, f32, device)
+        self.gate_norm = RMSNorm(di, device=device)
+        self.out_proj = _dense_init(gen, (di, d), dt, device)
+
+
+def _softplus(x):
+    return torch.logaddexp(x, torch.zeros_like(x))         # jax.nn.softplus
+
+
+def _causal_conv(u, w, b):
+    """Depthwise causal conv along the sequence: u (B, S, C), w (K, C).  The
+    K-shifted sum of the reference, rounded per term as it rounds, and no
+    cuDNN convolution (which would run float32 in TF32 on the card)."""
+    K, S = w.shape[0], u.shape[1]
+    pad = F.pad(u, (0, 0, K - 1, 0))
+    out = pad[:, :S] * w[0]
+    for i in range(1, K):
+        out = out + pad[:, i:i + S] * w[i]
+    return out + b
+
+
+def _conv_step(win, w, b):
+    """One conv output from a (B, K, C) window: exact products, float32
+    sum, one rounding (the reference's einsum ``bkc,kc->bc``)."""
+    return (win.float() * w.float()).sum(dim=1).to(win.dtype) + b
+
+
+def mamba_block(p: MambaBlock, x, cfg: ModelConfig,
+                cache: Optional[Cache] = None, pos: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Optional[Cache]]:
+    """x: (B, S, D).  Training/prefill when ``pos`` is None; decode
+    otherwise.
+
+    cache = {"state": (B, h, hp, n) float32, "conv_x": (B, K-1, di),
+    "conv_bc": (B, K-1, 2gn)}.  With a cache, prefill starts from its state
+    and writes the final state and the last K-1 raw conv inputs into it;
+    decode takes one token against it and updates the state and the conv
+    windows.  Both update the cache in place and return it (the reference
+    returns a new one with the same values)."""
+    B, S, _ = x.shape
+    di, g, n, h = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
+    hp, K = cfg.ssm_head_dim, cfg.ssm_conv
+
+    z = x @ p.z_proj
+    xr = x @ p.x_proj
+    bc = x @ p.bc_proj
+    dtp = x @ p.dt_proj
+    A = -torch.exp(p.A_log)
+
+    if pos is None:
+        xc = silu(_causal_conv(xr, p.conv_x_w, p.conv_x_b))
+        bcc = silu(_causal_conv(bc, p.conv_bc_w, p.conv_bc_b))
+        xs = xc.reshape(B, S, h, hp)
+        Bm = bcc[..., :g * n].reshape(B, S, g, n)          # strided views
+        Cm = bcc[..., g * n:].reshape(B, S, g, n)
+        dtv = _softplus(dtp.float() + p.dt_bias)
+        init = None if cache is None else cache["state"]
+        y, state = ssd(xs, dtv, A, Bm, Cm, cfg.ssm_chunk,
+                       initial_state=init)
+        y = (y + xs * p.D[None, None, :, None]).reshape(B, S, di)
+        if cache is not None:
+            cache["state"].copy_(state)
+            cache["conv_x"].copy_(F.pad(xr, (0, 0, K - 1, 0))[:, -(K - 1):])
+            cache["conv_bc"].copy_(
+                F.pad(bc, (0, 0, K - 1, 0))[:, -(K - 1):])
+    else:
+        if S != 1:
+            raise ValueError(f"decode takes one token per step, got {S}")
+        win_x = torch.cat([cache["conv_x"], xr], dim=1)
+        win_bc = torch.cat([cache["conv_bc"], bc], dim=1)
+        xc = silu(_conv_step(win_x, p.conv_x_w, p.conv_x_b))
+        bcc = silu(_conv_step(win_bc, p.conv_bc_w, p.conv_bc_b))
+        xs = xc.reshape(B, h, hp)
+        Bm = bcc[:, :g * n].reshape(B, g, n)
+        Cm = bcc[:, g * n:].reshape(B, g, n)
+        dtv = _softplus(dtp[:, 0].float() + p.dt_bias)
+        y_t, state = ssd_decode_step(cache["state"], xs, dtv, A, Bm, Cm)
+        y = (y_t + xs * p.D[None, :, None]).reshape(B, 1, di)
+        cache["state"].copy_(state)
+        cache["conv_x"].copy_(win_x[:, 1:])
+        cache["conv_bc"].copy_(win_bc[:, 1:])
+
+    y = y.to(x.dtype)
+    y = rms_norm(y * silu(z), p.gate_norm, cfg.norm_eps)
+    return (y @ p.out_proj).to(x.dtype), cache
+
+
+def init_mamba_cache(cfg: ModelConfig, batch: int, *, device=None) -> Cache:
+    di, g, n, K = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_conv
+    return {
+        "state": torch.zeros(batch, cfg.ssm_heads, cfg.ssm_head_dim, n,
+                             dtype=torch.float32, device=device),
+        "conv_x": torch.zeros(batch, K - 1, di, dtype=cfg.torch_dtype,
+                              device=device),
+        "conv_bc": torch.zeros(batch, K - 1, 2 * g * n,
+                               dtype=cfg.torch_dtype, device=device),
+    }

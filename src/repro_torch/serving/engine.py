@@ -6,8 +6,12 @@ queued requests is prefilled together (left-padded with token 0, the pad
 tokens attended like any other, as in the reference) and decoded greedily
 in lockstep.  Prefill attention runs the ``flash_attention`` kernel and
 decode attention the ``paged_attention`` kernel over the per-slot cache;
-the memtier ``PagedKVManager`` keeps the two-tier page plan beside it, so
-the paper's write-filtering and bypass behaviour shows in the engine stats.
+Mamba2 prefill runs the ``ssd_scan`` kernel.  The memtier
+``PagedKVManager`` keeps the two-tier page plan beside it, so the paper's
+write-filtering and bypass behaviour shows in the engine stats.  It is
+sized from the config as the reference sizes it, for every family (an
+attention-free model gets one KV head of ``d_model`` values, so its stats
+count pages that no attention reads, as the reference's do).
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ from .._device import resolve_device
 from ..memtier.paged_kv import PagedKVConfig, PagedKVManager
 from ..models import decode_step, prefill
 from ..models.config import ModelConfig
-from ..models.transformer import Transformer, require_dense
+from ..models.transformer import Transformer, require_ported
 
 
 @dataclasses.dataclass
@@ -42,8 +46,8 @@ class ServeConfig:
 
 
 class Engine:
-    """Single-device engine: dense per-slot caches, with the paged pool's
-    bookkeeping kept in parallel by the memtier manager.
+    """Single-device engine: per-slot caches (KV, SSM state or both), with
+    the paged pool's bookkeeping kept in parallel by the memtier manager.
 
     ``device=None`` serves on the CUDA card and raises if there is none;
     the model must already lie on the engine's device.  As in the
@@ -53,7 +57,7 @@ class Engine:
 
     def __init__(self, cfg: ModelConfig, model: Transformer,
                  scfg: ServeConfig, *, device=None):
-        cfg = require_dense(cfg)
+        cfg = require_ported(cfg)
         self.device = resolve_device(device, "Engine")
         wdev = model.embed.tok.device
         if (wdev.type, wdev.index or 0) != (self.device.type,

@@ -59,6 +59,7 @@ def _np(x):
     (256, 256, 4, 2, 64),     # GQA
     (128, 384, 2, 2, 128),    # cross-length (decode-window style)
     (130, 200, 2, 1, 64),     # ragged, MQA
+    (130, 130, 4, 4, 80),     # zamba2-2.7b's head size
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [True, False])
@@ -113,6 +114,7 @@ def test_flash_rejects_bad_shapes():
     (2, 4, 4, 64, 16, 4),
     (3, 8, 2, 64, 32, 8),     # GQA
     (1, 4, 1, 128, 16, 16),   # MQA long
+    (2, 4, 4, 80, 16, 6),     # zamba2-2.7b's head size
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("softcap", [0.0, 30.0])
