@@ -43,10 +43,11 @@ _SIGNATURES = {
     # q, k, v, o, B, S, T, H, KV, hd, causal, softcap, scale, dtype, stream
     "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _F, _F, _I, _P),
-    # q, k_pages, v_pages, block_table, lengths, o, workspace, B, KV, G,
-    # hd, pool, page, n_pages, n_split, softcap, scale, dtype, stream
-    "paged_attention_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                               _I, _I, _I, _I, _F, _F, _I, _P),
+    # q, k_pages, v_pages, block_table, lengths, o, workspace, counters, B,
+    # KV, G, gp, hd, pool, page, n_pages, n_split, softcap, scale, dtype,
+    # stream
+    "paged_attention_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _I, _I, _I, _I, _I, _F, _F, _I, _P),
     # x, dt, A, B, C, bc_row, init, y, final_state, b, l, h, g, p, n,
     # chunk, dtype, stream
     "ssd_scan_launch": (_P, _P, _P, _P, _P, _L, _P, _P, _P, _I, _I, _I, _I,

@@ -1,43 +1,44 @@
-// Flash attention forward, causal or not, with GQA and an optional softcap.
+// Flash attention forward in float32, causal or not, with GQA and an
+// optional softcap, on the FMA pipes.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/
 // flash_attention.py (`_flash_kernel` / `flash_attention_bhsd`) together
-// with its wrapper ops.flash_attention: q (B, S, H, hd) and k/v
-// (B, T, KV, hd) in the model layout, query head h reading KV head
+// with its wrapper ops.flash_attention, for float32 inputs: q (B, S, H, hd)
+// and k/v (B, T, KV, hd) in the model layout, query head h reading KV head
 // h / (H / KV), queries right-aligned to the key timeline
 // (offset = T - S), keys at or past T masked, scores that are masked set to
 // -1e30, out = acc / max(l, 1e-30).  The TPU kernel's sequential kv grid
 // axis becomes a loop inside one CTA; ragged S and T are masked here, so
-// the wrapper neither pads nor repeats the KV heads.
+// the wrapper neither pads nor repeats the KV heads.  bf16 inputs go to the
+// tensor-core kernel in flash_attention_wgmma.cu (flash_attention_launch
+// below dispatches on the type); float32 stays here because a float32
+// product on the tensor cores is TF32, about three decimal digits, and the
+// float32 serving cuts hold the card to the CPU token for token.
 //
 // Design.  One CTA of 256 threads per (batch * head, 64-query block).  The
-// Q tile and each 64-key K tile are staged transposed in shared memory as
-// float32 ([hd][64 + 4]: float4-aligned rows whose pad spreads the banks of
-// the transposed stores), the V tile as [64][hd].  Thread (r, c) owns query
+// Q tile and each 64-key K tile are staged transposed in shared memory
+// ([hd][64 + 4]: float4-aligned rows whose pad spreads the banks of the
+// transposed stores), the V tile as [64][hd].  Thread (r, c) owns query
 // rows 4r..4r+3: it forms their scores against keys 4c..4c+3 (two float4
 // loads per 16 FMAs), the row max and sum reduce over the 16 lanes of a
 // half-warp by shuffles, and the probabilities go through shared memory
 // (over the K tile, which is dead by then) into the P @ V product, where the
 // thread accumulates columns c + 16j of its four rows.  m, l and acc are
 // float32 registers.  Key blocks wholly above the causal diagonal are never
-// visited.  In the bf16 instantiation p is rounded to bf16 before P @ V, as
-// the Pallas kernel's p.astype(v.dtype) does; l sums the unrounded p.
+// visited.
 //
 // What bounds it on an H100: operations.  The causal slice shape
 // (B 4, S = T = 1024, H 16, hd 128) is 2 * 2 * B * H * S * T * hd / 2 =
-// 17.2 GFLOP against 37.7 MB of bf16 inputs and output: ~456 FLOP per byte,
-// above the card's ~295 in bf16, so the floor is the tensor cores'
-// 989 TFLOP/s (17 us).  This first kernel multiplies on the float32 FMA
-// pipes (67 TFLOP/s peak), so it cannot come near that floor: wgmma tiles
-// fed by TMA are the later step.  Shared memory (100 KB at hd 128, 64 KB
-// at zamba2-2.7b's hd 80, where each thread owns NC = 5 output columns)
-// allows two CTAs per SM.
+// 17.2 GFLOP; in float32 (75 MB of inputs and output, ~228 FLOP per byte)
+// the floor is the FMA pipes' 67 TFLOP/s (0.26 ms), and this kernel runs
+// at roughly a fifth of it: a known slow path, kept for exactness.  Shared
+// memory (100 KB at hd 128, 64 KB at zamba2-2.7b's hd 80, where each
+// thread owns NC = 5 output columns) allows two CTAs per SM.
 //
 // Built with --fmad=false like every source of the port (the simulator's
 // float64 EMA needs it); here it only keeps the FMA pipes' products rounded
 // once per multiply-add as written.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -50,19 +51,6 @@ constexpr int THREADS = 256;
 constexpr int LD = BQ + 4;        // row stride of the transposed Q/K tiles
 constexpr int LDP = BK + 1;       // row stride of the probability tile
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename E> __device__ __forceinline__ E from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16(x);
-}
-
 template <int HD>
 struct Smem {
   static constexpr int kQ = HD * LD;
@@ -71,10 +59,10 @@ struct Smem {
   static constexpr size_t bytes = (size_t)(kQ + kK + kV) * sizeof(float);
 };
 
-template <typename E, int HD>
+template <int HD>
 __global__ void __launch_bounds__(THREADS, 2)
-flash_kernel(const E* __restrict__ q, const E* __restrict__ k,
-             const E* __restrict__ v, E* __restrict__ o, int S, int T,
+flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, float* __restrict__ o, int S, int T,
              int H, int KV, int causal, float softcap, float scale) {
   constexpr int NC = HD / 16;               // output columns per thread
   extern __shared__ float smem[];
@@ -97,7 +85,7 @@ flash_kernel(const E* __restrict__ q, const E* __restrict__ k,
     const int row = i / HD, d = i % HD;
     const int s = q0 + row;
     float x = 0.f;
-    if (s < S) x = to_f(q[(((int64_t)b * S + s) * H + h) * HD + d]);
+    if (s < S) x = q[(((int64_t)b * S + s) * H + h) * HD + d];
     qt[d * LD + row] = x;
   }
 
@@ -122,8 +110,8 @@ flash_kernel(const E* __restrict__ q, const E* __restrict__ k,
       float kx = 0.f, vx = 0.f;
       if (t < T) {
         const int64_t off = (((int64_t)b * T + t) * KV + kvh) * HD + d;
-        kx = to_f(k[off]);
-        vx = to_f(v[off]);
+        kx = k[off];
+        vx = v[off];
       }
       kt[d * LD + row] = kx;
       vs[row * HD + d] = vx;
@@ -171,7 +159,7 @@ flash_kernel(const E* __restrict__ q, const E* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         const float e = expf(s[i][j] - m_new);
         sum += e;
-        p[i][j] = to_f(from_f<E>(e));
+        p[i][j] = e;
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
@@ -208,57 +196,63 @@ flash_kernel(const E* __restrict__ q, const E* __restrict__ k,
     const int s = q0 + 4 * r + i;
     if (s >= S) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    E* out = o + (((int64_t)b * S + s) * H + h) * HD;
+    float* out = o + (((int64_t)b * S + s) * H + h) * HD;
 #pragma unroll
-    for (int j = 0; j < NC; ++j) out[c + 16 * j] = from_f<E>(acc[i][j] / denom);
+    for (int j = 0; j < NC; ++j) out[c + 16 * j] = acc[i][j] / denom;
   }
 }
 
-template <typename E, int HD>
+template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int S, int T, int H, int KV, int causal, float softcap,
            float scale, cudaStream_t stream) {
   constexpr size_t smem = Smem<HD>::bytes;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_kernel<E, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((S + BQ - 1) / BQ, B * H);
-  flash_kernel<E, HD><<<grid, THREADS, smem, stream>>>(
-      static_cast<const E*>(q), static_cast<const E*>(k),
-      static_cast<const E*>(v), static_cast<E*>(o), S, T, H, KV, causal,
-      softcap, scale);
+  flash_kernel<HD><<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), S, T, H, KV,
+      causal, softcap, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename E>
 int dispatch(const void* q, const void* k, const void* v, void* o, int B,
              int S, int T, int H, int KV, int hd, int causal, float softcap,
              float scale, cudaStream_t st) {
   switch (hd) {
     case 16:
-      return launch<E, 16>(q, k, v, o, B, S, T, H, KV, causal, softcap,
-                           scale, st);
+      return launch<16>(q, k, v, o, B, S, T, H, KV, causal, softcap, scale,
+                        st);
     case 32:
-      return launch<E, 32>(q, k, v, o, B, S, T, H, KV, causal, softcap,
-                           scale, st);
+      return launch<32>(q, k, v, o, B, S, T, H, KV, causal, softcap, scale,
+                        st);
     case 64:
-      return launch<E, 64>(q, k, v, o, B, S, T, H, KV, causal, softcap,
-                           scale, st);
+      return launch<64>(q, k, v, o, B, S, T, H, KV, causal, softcap, scale,
+                        st);
     case 80:
-      return launch<E, 80>(q, k, v, o, B, S, T, H, KV, causal, softcap,
-                           scale, st);
+      return launch<80>(q, k, v, o, B, S, T, H, KV, causal, softcap, scale,
+                        st);
     case 128:
-      return launch<E, 128>(q, k, v, o, B, S, T, H, KV, causal, softcap,
-                            scale, st);
+      return launch<128>(q, k, v, o, B, S, T, H, KV, causal, softcap, scale,
+                         st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
-// launch (or the error that refused it).
+// The tensor-core kernel of flash_attention_wgmma.cu (bf16 only).
+int flash_attention_wgmma(const void* q, const void* k, const void* v,
+                          void* o, int B, int S, int T, int H, int KV, int hd,
+                          int causal, float softcap, float scale,
+                          cudaStream_t stream);
+
+// dtype: 0 = float32 (this file's FMA kernel), 1 = bfloat16 (the wgmma
+// kernel).  Returns cudaGetLastError() after the launch (or the error that
+// refused it).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int S,
                                       int T, int H, int KV, int hd,
@@ -268,10 +262,10 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch<float>(q, k, v, o, B, S, T, H, KV, hd, causal, softcap,
-                           scale, st);
+    return dispatch(q, k, v, o, B, S, T, H, KV, hd, causal, softcap, scale,
+                    st);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, o, B, S, T, H, KV, hd, causal,
-                                   softcap, scale, st);
+    return flash_attention_wgmma(q, k, v, o, B, S, T, H, KV, hd, causal,
+                                 softcap, scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,8 +1,11 @@
 """Public wrapper: model-layout flash attention.
 
-On CUDA tensors :func:`flash_attention` launches the kernel in
-``csrc/flash_attention.cu``; on CPU tensors it runs the plain version in
-``ref.py``.  Any other placement raises.
+On CUDA tensors :func:`flash_attention` launches a kernel chosen by the
+inputs' type: bf16 the tensor-core kernel in ``csrc/flash_attention_wgmma.cu``,
+float32 the FMA kernel in ``csrc/flash_attention.cu`` (a float32 product on
+the tensor cores would be TF32).  That is dispatch on the type, not a
+fallback: a bf16 call the wgmma kernel refuses raises.  On CPU tensors it
+runs the plain version in ``ref.py``.  Any other placement raises.
 """
 
 from __future__ import annotations
@@ -14,7 +17,19 @@ import torch
 from ... import _build
 from .ref import flash_attention_reference
 
-HEAD_DIMS = (16, 32, 64, 80, 128)   # the kernel's instantiations
+HEAD_DIMS = (16, 32, 64, 80, 128)   # the kernels' instantiations
+DESIGNS = {torch.bfloat16: "wgmma", torch.float32: "fma"}
+
+
+def check_kernel_shape(hd: int, dtype: torch.dtype) -> str:
+    """The kernel design that runs this head dim and element type on the
+    card ("wgmma" for bf16, "fma" for float32); raises for any other."""
+    if dtype not in DESIGNS:
+        raise ValueError(f"flash_attention: dtype {dtype} not supported "
+                         "(float32 or bfloat16)")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
+    return DESIGNS[dtype]
 
 
 def flash_attention(q, k, v, *, causal: bool = True, softcap: float = 0.0):
@@ -40,10 +55,12 @@ def flash_attention(q, k, v, *, causal: bool = True, softcap: float = 0.0):
     code = _build.dtype_code("flash_attention", q)
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError("flash_attention: q, k and v differ in dtype")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
+    design = check_kernel_shape(hd, q.dtype)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k and v must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: q, k and v must be 16-byte "
+                         "aligned")
     out = torch.empty_like(q)
     lib = _build.library()
     with torch.cuda.device(q.device):
@@ -51,6 +68,7 @@ def flash_attention(q, k, v, *, causal: bool = True, softcap: float = 0.0):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, S, T, H, KV, hd, int(causal), float(softcap),
             1.0 / math.sqrt(hd), code, _build.stream_ptr(q))
-    _build.check(err, "flash_attention")
+    _build.check(err, f"flash_attention ({design})")
     _build.count("flash_attention")
+    _build.count(f"flash_attention.{design}")
     return out

@@ -4,7 +4,11 @@ On CUDA tensors :func:`paged_decode_attention` launches the kernel in
 ``csrc/paged_attention.cu``; on CPU tensors it runs the plain version in
 ``ref.py``.  Any other placement raises.  A live page whose table entry
 lies outside the pool fails a device-side assert inside the kernel (see
-the source note), so the wrapper queues no check of its own.
+the source note), so the wrapper queues no check of its own.  The kernel
+is one launch: the CTA that finishes a (sequence, KV head) last merges its
+splits, counted on int32 tickets that the kernel leaves zero.  The tickets
+are one buffer per device, so calls on one device run on one stream at a
+time (as the serving path's do).
 """
 
 from __future__ import annotations
@@ -16,6 +20,31 @@ import torch
 from ... import _build
 from .ref import paged_attention_reference
 
+HEAD_DIMS = (16, 32, 64, 80, 128)   # head dims the kernel is held to
+MAX_GP = 8                          # query heads per CTA (G > 8: chunks)
+MAX_SPLITS = 64                     # CTAs per (sequence, KV head)
+
+_counters = {}                      # device -> int32 tickets, kept zero
+
+
+def check_kernel_shape(hd: int, dtype: torch.dtype) -> None:
+    """Raise unless the kernel takes this head dim and element type."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"paged_decode_attention: dtype {dtype} not "
+                         "supported (float32 or bfloat16)")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"paged_decode_attention: head_dim {hd} not in "
+                         f"{HEAD_DIMS}")
+
+
+def _ticket_counters(device, n: int):
+    """The kernel's per-(sequence, KV head) ticket counters: zeroed once
+    when (re)allocated, and every call leaves them zero again."""
+    buf = _counters.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _counters[device] = buf
+    return buf
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_table, lengths, *,
@@ -54,23 +83,31 @@ def paged_decode_attention(q, k_pages, v_pages, block_table, lengths, *,
     if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
         raise ValueError("paged_decode_attention: q and the pools differ in "
                          "dtype")
+    check_kernel_shape(hd, q.dtype)
     tensors = (q, k_pages, v_pages, block_table, lengths)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_decode_attention: inputs must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
+        raise ValueError("paged_decode_attention: q and the pools must be "
+                         "16-byte aligned")
     n_pages = block_table.shape[1]
+    gp = min(MAX_GP, 1 << (G - 1).bit_length())
+    pairs = B * KV * -(-G // gp)
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    # split each sequence's pages over enough CTAs for ~2 per SM
-    n_split = max(1, min(n_pages, -(-2 * sms // max(1, B * KV))))
+    # split each sequence's pages over enough CTAs to fill the card once
+    n_split = max(1, min(n_pages, MAX_SPLITS, -(-sms // max(1, pairs))))
     out = torch.empty_like(q)
-    ws = torch.empty(B * KV * n_split * G * (hd + 2), dtype=torch.float32,
+    ws = torch.empty(pairs * n_split * gp * (hd + 4), dtype=torch.float32,
                      device=q.device)
+    counters = _ticket_counters(q.device, pairs)
     lib = _build.library()
     with torch.cuda.device(q.device):
         err = lib.paged_attention_launch(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            ws.data_ptr(), B, KV, G, hd, pool, page, n_pages, n_split,
-            float(softcap), 1.0 / math.sqrt(hd), code, _build.stream_ptr(q))
+            ws.data_ptr(), counters.data_ptr(), B, KV, G, gp, hd, pool, page,
+            n_pages, n_split, float(softcap), 1.0 / math.sqrt(hd), code,
+            _build.stream_ptr(q))
     _build.check(err, "paged_attention")
     _build.count("paged_attention")
     return out

@@ -24,8 +24,10 @@ from repro.kernels.paged_attention.ops import \
     paged_decode_attention as jax_paged
 from repro.models import layers as JL
 
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCH_IDS, PAPER_CASES, get_config
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.paged_attention.ops import paged_decode_attention
 from repro_torch.models import layers as TL
 
@@ -193,6 +195,39 @@ def test_paged_rejects_bad_inputs():
     with pytest.raises(ValueError, match="do not match batch"):
         paged_decode_attention(q, pool, pool, table,
                                torch.ones(3, dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# head dims the card's kernels take
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
+@pytest.mark.parametrize("arch", list(ARCH_IDS) + list(PAPER_CASES))
+def test_config_head_dims_have_kernels(arch, smoke):
+    """Every registered config with attention heads has a head dim, at its
+    dtype (and in float32, the type of the card-vs-CPU cuts), that both
+    attention kernels are built for: flash_attention by the wgmma kernel in
+    bf16 and the FMA kernel in float32, paged_attention in either.  A
+    kernel that drops an instantiation fails here, not on the card."""
+    cfg = get_config(arch, smoke=smoke)
+    if cfg.n_heads == 0:
+        assert cfg.family == "ssm"          # no attention layer at all
+        return
+    want = {torch.bfloat16: "wgmma", torch.float32: "fma"}
+    for dt in {cfg.torch_dtype, torch.float32}:
+        assert flash_ops.check_kernel_shape(cfg.hd, dt) == want[dt]
+        paged_ops.check_kernel_shape(cfg.hd, dt)
+
+
+def test_kernel_shape_checks_refuse_the_rest():
+    with pytest.raises(ValueError, match="head_dim 96"):
+        flash_ops.check_kernel_shape(96, torch.bfloat16)
+    with pytest.raises(ValueError, match="float16"):
+        flash_ops.check_kernel_shape(128, torch.float16)
+    with pytest.raises(ValueError, match="head_dim 256"):
+        paged_ops.check_kernel_shape(256, torch.float32)
+    with pytest.raises(ValueError, match="float16"):
+        paged_ops.check_kernel_shape(64, torch.float16)
 
 
 # ---------------------------------------------------------------------------
