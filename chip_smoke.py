@@ -12,9 +12,13 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                on the same inputs, exactly (integer outputs and the
                rounded float64 EMA): amil_probe at 256 and 8192 table
                lanes x 2^20 requests; hms_scan + ema_scan on the golden
-               trace under all 8 policies and on one workload at its full
+               trace under all 8 policies (and 48 CTC ways of 64, two a
+               thread in the kernel) and on one workload at its full
                default size (there the plain step loop runs once, timed
-               and compared).  Times each kernel and its plain version.
+               and compared).  Each hms_scan row names its domains per
+               lane, its longest chain and both bounds (longest chain,
+               and one chain per lane).  Times each kernel's wrapper call
+               and its plain version, and hms_scan's kernel alone.
   4. sweep   - the 12-point grid of benchmarks/baselines/BENCH_sweep.json
                on its 3 workloads at n = 20000, against the committed
                counters and runtimes (integer-valued counters exactly,
@@ -127,6 +131,9 @@ GOLDEN_CONFIGS = [
     {"policy": "redcache"},
     {"policy": "no_bypass_no_ctc", "throttle_wr": True},
 ]
+# 48 enabled CTC ways of 64 allocated, two CTC sets: the scan kernel's rows
+# of two ways per thread, with disabled ways
+WIDE_CTC = {"ctc_ways": 48, "ctc_fraction": 1.0}
 
 _OUT = None
 T0 = time.perf_counter()
@@ -285,6 +292,50 @@ def compare_counters(got, ref, what: str) -> None:
     need(not bad, f"{what}: counters differ {bad[:4]}")
 
 
+# ---- the scan kernels ---------------------------------------------------------
+
+def plain_scan(scan_ref, s):
+    """The plain version of hms_scan on scan inputs ``s`` (the sequential
+    walk takes every keyword but the row-group size)."""
+    kw = {k: v for k, v in s["scan"].items() if k != "spg"}
+    return scan_ref.hms_scan_reference(s["slot"], s["meta"], **kw)
+
+
+def device_ms(torch, fn, needle: str, reps: int = 3) -> float:
+    """Median device time of one launch of the kernel whose name holds
+    ``needle``, from torch.profiler over ``reps`` calls of ``fn`` after a
+    warm-up: the kernel alone, without the wrapper's checks and copies
+    around it (the profiler may miss a launch; each seen one counts)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and needle in e.name]
+    need(bool(times), f"the profiler saw no {needle} kernel")
+    return statistics.median(times)
+
+
+def scan_bounds(scan_ops, s, cycle_ms):
+    """The scan's plan and bounds on inputs ``s``: the longest (lane,
+    domain) chain at STEP_CYCLES a step (the bound), the old one-chain-per-
+    lane bound, and the bytes bound (16 B a step: slot, meta, y)."""
+    plan = scan_ops.scan_plan(s["slot"], s["meta"], **s["scan"])
+    lanes, depth = s["slot"].shape
+    chain_ms = plan.longest_chain * STEP_CYCLES * cycle_ms
+    bytes_ms = lanes * depth * 16 / HBM_BYTES_PER_S * 1e3
+    return {"domains": plan.domains, "longest_chain": plan.longest_chain,
+            "bound_ms": max(chain_ms, bytes_ms),
+            "bound_by": "operations" if chain_ms >= bytes_ms else "bytes",
+            "lane_bound_ms": depth * STEP_CYCLES * cycle_ms,
+            "bytes_bound_ms": bytes_ms}
+
+
 # ---- attention kernels and the serving path --------------------------------
 
 def dtype_name(dt) -> str:
@@ -372,8 +423,18 @@ def flash_checks(torch, dev, flush):
                     <= torch.arange(S, device=dev)[:, None] + (T - S)
                 run_l = lambda: sdpa(qt, kt, vt, attn_mask=mask,
                                      enable_gqa=True)
-            event_ms(torch, run_l, reps=3, flush=flush)
-            library_ms = event_ms(torch, run_l, reps=20, flush=flush)
+            # float32: SDPA with TF32 off for matmuls and cuDNN, as the
+            # kernel computes in full float32
+            tf32 = (torch.backends.cuda.matmul.allow_tf32,
+                    torch.backends.cudnn.allow_tf32)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+            try:
+                event_ms(torch, run_l, reps=3, flush=flush)
+                library_ms = event_ms(torch, run_l, reps=20, flush=flush)
+            finally:
+                (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32) = tf32
         row = {"name": "flash_attention", "case": case,
                "design": designs[0],
                "shape": {"B": B, "S": S, "T": T, "H": H, "KV": KV, "hd": hd},
@@ -1104,13 +1165,12 @@ def main(argv=None) -> int:
         emit({"phase": "kernel_vs_plain", **row})
         summary["amil_probe"] = row                # the 8192-lane case
 
-    for kw in GOLDEN_CONFIGS:
+    for kw in GOLDEN_CONFIGS + [WIDE_CTC]:
         t = golden_trace(T)
         cfg = T.HMSConfig(footprint=t.footprint, **kw).validate()
         s = sim.scan_inputs(t, cfg, dev)
+        want = plain_scan(scan_ref, s)
         got = scan_ops.hms_scan(s["slot"], s["meta"], **s["scan"])
-        want = scan_ref.hms_scan_reference(s["slot"], s["meta"], **s["scan"])
-        torch.cuda.synchronize()
         err = max(same(torch, a, b) for a, b in zip(got, want))
         pen = s["derived"]["pen64"]
         w = float(s["params"]["ema_weight"])
@@ -1119,6 +1179,7 @@ def main(argv=None) -> int:
         need(int((got[0] & 1).sum()) > 0, "golden trace never hits")
         emit({"phase": "kernel_vs_plain", "name": "hms_scan+ema_scan",
               "trace": "golden", "config": kw, "depth": s["slot"].shape[1],
+              **scan_bounds(scan_ops, s, cycle_ms),
               "max_abs_err": err, "ema_max_abs_err": ema_err,
               "hits": int((got[0] & 1).sum())})
 
@@ -1128,21 +1189,24 @@ def main(argv=None) -> int:
     s = sim.scan_inputs(t, cfg, dev)
     depth = s["slot"].shape[1]
     run_k = lambda: scan_ops.hms_scan(s["slot"], s["meta"], **s["scan"])
-    run_p = lambda: scan_ref.hms_scan_reference(s["slot"], s["meta"],
-                                                **s["scan"])
+    run_p = lambda: plain_scan(scan_ref, s)
     got = run_k()
     # the plain step loop takes minutes at this size: its one run is both
     # timed and compared
     plain = []
     plain_ms = event_ms(torch, lambda: plain.append(run_p()), reps=1)
     err = max(same(torch, a, b) for a, b in zip(got, plain[0]))
+    # ms: the wrapper's call (plan, chain sort, kernel, scatter back), as
+    # a caller sees it; kernel_ms: the kernel alone
     ms = event_ms(torch, run_k, reps=3, flush=flush)
+    kernel_ms = device_ms(torch, run_k, "hms_chain_kernel")
+    bounds = scan_bounds(scan_ops, s, cycle_ms)
     summary["hms_scan"] = {
-        "name": "hms_scan", "trace": t.name, "depth": depth,
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": depth * STEP_CYCLES * cycle_ms,
-        "bytes_bound_ms": depth * 16 / HBM_BYTES_PER_S * 1e3,
-        "bound_by": "operations", "library_ms": None}
+        "name": "hms_scan", "trace": t.name, "depth": depth, **bounds,
+        "max_abs_err": err, "ms": ms, "kernel_ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "ns_per_chain_step": kernel_ms * 1e6 / bounds["longest_chain"],
+        "library_ms": None}
     emit({"phase": "kernel_vs_plain", **summary["hms_scan"]})
     pen = s["derived"]["pen64"]
     w = float(s["params"]["ema_weight"])
@@ -1150,6 +1214,7 @@ def main(argv=None) -> int:
     plain_ms = event_ms(
         torch, lambda: plain.append(scan_ref.ema_scan_reference(pen, w)))
     err = same(torch, scan_ops.ema_scan(pen, w), plain[0])
+    # the wrapper launches nothing but the kernel: its events time it
     ms = event_ms(torch, lambda: scan_ops.ema_scan(pen, w), reps=3,
                   flush=flush)
     summary["ema_scan"] = {
@@ -1252,8 +1317,9 @@ def main(argv=None) -> int:
     main_launches = dict(_build.launches)
     peak = torch.cuda.max_memory_allocated()
     for k in ("hms_scan", "ema_scan"):
-        need(main_launches.get(k, 0) > 0, f"{k} was never launched on the "
-             "main path")
+        need(main_launches.get(k, 0) == 4 * len(rows), f"{k}: "
+             f"{main_launches.get(k, 0)} launches on the main path, not one "
+             f"per simulate ({4 * len(rows)})")
     emit({"phase": "main_done", "runs": len(rows), "launches": main_launches,
           "peak_mem_bytes": peak})
 
@@ -1263,12 +1329,20 @@ def main(argv=None) -> int:
                             dev)
         pen = s["derived"]["pen64"]
         w = float(s["params"]["ema_weight"])
-        scan_ms = event_ms(torch, lambda: scan_ops.hms_scan(
-            s["slot"], s["meta"], **s["scan"]), reps=3)
+        run_s = lambda: scan_ops.hms_scan(s["slot"], s["meta"], **s["scan"])
+        call_ms = event_ms(torch, run_s, reps=3)
+        scan_ms = device_ms(torch, run_s, "hms_chain_kernel")
         ema_ms = event_ms(torch, lambda: scan_ops.ema_scan(pen, w), reps=3)
+        plan = scan_bounds(scan_ops, s, cycle_ms)
         emit({"phase": "breakdown", "workload": name, "n": t.n,
-              "hms_scan_ms": scan_ms, "ema_scan_ms": ema_ms,
-              "scan_ns_per_step": scan_ms * 1e6 / t.n})
+              "hms_scan_ms": scan_ms, "hms_scan_call_ms": call_ms,
+              "ema_scan_ms": ema_ms,
+              "scan_ns_per_step": scan_ms * 1e6 / t.n,
+              "domains": plan["domains"],
+              "longest_chain": plan["longest_chain"],
+              "scan_ns_per_chain_step":
+                  scan_ms * 1e6 / max(plan["longest_chain"], 1),
+              "ema_ns_per_step": ema_ms * 1e6 / t.n})
 
     # the scan kernel's time per policy, on one full-size workload: which
     # parts of the step (CTC rows, affinity rule) cost what
@@ -1276,12 +1350,18 @@ def main(argv=None) -> int:
     for kw in GOLDEN_CONFIGS:
         s = sim.scan_inputs(
             t, T.HMSConfig(footprint=t.footprint, **kw).validate(), dev)
-        scan_ms = event_ms(torch, lambda: scan_ops.hms_scan(
-            s["slot"], s["meta"], **s["scan"]), reps=2)
+        scan_ms = device_ms(torch, lambda: scan_ops.hms_scan(
+            s["slot"], s["meta"], **s["scan"]), "hms_chain_kernel", reps=2)
+        plan = scan_bounds(scan_ops, s, cycle_ms)
         emit({"phase": "policy_breakdown", "workload": t.name, "config": kw,
               "ctc_ways": s["scan"]["ways_alloc"],
               "ctc_sets": s["scan"]["sets_alloc"], "hms_scan_ms": scan_ms,
-              "scan_ns_per_step": scan_ms * 1e6 / t.n})
+              "scan_ns_per_step": scan_ms * 1e6 / t.n,
+              "domains": plan["domains"],
+              "longest_chain": plan["longest_chain"],
+              "scan_ns_per_chain_step":
+                  scan_ms * 1e6 / max(plan["longest_chain"], 1),
+              "bound_ms": plan["bound_ms"]})
 
     # the AMIL probe's own path: its wrapper at the table sizes it names
     _build.reset_counts()

@@ -36,7 +36,9 @@ _I = ctypes.c_int
 _L = ctypes.c_int64
 _F = ctypes.c_float
 _SIGNATURES = {
-    "hms_scan_launch": (_I, _P, _P, _I, _L, _P, _L, _P, _I, _I, _I, _I, _P,
+    # policy, slot, meta, offsets, lanes, cache, lines_alloc, ctc,
+    # sets_alloc, ways_alloc, e_ways, n_domains, y, stream
+    "hms_scan_launch": (_I, _P, _P, _P, _I, _P, _L, _P, _I, _I, _I, _I, _P,
                         _P),
     "ema_scan_launch": (_P, _L, ctypes.c_double, _P, _P),
     "amil_probe_launch": (_P, _I, _P, _P, _L, _P, _P, _P, _I, _P),

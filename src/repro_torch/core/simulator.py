@@ -15,10 +15,11 @@ Engine layout (one ``simulate`` call):
   * The per-request-pure precompute runs in torch on the device: SCM penalty
     scores, running maxima, discretized levels, the xorshift dice and fill
     candidacy.  The float64 penalty EMA is a sequential recurrence; it runs
-    as the one-thread ``ema_scan`` kernel.
+    as the ``ema_scan`` kernel (one CTA, the chain read from shared memory).
   * The stateful core — packed DRAM-cache words and CTC rows — is the
-    ``hms_scan`` kernel: one thread per shard lane walks its requests in
-    order and emits one int32 decision word per request.
+    ``hms_scan`` kernel: one warp per (shard lane, CTC set) walks that set's
+    requests in order (without a CTC, per row-group residue) and emits one
+    int32 decision word per request.
   * The decision words are scattered back to trace order and every counter
     is reduced vectorially on the device (segment sums per phase for
     scenario traces); ``_finish`` turns the counters into runtime, traffic
@@ -468,7 +469,8 @@ def scan_inputs(trace: Trace, cfg: HMSConfig, dev) -> Dict[str, object]:
                 e_ways=int(p["ctc_ways"]) if use_ctc else 1,
                 n_sets=n_sets, lines_alloc=key.lines_alloc,
                 sets_alloc=key.ctc_sets_alloc,
-                ways_alloc=key.ctc_ways_alloc, sectors=key.ctc_sectors)
+                ways_alloc=key.ctc_ways_alloc, sectors=key.ctc_sectors,
+                spg=cfg.lines_per_row * cfg.ctc_sectors_per_line)
     return dict(key=key, xs=xs, params=p, slot=slot, meta=meta,
                 derived=derived, scan=scan)
 

@@ -277,7 +277,7 @@ def test_wrappers_refuse_mixed_devices():
     with pytest.raises(ValueError):
         scan_ops.hms_scan(slot, meta, policy="hms", e_ways=1, n_sets=1,
                           lines_alloc=8, sets_alloc=1, ways_alloc=1,
-                          sectors=8)
+                          sectors=8, spg=8)
     with pytest.raises(ValueError):
         probe_ops.amil_probe(torch.zeros(8, dtype=torch.int32),
                              torch.zeros(4, dtype=torch.int32),
