@@ -12,8 +12,9 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                on the same inputs, exactly (integer outputs and the
                rounded float64 EMA): amil_probe at 256 and 8192 table
                lanes x 2^20 requests; hms_scan + ema_scan on the golden
-               trace under all 8 policies (and 48 CTC ways of 64, two a
-               thread in the kernel) and on one workload at its full
+               trace under all 8 policies (and 48 CTC ways of 64 and 96 of
+               128: two and four a thread in the kernel) and on one
+               workload at its full
                default size (there the plain step loop runs once, timed
                and compared).  Each hms_scan row names its domains per
                lane, its longest chain and both bounds (longest chain,
@@ -31,7 +32,9 @@ Phases, each printed as one JSON line; any failure exits non-zero:
   5. main    - ``simulate`` with the default HMSConfig on every registered
                workload (12 generators + 5 scenarios) at its default size,
                plus zipf at 10^6 requests, through the scan kernels; launch
-               counts are reset just before and read just after.
+               counts are reset just before and read just after.  Each of
+               the 5 phased scenarios' counters and per-phase counters
+               must be bit-identical over its 4 runs and at S = 4 lanes.
   6. serving kernels against their plain versions: flash_attention at the
                serving slice's shape (B 4, S = T = 1024, 16 heads over 2 KV
                heads, hd 128; bf16 and float32, ragged, non-causal, softcap
@@ -50,7 +53,11 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                (y and final state) at mamba2-1.3b's prefill shape (B 4,
                L 1024, H 64, P 64, G 1, N 128, chunk 128) and zamba2's
                (H 80, N 64) in bf16 and float32, ragged L 11 and 130, a
-               nonzero initial state and G = 2 (see ``ssd_checks``).
+               nonzero initial state, G = 2 and the smoke configs' shape
+               (P 16, N 16) (see ``ssd_checks``): bf16 must run the
+               tensor-core kernel, float32 the FMA kernel.  Then
+               ``repro_torch.launch.serve --arch mamba2-1.3b --smoke`` on
+               the card (``smoke_serve``).
   7. serve   - qwen2.5-3b at full width (36 layers, bf16, random weights
                from seed 0) through ``repro_torch.serving.Engine``: (a) the
                launcher's traffic (8 requests of 4-12 tokens, 16 new
@@ -59,8 +66,9 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                prefill and decode times, tokens/s, peak memory, KV stats,
                and the launches of each kernel against ``path_launches``
                (counts reset just before, read just after: bf16 prefill
-               only through the wgmma design, one paged_attention launch
-               per attention layer and decode step); a
+               only through the wgmma design and ssd_scan only through the
+               tensor-core one, one paged_attention launch per attention
+               layer and decode step); a
                torch.profiler window over one prefill and 3 decode steps of
                each gives the device's busy share and its top kernels.
                Then paged_attention on the identity table of (b)'s real
@@ -131,9 +139,10 @@ GOLDEN_CONFIGS = [
     {"policy": "redcache"},
     {"policy": "no_bypass_no_ctc", "throttle_wr": True},
 ]
-# 48 enabled CTC ways of 64 allocated, two CTC sets: the scan kernel's rows
-# of two ways per thread, with disabled ways
-WIDE_CTC = {"ctc_ways": 48, "ctc_fraction": 1.0}
+# 48 enabled CTC ways of 64 allocated, and 96 of 128: the scan kernel's rows
+# of two and four ways per thread, with disabled ways
+WIDE_CTC = [{"ctc_ways": 48, "ctc_fraction": 1.0},
+            {"ctc_ways": 96, "ctc_fraction": 1.0}]
 
 _OUT = None
 T0 = time.perf_counter()
@@ -290,6 +299,16 @@ def counter_diffs(got, ref):
 def compare_counters(got, ref, what: str) -> None:
     bad = counter_diffs(got, ref)
     need(not bad, f"{what}: counters differ {bad[:4]}")
+
+
+def counter_bits(r) -> dict:
+    """The raw float64 bytes of every counter and per-phase counter of a
+    SimResult: two runs that must agree bit for bit compare these."""
+    import numpy as np
+    bits = {k: np.float64(v).tobytes() for k, v in r.counters.items()}
+    for k, v in (r.phase_counters or {}).items():
+        bits["phase:" + k] = np.asarray(v, np.float64).tobytes()
+    return bits
 
 
 # ---- the scan kernels ---------------------------------------------------------
@@ -571,14 +590,18 @@ def ssd_checks(torch, dev, flush):
     sums in another order), bf16 y to 2e-2 (both round one float32 value
     to bf16; they differ where that value straddles a rounding step).  B
     and C are column slices of one (b, l, 2gn) projection, as the model
-    hands them over.  Returns the mamba2 bf16 row."""
+    hands them over.  Each row names the design that ran (bf16: the
+    tensor-core kernel, float32: the FMA kernel, from the launch counts)
+    and its CTAs per SM.  Returns the mamba2 bf16 row."""
+    from repro_torch import _build
     from repro_torch.kernels.ssd_scan import ops, ref
     g = torch.Generator(device=dev).manual_seed(15)
     bf16, f32 = torch.bfloat16, torch.float32
-    mamba = (64, 1, 128)                # H, G, n of mamba2-1.3b
-    zamba = (80, 1, 64)                 # of zamba2-2.7b
+    mamba = (64, 1, 128, 64)            # H, G, n, p of mamba2-1.3b
+    zamba = (80, 1, 64, 64)             # of zamba2-2.7b
+    smoke = (8, 1, 16, 16)              # of both smoke configs
     rows = {}
-    for case, b, l, (h, G, n), dt_, init in (
+    for case, b, l, (h, G, n, p), dt_, init in (
             ("mamba2", 4, 1024, mamba, bf16, False),
             ("mamba2_float32", 4, 1024, mamba, f32, False),
             ("zamba2", 4, 1024, zamba, bf16, False),
@@ -587,8 +610,11 @@ def ssd_checks(torch, dev, flush):
             ("ragged_130", 4, 130, zamba, bf16, False),
             ("initial_state", 4, 1024, mamba, bf16, True),
             ("initial_state_float32", 2, 300, zamba, f32, True),
-            ("groups_2", 2, 512, (64, 2, 128), bf16, False)):
-        p, chunk = 64, 128
+            ("groups_2", 2, 512, (64, 2, 128, 64), bf16, False),
+            ("smoke", 4, 1024, smoke, bf16, False),
+            ("smoke_float32", 4, 1024, smoke, f32, False),
+            ("smoke_ragged_initial_state", 2, 200, smoke, bf16, True)):
+        chunk = 128
         x = (torch.randn(b, l, h, p, generator=g, device=dev) * 0.5).to(dt_)
         dt = torch.rand(b, l, h, generator=g, device=dev) * 0.5 + 0.1
         A = -(torch.rand(h, generator=g, device=dev) * 0.5 + 0.5)
@@ -601,8 +627,13 @@ def ssd_checks(torch, dev, flush):
         run_k = lambda: ops.ssd(x, dt, A, Bm, Cm, chunk, initial_state=s0)
         run_p = lambda: ref.ssd_plain(x, dt, A, Bm, Cm, chunk,
                                       initial_state=s0)
+        _build.reset_counts()
         (y, st), (yw, sw) = run_k(), run_p()
         torch.cuda.synchronize()
+        design = [k.split(".")[1] for k, v in _build.launches.items()
+                  if k.startswith("ssd_scan.") and v]
+        want = "mma" if dt_ == bf16 else "fma"
+        need(design == [want], f"ssd {case}: ran {design}, not {want}")
         tol = 2e-2 if dt_ == bf16 else 3e-4
         need(y.shape == yw.shape and y.dtype == yw.dtype, f"ssd {case}: y")
         need(bool(torch.isfinite(y.float()).all())
@@ -621,6 +652,8 @@ def ssd_checks(torch, dev, flush):
                "shape": {"b": b, "l": l, "h": h, "p": p, "g": G, "n": n,
                          "chunk": chunk},
                "dtype": dtype_name(dt_), "initial_state": init,
+               "design": want,
+               "blocks_per_sm": ops.blocks_per_sm(p, n, chunk, dt_),
                "max_abs_err": max(err, serr), "y_max_abs_err": err,
                "state_max_abs_err": serr,
                "y_scale": float(yw.float().abs().max()),
@@ -673,18 +706,21 @@ def path_launches(cfg):
     attention layer runs flash_attention in prefill (bf16 through the
     wgmma kernel only, float32 through the FMA kernel only: the
     ``flash_attention.<design>`` counts) and paged_attention, one launch,
-    in decode; every Mamba2 layer runs ssd_scan in prefill (its decode step
-    is plain torch ops); the hybrid applies its shared attention block
-    after every ``attn_every`` Mamba2 layers."""
+    in decode; every Mamba2 layer runs ssd_scan in prefill (bf16 through
+    the tensor-core kernel only, float32 through the FMA kernel only: the
+    ``ssd_scan.<design>`` counts; its decode step is plain torch ops); the
+    hybrid applies its shared attention block after every ``attn_every``
+    Mamba2 layers."""
     L = cfg.n_layers
-    design = "flash_attention." + ("wgmma" if cfg.dtype == "bfloat16"
-                                   else "fma")
+    bf16 = cfg.dtype == "bfloat16"
+    design = "flash_attention." + ("wgmma" if bf16 else "fma")
+    ssd = {"ssd_scan": L, "ssd_scan." + ("mma" if bf16 else "fma"): L}
     if cfg.family == "dense":
         return {"flash_attention": L, design: L}, {"paged_attention": L}
     if cfg.family == "ssm":
-        return {"ssd_scan": L}, {}
+        return ssd, {}
     n_attn = L // cfg.attn_every
-    return {"ssd_scan": L, "flash_attention": n_attn, design: n_attn}, \
+    return {**ssd, "flash_attention": n_attn, design: n_attn}, \
         {"paged_attention": n_attn}
 
 
@@ -825,10 +861,14 @@ def decode_profile(torch, dev, model, cfg, scfg, traffic, name, steps=3):
                                                   "flash_wgmma_kernel"),
               "prefill_flash_fma": kernel_count(torch, pprof,
                                                 "flash_kernel"),
+              "prefill_ssd_mma": kernel_count(torch, pprof, "ssd_mma_kernel"),
+              "prefill_ssd_fma": kernel_count(torch, pprof, "ssd_fma_kernel"),
               "decode_paged": kernel_count(torch, prof, "paged_kernel")}
     want = {"prefill_flash_wgmma": per_prefill.get("flash_attention.wgmma",
                                                    0),
             "prefill_flash_fma": per_prefill.get("flash_attention.fma", 0),
+            "prefill_ssd_mma": per_prefill.get("ssd_scan.mma", 0),
+            "prefill_ssd_fma": per_prefill.get("ssd_scan.fma", 0),
             "decode_paged": per_decode.get("paged_attention", 0) * steps}
     for k in counts:
         seen = pkern if k.startswith("prefill") else kernels
@@ -987,6 +1027,48 @@ def serve_card_vs_cpu(torch, dev, arch: str, n_layers: int,
          f"{cfg.name} bf16: the card's logits are {extra['card_vs_float32']}"
          f" from the float32 run, the CPU path's "
          f"{extra['cpu_vs_float32']}")
+    return row
+
+
+def smoke_serve(torch) -> dict:
+    """``python -m repro_torch.launch.serve --arch mamba2-1.3b --smoke`` in
+    this process, on the card and then with ``--device cpu``: every request
+    gets its tokens, and the card's prefills run the smoke config's head
+    dim 16 and state 16 through the tensor-core ssd_scan, one launch per
+    Mamba2 layer.  Whether the card's tokens equal the CPU path's is
+    recorded, not required (bf16 may round an argmax either way)."""
+    import contextlib
+    import io
+    from repro_torch import _build
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launcher
+    cfg = get_config("mamba2-1.3b", smoke=True)
+    n_req, max_new = 4, 8
+    lines, launches = {}, {}
+    for device in ("cuda", "cpu"):
+        out = io.StringIO()
+        _build.reset_counts()
+        with contextlib.redirect_stdout(out):
+            launcher.main(["--arch", "mamba2-1.3b", "--smoke", "--requests",
+                           str(n_req), "--max-new", str(max_new), "--device",
+                           device])
+        if device == "cuda":
+            torch.cuda.synchronize()
+            launches = dict(_build.launches)
+        lines[device] = [ln for ln in out.getvalue().splitlines()
+                         if ln.startswith("req ")]
+    toks = [json.loads(ln.split(": ", 1)[1]) for ln in lines["cuda"]]
+    need(len(toks) == n_req and all(len(t) == max_new for t in toks),
+         f"serve --smoke: {lines['cuda']}")
+    ssd = launches.get("ssd_scan", 0)
+    need(ssd > 0 and ssd % cfg.n_layers == 0
+         and launches.get("ssd_scan.mma", 0) == ssd,
+         f"serve --smoke: ssd_scan launches {launches}")
+    row = {"phase": "serve_smoke", "model": cfg.name, "dtype": cfg.dtype,
+           "ssm_head_dim": cfg.ssm_head_dim, "ssm_state": cfg.ssm_state,
+           "requests": n_req, "max_new": max_new, "launches": launches,
+           "tokens_equal_cpu": lines["cuda"] == lines["cpu"]}
+    emit(row)
     return row
 
 
@@ -1165,7 +1247,7 @@ def main(argv=None) -> int:
         emit({"phase": "kernel_vs_plain", **row})
         summary["amil_probe"] = row                # the 8192-lane case
 
-    for kw in GOLDEN_CONFIGS + [WIDE_CTC]:
+    for kw in GOLDEN_CONFIGS + WIDE_CTC:
         t = golden_trace(T)
         cfg = T.HMSConfig(footprint=t.footprint, **kw).validate()
         s = sim.scan_inputs(t, cfg, dev)
@@ -1290,9 +1372,10 @@ def main(argv=None) -> int:
     torch.cuda.reset_peak_memory_stats()
     _build.reset_counts()
     rows = []
+    phased = {}                      # raw counter bits of each run
     for (name, n), t in traces.items():
         cfg = T.HMSConfig(footprint=t.footprint)
-        walls = []
+        walls, bits = [], []
         for rep in range(4):               # first run warms the host caches
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1300,6 +1383,9 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             if rep:
                 walls.append(time.perf_counter() - t0)
+            bits.append(counter_bits(r))
+        if t.n_phases > 1:
+            phased[(name, n)] = bits
         c = r.counters
         reqs = c["hit_r"] + c["miss_r"] + c["hit_w"] + c["miss_w"]
         need(reqs == t.n, f"{name}: {reqs} requests counted, trace has {t.n}")
@@ -1322,6 +1408,24 @@ def main(argv=None) -> int:
              f"per simulate ({4 * len(rows)})")
     emit({"phase": "main_done", "runs": len(rows), "launches": main_launches,
           "peak_mem_bytes": peak})
+    # the phased scenarios' counters, bit for bit: the 4 runs above, and
+    # S = 4 lanes against them (the per-phase sums in a fixed order)
+    old = sim.set_forced_shards(4)
+    try:
+        four = {k: counter_bits(T.simulate(
+            traces[k], T.HMSConfig(footprint=traces[k].footprint)))
+            for k in phased}
+    finally:
+        sim.set_forced_shards(old)
+    runs_equal = {k[0]: all(b == v[0] for b in v) for k, v in phased.items()}
+    four_equal = {k[0]: four[k] == v[0] for k, v in phased.items()}
+    emit({"phase": "phased_bits", "scenarios": sorted(runs_equal),
+          "runs": 4, "runs_bit_equal": runs_equal,
+          "shards_4_bit_equal": four_equal})
+    need(len(phased) == 5 and all(runs_equal.values())
+         and all(four_equal.values()),
+         f"phased counters not bit-stable: runs {runs_equal}, S = 4 "
+         f"{four_equal}")
 
     # where one simulate's time goes: the scan kernels alone per workload
     for (name, n), t in traces.items():
@@ -1381,6 +1485,7 @@ def main(argv=None) -> int:
     summary["flash_attention"] = flash_checks(torch, dev, flush)
     paged_checks(torch, dev, flush)
     summary["ssd_scan"] = ssd_checks(torch, dev, flush)
+    smoke_serve(torch)
     summary["paged_attention"], serve_launches = serving_phases(
         torch, dev, flush)
     for k, n in ssm_serving_phases(torch, dev).items():

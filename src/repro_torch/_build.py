@@ -54,6 +54,8 @@ _SIGNATURES = {
     # chunk, dtype, stream
     "ssd_scan_launch": (_P, _P, _P, _P, _P, _L, _P, _P, _P, _I, _I, _I, _I,
                         _I, _I, _I, _I, _P),
+    # p, n, chunk, dtype
+    "ssd_scan_blocks_per_sm": (_I, _I, _I, _I),
 }
 
 launches: Dict[str, int] = {}

@@ -328,6 +328,16 @@ def _scan_streams(key: _EngineKey, xs, p, dev):
     return slot, meta, derived
 
 
+def phase_sums(V, phase, n_phases: int):
+    """(..., n) float64 -> (..., n_phases): the sum of each phase's terms,
+    one masked ``sum`` per phase.  Its order of addition is fixed by the
+    shapes alone, so the bits repeat from run to run on the card (where
+    ``index_add_`` adds with atomics, in an order that changes)."""
+    zero = V.new_zeros(())
+    return torch.stack([torch.where(phase == k, V, zero).sum(dim=-1)
+                        for k in range(n_phases)], dim=-1)
+
+
 def _reduce_counters(key: _EngineKey, xs, p, y_tr, derived,
                      dev) -> Dict[str, np.ndarray]:
     """The vectorized counter reduction over trace-order decision words.
@@ -440,8 +450,7 @@ def _reduce_counters(key: _EngineKey, xs, p, y_tr, derived,
 
     V = torch.stack([v for _, v in terms])       # (terms, n) float64
     if key.phases > 1:
-        sums = torch.zeros((len(terms), key.phases), dtype=torch.float64,
-                           device=dev).index_add_(1, xs["phase"], V)
+        sums = phase_sums(V, xs["phase"], key.phases)
         C = {k: np.zeros(key.phases, np.float64) for k in _COUNTERS}
     else:
         sums = V.sum(dim=1)
@@ -508,8 +517,7 @@ def _single_tier_counters(trace: Trace, cfg: HMSConfig, device_timing,
         phase = torch.from_numpy(trace.phase_id.astype(np.int64)).to(dev)
 
         def red(w):
-            out = torch.zeros(n_ph, dtype=torch.float64, device=dev)
-            return out.index_add_(0, phase, w.to(torch.float64)).cpu().numpy()
+            return phase_sums(w.to(torch.float64), phase, n_ph).cpu().numpy()
         C = {k: np.zeros(n_ph, np.float64) for k in _COUNTERS}
     else:
         def red(w):

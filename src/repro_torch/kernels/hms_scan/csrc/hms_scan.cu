@@ -30,7 +30,7 @@
 //     order with the word in a register, groups on distinct words at once.
 //   * Under a CTC policy a second warp, the row warp, runs the CTC chain:
 //     the domain's one CTC row in registers, one way per thread (two above
-//     32 ways).  The probe is one __reduce_max_sync of a packed key
+//     32 ways, four above 64: ops.kernel_tier, at most 128 ways).  The probe is one __reduce_max_sync of a packed key
 //     (ctc_key) whose maximum names the way, its age, the sector hit and the
 //     line hit; the LRU touch is one update per thread on its own way; the
 //     next step's meta is read before this step's reduction.  It joins each
@@ -363,7 +363,11 @@ cudaError_t launch_scan(const int32_t* slot, const int64_t* meta,
                         int64_t lines_alloc, int64_t* ctc, int sets_alloc,
                         int ways_alloc, int e_ways, int n_domains, int32_t* y,
                         cudaStream_t s) {
-  if (ways_alloc > 64) return cudaErrorInvalidValue;
+  if (ways_alloc > 128) return cudaErrorInvalidValue;
+  if (HmsPolicyTraits<P>::use_ctc && ways_alloc > 64)
+    return launch_chains<P, 4>(slot, meta, offsets, lanes, cache,
+                               lines_alloc, ctc, sets_alloc, ways_alloc,
+                               e_ways, n_domains, y, s);
   if (HmsPolicyTraits<P>::use_ctc && ways_alloc > 32)
     return launch_chains<P, 2>(slot, meta, offsets, lanes, cache,
                                lines_alloc, ctc, sets_alloc, ways_alloc,

@@ -60,9 +60,11 @@ struct HmsPolicyTraits {
 // hit 258 > line hit 257 > an enabled way's 1 + age > a disabled way's 0),
 // then the first way; the way's own age rides in the low bits, below the
 // way, so the maximum also carries the winner's age:
-//   key = class << 14 | (63 - way) << 8 | age        (ways_alloc <= 64)
-// A disabled way's key is 0.  The kernel holds one way per thread and
-// takes the maximum with one warp reduction; the host loops over the row.
+//   key = class << 16 | (255 - way) << 8 | age       (ways_alloc <= 256)
+// Ages are LRU ranks below ways_alloc, so the 8-bit age field caps a row at
+// 256 ways, and the way field is as wide.  A disabled way's key is 0.  The
+// kernel holds up to four ways per thread and takes the maximum with one
+// warp reduction; the host loops over the row.
 // A way's word is taken in 32-bit halves, hi = (tag+1) << 8 | age and
 // lo = the sector mask; `want` is row_group + 1, `secbit` 1 << sector.
 HMS_HD inline uint32_t ctc_key(uint32_t hi, uint32_t lo, int way,
@@ -71,17 +73,17 @@ HMS_HD inline uint32_t ctc_key(uint32_t hi, uint32_t lo, int way,
   const bool line_hit = (hi >> 8) == want;
   const bool sector_hit = line_hit && (lo & secbit) != 0;
   const uint32_t cls = sector_hit ? 258u : line_hit ? 257u : 1u + age;
-  return enabled ? (cls << 14) | ((uint32_t)(63 - way) << 8) | age : 0u;
+  return enabled ? (cls << 16) | ((uint32_t)(255 - way) << 8) | age : 0u;
 }
 
 HMS_HD inline int ctc_key_way(uint32_t best) {
-  return 63 - (int)((best >> 8) & 63);
+  return 255 - (int)((best >> 8) & 255);
 }
 HMS_HD inline bool ctc_key_sector_hit(uint32_t best) {
-  return best >= (258u << 14);
+  return best >= (258u << 16);
 }
 HMS_HD inline bool ctc_key_line_hit(uint32_t best) {
-  return best >= (257u << 14);
+  return best >= (257u << 16);
 }
 
 // One way's halves after the access that `best` (the row's maximum key)

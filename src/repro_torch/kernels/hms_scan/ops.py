@@ -26,13 +26,24 @@ POLICY_IDS = {p: i for i, p in enumerate(POLICIES)}   # HmsPolicy in C
 # chains the kernel aims for without a CTC (the card has 132 SMs, each
 # issuing for 4 warps at once)
 TARGET_CHAINS = 128
-MAX_WAYS = 64                  # two CTC ways per thread
+WAY_TIERS = (32, 64, 128)      # CTC ways of the row warp at 1, 2, 4 a thread
 
 
 @dataclasses.dataclass(frozen=True)
 class ScanPlan:
     domains: int          # chains per lane
     longest_chain: int    # most steps of one (lane, domain)
+
+
+def kernel_tier(ways_alloc: int) -> int:
+    """The CTC ways each thread of the kernel's row warp holds for a row of
+    ``ways_alloc`` ways; raises ValueError above the top tier.  (The plain
+    version takes any row that ``ctc.packed_init`` allows: 256 ways.)"""
+    for wpt, top in zip((1, 2, 4), WAY_TIERS):
+        if ways_alloc <= top:
+            return wpt
+    raise ValueError(f"hms_scan: {ways_alloc} CTC ways exceed the kernel's "
+                     f"top tier of {WAY_TIERS[-1]} (4 ways per thread)")
 
 
 def domain_count(policy: str, n_sets: int, lines_alloc: int, spg: int,
@@ -125,16 +136,15 @@ def hms_scan(slot, meta, *, policy: str, e_ways: int, n_sets: int,
                          f"int64 of the same shape, got {slot.dtype} "
                          f"{tuple(slot.shape)} / {meta.dtype} "
                          f"{tuple(meta.shape)}")
-    if not (1 <= e_ways <= ways_alloc <= MAX_WAYS
-            and 1 <= n_sets <= sets_alloc):
+    if not (1 <= e_ways <= ways_alloc and 1 <= n_sets <= sets_alloc):
         raise ValueError(f"hms_scan: {e_ways} ways / {n_sets} sets exceed "
-                         f"the {ways_alloc} x {sets_alloc} allocation (at "
-                         f"most {MAX_WAYS} ways)")
+                         f"the {ways_alloc} x {sets_alloc} allocation")
     _build.assert_in_range("hms_scan slot", slot, lines_alloc)
     plan, chain, counts = _plan(slot, meta, policy=policy, n_sets=n_sets,
                                 lines_alloc=lines_alloc, spg=spg)
     if where == "cpu":
         return hms_scan_reference(slot, meta, **kw)
+    kernel_tier(ways_alloc)
     lanes, depth = slot.shape
     cache, ctc = initial_state(lanes, lines_alloc, sets_alloc, ways_alloc,
                                sectors, slot.device)

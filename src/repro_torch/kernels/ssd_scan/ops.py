@@ -1,8 +1,9 @@
 """Public wrapper: the SSD chunked scan in the model layout.
 
-On CUDA tensors :func:`ssd` launches the kernel in ``csrc/ssd_scan.cu``;
-on CPU tensors it runs the plain version (``ref.ssd_plain``).  Any other
-placement raises.
+On CUDA tensors :func:`ssd` launches the kernel in ``csrc/ssd_scan.cu``
+(bf16: ``ssd_mma_kernel`` on the tensor cores; float32: ``ssd_fma_kernel``
+on the FMA pipes); on CPU tensors it runs the plain version
+(``ref.ssd_plain``).  Any other placement raises.
 """
 
 from __future__ import annotations
@@ -14,9 +15,23 @@ import torch
 from ... import _build
 from .ref import ssd_plain
 
-HEAD_DIM = 64             # the kernel's head dim (ssm_head_dim)
-STATE_DIMS = (64, 128)    # its state dims (ssm_state)
-CHUNKS = (128,)           # its chunk lengths (ssm_chunk)
+# (ssm_head_dim, ssm_state, ssm_chunk) the kernels are built for: every SSM
+# config of ``repro_torch.configs``, full and smoke
+KERNEL_SHAPES = ((64, 128, 128), (64, 64, 128), (16, 16, 128))
+DESIGNS = {torch.bfloat16: "mma", torch.float32: "fma"}
+
+
+def check_kernel_shape(p: int, n: int, chunk: int, dtype: torch.dtype) -> str:
+    """The kernel design that runs this (head dim, state, chunk) and element
+    type on the card ("mma" for bf16, "fma" for float32); raises
+    ValueError for any other."""
+    if dtype not in DESIGNS:
+        raise ValueError(f"ssd: dtype {dtype} not supported (float32 or "
+                         "bfloat16)")
+    if (p, n, chunk) not in KERNEL_SHAPES:
+        raise ValueError(f"ssd: head dim {p}, state {n}, chunk {chunk}; the "
+                         f"kernel takes (p, n, chunk) in {KERNEL_SHAPES}")
+    return DESIGNS[dtype]
 
 
 def _row_stride(name: str, t) -> int:
@@ -69,15 +84,22 @@ def ssd(x, dt, A, B, C, chunk: int,
     f32 = [t for t in (dt, A, initial_state) if t is not None]
     if any(t.dtype != torch.float32 for t in f32):
         raise ValueError("ssd: dt, A and initial_state must be float32")
-    if p != HEAD_DIM or n not in STATE_DIMS or chunk not in CHUNKS:
-        raise ValueError(f"ssd: head dim {p}, state {n}, chunk {chunk}; the "
-                         f"kernel takes {HEAD_DIM}, {STATE_DIMS}, {CHUNKS}")
+    design = check_kernel_shape(p, n, chunk, x.dtype)
     if not all(t.is_contiguous() for t in [x] + f32):
         raise ValueError("ssd: x, dt, A and initial_state must be "
                          "contiguous")
     rs = _row_stride("B", B)
     if _row_stride("C", C) != rs:
         raise ValueError("ssd: B and C rows differ in stride")
+    # the bf16 kernel copies 16-byte pieces of x, B and C rows and reads
+    # the initial state as float pairs
+    if design == "mma" and (
+            any(v % 16 for v in (x.data_ptr(), B.data_ptr(), C.data_ptr(),
+                                 rs * B.element_size()))
+            or (initial_state is not None and initial_state.data_ptr() % 8)):
+        raise ValueError("ssd: bf16 x, B and C must start on 16-byte "
+                         "addresses with B/C rows a multiple of 16 bytes "
+                         "apart, and initial_state on 8")
     y = torch.empty_like(x)
     state = torch.empty(b, h, p, n, dtype=torch.float32, device=x.device)
     lib = _build.library()
@@ -90,4 +112,13 @@ def ssd(x, dt, A, B, C, chunk: int,
             _build.stream_ptr(x))
     _build.check(err, "ssd_scan")
     _build.count("ssd_scan")
+    _build.count("ssd_scan." + design)
     return y, state
+
+
+def blocks_per_sm(p: int, n: int, chunk: int, dtype: torch.dtype) -> int:
+    """CTAs of the kernel for this shape and type that one SM of the current
+    card holds at once (CUDA's occupancy calculator); needs the card."""
+    design = check_kernel_shape(p, n, chunk, dtype)
+    return int(_build.library().ssd_scan_blocks_per_sm(
+        p, n, chunk, 1 if design == "mma" else 0))

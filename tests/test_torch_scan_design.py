@@ -181,6 +181,17 @@ def test_domain_walk_matches_plain_on_48_of_64_ways(design):
     assert int((y & 2).sum()) > 0                   # the CTC does hit
 
 
+@pytest.mark.parametrize("ways,alloc", [(96, 128), (200, 256)])
+def test_domain_walk_matches_plain_above_64_ways(design, ways, alloc):
+    """Rows wider than a 6-bit way field: 96 of 128 ways (the kernel's tier
+    of four ways a thread) and 200 of 256 (the packed key's limit, which
+    the plain version takes too)."""
+    slot, meta, args = _golden({"ctc_ways": ways, "ctc_fraction": 1.0})
+    assert (args["e_ways"], args["ways_alloc"]) == (ways, alloc)
+    (y, _, _), _ = _assert_walk_is_plain(design, slot, meta, args)
+    assert int((y & 2).sum()) > 0                   # the CTC does hit
+
+
 @pytest.mark.parametrize("kw", GOLDEN_CONFIGS, ids=GOLDEN_IDS)
 def test_domain_walk_matches_plain_on_four_lanes(design, kw):
     old = tsim.set_forced_shards(4)
@@ -237,7 +248,8 @@ def _first_argmax_probe(row, want, sector, e_ways):
 
 
 @pytest.mark.parametrize("ways,seed", [(1, 0), (4, 1), (16, 2), (16, 3),
-                                       (32, 4), (64, 5)])
+                                       (32, 4), (64, 5), (65, 6), (96, 7),
+                                       (128, 8), (256, 9)])
 def test_packed_key_picks_the_first_maximum(design, ways, seed):
     """Random ages with ties (few distinct ages), lines present with and
     without the sector, disabled ways and e_ways < ways_alloc."""
@@ -312,6 +324,15 @@ def test_hms_scan_refuses_a_slot_in_two_domains():
         scan_ops.hms_scan(slot, bad, **args)
     with pytest.raises(ValueError, match="two domains"):
         scan_ops.scan_plan(slot, bad, **args)
+
+
+def test_kernel_tier_holds_up_to_128_ways():
+    """The row warp holds 1, 2 or 4 ways a thread; above 128 ways the
+    kernel refuses (the plain version does not: see above)."""
+    assert [scan_ops.kernel_tier(w) for w in (1, 32, 33, 64, 65, 128)] \
+        == [1, 1, 2, 2, 4, 4]
+    with pytest.raises(ValueError, match="top tier of 128"):
+        scan_ops.kernel_tier(129)
 
 
 def test_scan_plan_counts_chains():

@@ -110,6 +110,48 @@ def test_shard_count_does_not_change_counters(policy):
         assert np.array_equal(four.phase_counters[k], v), k
 
 
+@pytest.mark.parametrize("policy", ["hms", "no_second_level"])
+def test_wide_ctc_matches_reference(policy):
+    """96 CTC ways (128 allocated): the plain scan takes rows above the
+    kernel's old 64-way limit, as both validators do."""
+    t = _golden_trace()
+    cfg = R.HMSConfig(footprint=t.footprint, policy=policy, ctc_ways=96)
+    _assert_result(_port(t, cfg), R.simulate(t, cfg))
+
+
+def _bits(r):
+    """The raw float64 bytes of every counter and per-phase counter."""
+    out = {k: np.float64(v).tobytes() for k, v in r.counters.items()}
+    out.update({"phase:" + k: np.asarray(v, np.float64).tobytes()
+                for k, v in r.phase_counters.items()})
+    return out
+
+
+def test_phased_counters_repeat_bit_for_bit():
+    """The per-phase sums add in an order fixed by the shapes: two runs,
+    and S = 4 lanes against S = 1, give the same float64 bits (on the
+    card, where index_add_ adds with atomics, they would not)."""
+    t = T.make_trace("llm_serve", n=5000)
+    cfg = T.HMSConfig(footprint=t.footprint)
+    runs = [T.simulate(t, cfg, device="cpu") for _ in range(2)]
+    old = tsim.set_forced_shards(4)
+    try:
+        runs.append(T.simulate(t, cfg, device="cpu"))
+    finally:
+        tsim.set_forced_shards(old)
+    assert runs[0].phase_counters
+    assert _bits(runs[0]) == _bits(runs[1]) == _bits(runs[2])
+
+
+def test_phase_sums_match_bincount():
+    rng = np.random.default_rng(5)
+    V = rng.random((3, 10_000))
+    phase = rng.integers(0, 4, 10_000)
+    got = tsim.phase_sums(torch.from_numpy(V), torch.from_numpy(phase), 4)
+    want = np.stack([np.bincount(phase, weights=v, minlength=4) for v in V])
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12)
+
+
 def test_um_paths_raise_not_implemented():
     t = T.make_trace("zipf", n=500)
     with pytest.raises(NotImplementedError, match="A5"):
