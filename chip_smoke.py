@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port (HMS simulator, dense and SSM serving) on
-one card.
+"""Drive the PyTorch/CUDA port (HMS simulator with UM paging, dense and SSM
+serving) on one card.
 
     python3 chip_smoke.py [--out DIR]
 
@@ -29,12 +29,38 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                baseline's trace fingerprints; where this host's numpy
                draws other random streams, the committed copies in
                ``chip_smoke_traces.npz`` (same fingerprints) are used.
+  4b. um     - um_scan against its plain version, counters and final
+               state exactly: on short seeded streams that hit every quirk
+               of the reference's paging step (UM_QUIRKS: chunks 1-64,
+               windows that wrap the frame ring, a clipped last chunk, both
+               link modes, phases, a 40000-page footprint), and
+               on the 16 points of benchmarks/baselines/BENCH_um.json (one
+               8-lane call a workload, as the um suite batches them), which
+               must also equal the baseline's counters (moe_expert and
+               bfs_tu at n = 20000; committed copies where this numpy does
+               not regenerate them).  Times the wrapper's call, the kernel
+               alone and the plain version (the summary's row: moe_expert).
   5. main    - ``simulate`` with the default HMSConfig on every registered
                workload (12 generators + 5 scenarios) at its default size,
                plus zipf at 10^6 requests, through the scan kernels; launch
                counts are reset just before and read just after.  Each of
                the 5 phased scenarios' counters and per-phase counters
                must be bit-identical over its 4 runs and at S = 4 lanes.
+  5b. um main - the UM leg of the main path at default size, launch
+               counts reset just before and read just after: ``simulate_many``
+               on fig11's point set (inf_hbm, hbm, scm, hms) on the 8 figure
+               workloads, on fig17's grid on the first four (whose
+               (0.25, tlc) point overflows the HMS) and on hbm in both link
+               modes for every registered workload that pages; prints
+               fig11's hms_over_hbm_speedup_geomean, ns per simulated
+               request and the um_scan launches.  Then every paging run's
+               counters against the host build of the kernel's step code
+               (``ops.um_scan_host``), ``simulate_many`` against
+               ``simulate`` config by config (bit for bit), um_scan against
+               its plain version at the main path's size (gpt_train's
+               default trace, fault and nvlink lanes in one call: counters
+               and final state exactly), and the kernel alone per paging
+               workload.
   6. serving kernels against their plain versions: flash_attention at the
                serving slice's shape (B 4, S = T = 1024, 16 heads over 2 KV
                heads, hd 128; bf16 and float32, ragged, non-causal, softcap
@@ -92,8 +118,10 @@ Phases, each printed as one JSON line; any failure exits non-zero:
 
 ``--out DIR`` also writes every JSON line to DIR/chip_smoke.jsonl;
 ``--write-traces`` (no card needed) rewrites
-``chip_smoke_traces.npz`` from ``make_trace``, refusing unless every trace
-matches its baseline fingerprint.
+``chip_smoke_traces.npz`` from ``make_trace`` for the workloads of both
+baselines (BENCH_sweep.json and BENCH_um.json, with phase ids where a
+trace has them), refusing unless every trace matches its baseline
+fingerprint.
 Needs one CUDA card, nvcc, and this checkout's ``src/`` and
 ``benchmarks/baselines/``; imports nothing of JAX.  Bounds use the H100
 SXM data sheet: 3.35 TB/s, 989 TFLOP/s bf16 (tensor cores), 67 TFLOP/s
@@ -103,6 +131,7 @@ float32.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import statistics
@@ -113,6 +142,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 BASELINE = ROOT / "benchmarks" / "baselines" / "BENCH_sweep.json"
+BASELINE_UM = ROOT / "benchmarks" / "baselines" / "BENCH_um.json"
 TRACES = ROOT / "chip_smoke_traces.npz"
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (data sheet)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, data sheet
@@ -127,6 +157,12 @@ BF16_VS_CPU = 1.25
 N_LAYERS_FULL = 36               # qwen2.5-3b
 STEP_CYCLES = 30                 # one dependent L1/shared-memory round trip
 EMA_STEP_CYCLES = 16             # two dependent float64 operations
+# the figure workloads of benchmarks/common.py and fig17's (r_hbm, SCM mode)
+# grid (benchmarks/figures.py), whose (0.25, tlc) point overflows the HMS
+FIG_WORKLOADS = ["stencil", "pathfnd", "bfs_tu", "sssp_ttc", "kcore",
+                 "bert_inf", "gpt_train", "llm_dec"]
+FIG17_GRID = ((1.5, "slc"), (1.0, "slc"), (0.75, "mlc"), (0.5, "mlc"),
+              (0.25, "tlc"))
 FRACTIONAL = {"dram_busy", "scm_busy", "dram_acts", "scm_acts",
               "scm_wr_acts"}
 GOLDEN_CONFIGS = [
@@ -212,15 +248,17 @@ def baseline_traces(T, base):
     out = {}
     saved = None
     for name, entry in base["workloads"].items():
-        t = T.make_trace(name, n=base["n"])
+        t = T.make_trace(name, n=int(base["n"]))
         rebuilt = trace_fp(t) == entry["trace_fp"]
         if not rebuilt:
             if saved is None:
                 saved = np.load(TRACES)
-            n = base["n"]
+            n = int(base["n"])
+            phase = saved.get(f"{name}_phase")
             t = T.Trace(name, saved[f"{name}_col"].astype(np.int64),
                         np.unpackbits(saved[f"{name}_wr"])[:n].astype(bool),
-                        t.footprint)
+                        t.footprint, phase_id=phase,
+                        phase_names=t.phase_names)
             need(trace_fp(t) == entry["trace_fp"],
                  f"{name}: committed trace does not match the baseline")
         out[name] = (t, rebuilt)
@@ -228,19 +266,25 @@ def baseline_traces(T, base):
 
 
 def write_traces() -> int:
+    """Rewrite the committed traces of both baselines (sweep and UM) from
+    ``make_trace``, refusing unless each matches its fingerprint."""
     import numpy as np
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch.core as T
-    base = json.loads(BASELINE.read_text())
     arrays = {}
-    for name, entry in base["workloads"].items():
-        t = T.make_trace(name, n=base["n"])
-        need(trace_fp(t) == entry["trace_fp"],
-             f"{name}: this numpy does not regenerate the baseline trace")
-        arrays[f"{name}_col"] = t.col.astype(np.int32)
-        arrays[f"{name}_wr"] = np.packbits(t.is_write)
+    for path in (BASELINE, BASELINE_UM):
+        base = json.loads(path.read_text())
+        for name, entry in base["workloads"].items():
+            t = T.make_trace(name, n=int(base["n"]))
+            need(trace_fp(t) == entry["trace_fp"],
+                 f"{name}: this numpy does not regenerate the baseline "
+                 "trace")
+            arrays[f"{name}_col"] = t.col.astype(np.int32)
+            arrays[f"{name}_wr"] = np.packbits(t.is_write)
+            if t.phase_id is not None:
+                arrays[f"{name}_phase"] = t.phase_id.astype(np.int32)
     np.savez_compressed(TRACES, **arrays)
-    print(f"wrote {TRACES.name}: {sorted(base['workloads'])}")
+    print(f"wrote {TRACES.name}: {sorted(arrays)}")
     return 0
 
 
@@ -320,24 +364,64 @@ def plain_scan(scan_ref, s):
     return scan_ref.hms_scan_reference(s["slot"], s["meta"], **kw)
 
 
-def device_ms(torch, fn, needle: str, reps: int = 3) -> float:
+def launch_ms(torch, fn, entry: str, reps: int = 3) -> float:
+    """Median time, on the stream, between CUDA events recorded just before
+    and just after the kernels' library entry ``entry`` in each of ``reps``
+    calls of ``fn``: the kernel with its launch latency, without the
+    wrapper's checks and copies around it."""
+    from repro_torch import _build
+    lib = _build.library()
+    inner = getattr(lib, entry)
+    pairs = []
+
+    def timed(*args):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        err = inner(*args)
+        b.record()
+        pairs.append((a, b))
+        return err
+
+    setattr(lib, entry, timed)
+    try:
+        for _ in range(reps):
+            fn()
+    finally:
+        setattr(lib, entry, inner)
+    torch.cuda.synchronize()
+    need(len(pairs) == reps, f"{entry}: {len(pairs)} launches in {reps} "
+         "calls")
+    return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
+def device_ms(torch, fn, needle: str, entry: str, reps: int = 3,
+              windows: int = 3) -> float:
     """Median device time of one launch of the kernel whose name holds
     ``needle``, from torch.profiler over ``reps`` calls of ``fn`` after a
     warm-up: the kernel alone, without the wrapper's checks and copies
-    around it (the profiler may miss a launch; each seen one counts)."""
+    around it.  The profiler may drop records: each seen launch counts, a
+    window that saw none is profiled again, and where ``windows`` windows
+    saw none the time is taken by :func:`launch_ms` around the library
+    entry ``entry`` instead, with a ``profiler_miss`` line saying so."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and needle in e.name]
-    need(bool(times), f"the profiler saw no {needle} kernel")
-    return statistics.median(times)
+    for _ in range(windows):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and needle in e.name]
+        if times:
+            return statistics.median(times)
+    ms = launch_ms(torch, fn, entry, reps)
+    emit({"phase": "profiler_miss", "kernel": needle, "windows": windows,
+          "reps": reps, "launch_ms": ms})
+    return ms
 
 
 def scan_bounds(scan_ops, s, cycle_ms):
@@ -353,6 +437,293 @@ def scan_bounds(scan_ops, s, cycle_ms):
             "bound_by": "operations" if chain_ms >= bytes_ms else "bytes",
             "lane_bound_ms": depth * STEP_CYCLES * cycle_ms,
             "bytes_bound_ms": bytes_ms}
+
+
+# ---- the UM paging kernel ---------------------------------------------------
+
+# the default-size paging workload whose fault and nvlink lanes also run
+# through um_scan's plain version (its 6315 pages clip the last chunk)
+UM_PLAIN_WORKLOAD = "gpt_train"
+
+def um_bounds(args, cycle_ms):
+    """um_scan's bounds on its arguments: every lane is one chain of n
+    dependent steps at STEP_CYCLES a step (lanes run side by side), and
+    the stream's bytes (page, write flag, phase) at the memory rate."""
+    n = args["page"].shape[0]
+    chain_ms = n * STEP_CYCLES * cycle_ms
+    per_step = 5 + (4 if args["phase"] is not None else 0)
+    bytes_ms = n * per_step / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(chain_ms, bytes_ms),
+            "bound_by": "operations" if chain_ms >= bytes_ms else "bytes",
+            "bytes_bound_ms": bytes_ms}
+
+
+# (n, pages, phases, lanes as (n_frames, chunk, nvlink, hot_thresh)): every
+# tier of the kernel's window (chunk 1 to 64), windows that wrap the frame
+# ring, a clipped last chunk, both link modes, phases, and a large footprint
+UM_QUIRKS = {
+    "large_footprint": (1500, 40000, 1, ([30000, 50], [4, 4], [False, False],
+                                         [0, 0])),
+    "chunk1": (1500, 300, 1, ([40, 250], [1, 1], [False, False], [0, 0])),
+    "chunk4_clip": (1500, 301, 1, ([60, 7], [4, 4], [False, False], [0, 0])),
+    "chunk8_wrap": (1200, 203, 1, ([20, 9], [8, 8], [False, False], [0, 0])),
+    "chunk64": (800, 517, 1, ([300, 100, 70], [64, 64, 64],
+                              [False, False, False], [0, 0, 0])),
+    "nvlink": (1500, 300, 1, ([50, 3, 120], [1, 1, 1], [True, True, True],
+                              [4, 0, 2])),
+    "mixed_phased": (1500, 257, 3, ([64, 5, 40, 100], [8, 2, 1, 1],
+                                    [False, False, True, True],
+                                    [0, 0, 4, 1])),
+}
+
+
+def um_quirk_checks(torch, dev) -> None:
+    """um_scan against its plain version on short seeded streams that hit
+    every quirk of the reference's step (UM_QUIRKS): counters and final
+    state exactly."""
+    import numpy as np
+    from repro_torch.kernels.um_scan import ops as um_ops
+    from repro_torch.kernels.um_scan import ref as um_ref
+    for seed, (case, (n, n_pages, n_phases, lanes)) in enumerate(
+            sorted(UM_QUIRKS.items())):
+        rng = np.random.default_rng(seed)
+        # runs near the last page, and jumps
+        walk = np.cumsum(rng.integers(-3, 4, n)) % n_pages
+        page = np.where(rng.random(n) < 0.7, walk,
+                        rng.integers(0, n_pages, n))
+        page[-1] = n_pages - 1
+        args = dict(
+            page=torch.from_numpy(page.astype(np.int32)).to(dev),
+            is_write=torch.from_numpy(rng.random(n) < 0.3).to(dev),
+            phase=torch.from_numpy((np.arange(n) // 250 % n_phases)
+                                   .astype(np.int32)).to(dev)
+            if n_phases > 1 else None,
+            n_phases=n_phases, n_pages=n_pages, n_frames=lanes[0],
+            chunk=lanes[1], nvlink=lanes[2], hot_thresh=lanes[3])
+        got = um_ops.um_scan(**args)
+        want = um_ref.um_scan_reference(**args)
+        err = max([same(torch, got[0], want[0])]
+                  + [same(torch, a, b) for a, b in zip(got[1], want[1])])
+        need(bool((got[0][:, 1] > 0).all()), f"{case}: a lane never paged")
+        emit({"phase": "kernel_vs_plain", "name": "um_scan", "case": case,
+              "n": n, "lanes": len(lanes[0]), "chunks": lanes[1],
+              "max_abs_err": err,
+              "faults": got[0][:, 0].sum(dim=1).tolist()})
+
+
+def um_baseline_checks(torch, T, dev, flush, cycle_ms):
+    """um_scan against its plain version on the 16 points of
+    BENCH_um.json, one call of 8 lanes a workload as the um suite batches
+    them: counters and final state exactly, and both against the
+    baseline's encoded counters.  Returns the moe_expert row."""
+    from repro_torch.kernels.um_scan import ops as um_ops
+    from repro_torch.kernels.um_scan import ref as um_ref
+    from repro_torch.um import engine as um_engine
+    base = json.loads(BASELINE_UM.read_text())
+    traces = baseline_traces(T, base)
+    fields = ("um_faults", "um_migrated", "um_writebacks", "um_remote_cols")
+    rows, mismatched = {}, []
+    for w, entry in base["workloads"].items():
+        t = traces[w][0]
+        specs = [um_engine.um_spec(T.HMSConfig(
+            footprint=t.footprint, organization="hbm",
+            r_hbm=1.0 / p["rel_footprint"]), p["nvlink"])
+            for p in entry["points"]]
+        args = um_engine.scan_args(t, specs, dev)
+        run_k = lambda: um_ops.um_scan(**args)
+        got = run_k()
+        plain = []
+        plain_ms = event_ms(torch, lambda: plain.append(
+            um_ref.um_scan_reference(**args)))
+        err = max([same(torch, got[0], plain[0][0])]
+                  + [same(torch, a, b) for a, b in zip(got[1], plain[0][1])])
+        counts = got[0].cpu().numpy()
+        for j, p in enumerate(entry["points"]):
+            for k, f in enumerate(fields):
+                if counts[j, k].tolist() != p["counters"][f]:
+                    mismatched.append((w, p["rel_footprint"], p["nvlink"], f))
+        ms = event_ms(torch, run_k, reps=3, flush=flush)
+        kernel_ms = device_ms(torch, run_k, "um_scan_kernel",
+                              "um_scan_launch")
+        rows[w] = {"name": "um_scan", "trace": w, "n": t.n,
+                   "lanes": len(specs), "phases": t.n_phases,
+                   "pages": args["n_pages"], "max_abs_err": err, "ms": ms,
+                   "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                   **um_bounds(args, cycle_ms),
+                   "ns_per_step": kernel_ms * 1e6 / t.n,
+                   "faults": float(counts[:, 0].sum()),
+                   "library_ms": None}
+        emit({"phase": "kernel_vs_plain", **rows[w],
+              "trace_rebuilt_here": traces[w][1]})
+    emit({"phase": "um_baseline", "points": sum(
+        len(e["points"]) for e in base["workloads"].values()),
+        "mismatched": len(mismatched), "first_mismatches": mismatched[:5]})
+    need(not mismatched, f"um_scan differs from BENCH_um.json at "
+         f"{len(mismatched)} counters, first {mismatched[:3]}")
+    return rows["moe_expert"]
+
+
+def um_main_path(torch, T, dev, traces, cycle_ms):
+    """The UM leg of the main path at default size, through
+    ``simulate_many``: fig11's point set (inf_hbm, hbm, scm, hms) on the
+    figure workloads, fig17's grid on the first four (HMS and HBM at each
+    r_hbm; (0.25, tlc) overflows the HMS), and hbm in both link modes on
+    every registered workload that pages.  Launch counts are reset just
+    before and read just after.  Then, uncounted: every paging run's
+    counters against the host build of the kernel's step code
+    (``um_scan_host``), ``simulate_many`` against ``simulate`` config by
+    config, the plain version once on UM_PLAIN_WORKLOAD at its default size,
+    and the kernel alone per workload.  Returns the main path's launch
+    counts."""
+    from repro_torch import _build
+    from repro_torch.core import simulator as sim
+    from repro_torch.kernels.um_scan import ops as um_ops
+    from repro_torch.kernels.um_scan import ref as um_ref
+    from repro_torch.um import engine as um_engine
+    import numpy as np
+
+    def hbm(t, **kw):
+        return T.HMSConfig(footprint=t.footprint, organization="hbm", **kw)
+
+    batches = []                     # (trace, configs, nvlink, results)
+
+    def drive(t, cfgs, nvlink=False):
+        """simulate_many's results, wall seconds and um_scan launches (0
+        where the paging runs were memoized or early-out)."""
+        before = _build.launches.get("um_scan", 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rs = T.simulate_many(t, cfgs, nvlink)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        batches.append((t, cfgs, nvlink, rs))
+        return rs, wall, _build.launches.get("um_scan", 0) - before
+
+    _build.reset_counts()
+    speedups = {}
+    for w in FIG_WORKLOADS:
+        t = traces[(w, None)]
+        cfgs = [T.HMSConfig(footprint=t.footprint, organization=o)
+                for o in ("inf_hbm", "hbm", "scm", "hms")]
+        (inf, hb, scm, hms), wall, um_n = drive(t, cfgs)
+        speedups[w] = hb.runtime_cycles / hms.runtime_cycles
+        emit({"phase": "um_main", "set": "fig11", "workload": w, "n": t.n,
+              "configs": len(cfgs), "wall_s": wall, "um_scan_launches": um_n,
+              "ns_per_request": wall / (t.n * len(cfgs)) * 1e9,
+              "hbm_rel": hb.runtime_cycles / inf.runtime_cycles,
+              "hms_rel": hms.runtime_cycles / inf.runtime_cycles,
+              "scm_rel": scm.runtime_cycles / inf.runtime_cycles,
+              "um_faults": hb.counters["um_faults"]})
+    fig17 = {}
+    for w in FIG_WORKLOADS[:4]:
+        t = traces[(w, None)]
+        cfgs = ([T.HMSConfig(footprint=t.footprint, r_hbm=r, scm_mode=m)
+                 for r, m in FIG17_GRID]
+                + [hbm(t, r_hbm=r) for r, _ in FIG17_GRID])
+        rs, wall, um_n = drive(t, cfgs)
+        k = len(FIG17_GRID)
+        fig17[w] = [rs[k + i].runtime_cycles / rs[i].runtime_cycles
+                    for i in range(k)]
+        need("um_faults" in rs[k - 1].counters,
+             f"{w}: fig17's (0.25, tlc) point did not overflow the HMS")
+        emit({"phase": "um_main", "set": "fig17", "workload": w, "n": t.n,
+              "configs": len(cfgs), "wall_s": wall, "um_scan_launches": um_n,
+              "ns_per_request": wall / (t.n * len(cfgs)) * 1e9,
+              "hms_speedup": dict(zip([f"{r}:{m}" for r, m in FIG17_GRID],
+                                      fig17[w]))})
+    paged = []
+    for (w, n), t in traces.items():
+        if n is not None:
+            continue
+        _, n_pages = um_engine._page_stream(t)
+        if um_engine.um_spec(hbm(t)).n_frames >= n_pages:
+            continue                 # early-out: HBM holds the footprint
+        paged.append(w)
+        for nv in (False, True):
+            (r,), wall, um_n = drive(t, [hbm(t)], nv)
+            emit({"phase": "um_main", "set": "hbm_link", "workload": w,
+                  "n": t.n, "nvlink": nv, "wall_s": wall,
+                  "um_scan_launches": um_n,
+                  "ns_per_request": wall / t.n * 1e9,
+                  "um_faults": r.counters["um_faults"],
+                  "um_remote_cols": r.counters["um_remote_cols"]})
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    geo = math.exp(statistics.fmean(math.log(v) for v in speedups.values()))
+    emit({"phase": "um_main_done", "launches": launches,
+          "hms_over_hbm_speedup_geomean": geo,
+          "hms_over_hbm_speedup": speedups,
+          "fig17_hms_speedup_geomean": {
+              f"{r}:{m}": math.exp(statistics.fmean(
+                  math.log(v[i]) for v in fig17.values()))
+              for i, (r, m) in enumerate(FIG17_GRID)},
+          "paging_workloads": paged})
+    need(launches.get("um_scan", 0) > 0, "um_scan never launched on the "
+         "UM main path")
+    need(math.isfinite(geo) and geo > 0, "fig11 speedup not finite")
+
+    # every paging run against the host build of the kernel's step code
+    host_checks = lanes = 0
+    bad = []
+    for t, cfgs, nv, rs in batches:
+        specs = sim._um_specs(t, [c.validate() for c in cfgs], nv)
+        _, n_pages = um_engine._page_stream(t)
+        specs = [s for s in dict.fromkeys(specs) if s.n_frames < n_pages]
+        if not specs:
+            continue
+        got = um_engine.simulate_um_many(t, specs)     # memoized card runs
+        want, _ = um_ops.um_scan_host(**um_engine.scan_args(
+            t, specs, torch.device("cpu")))
+        for j, r in enumerate(got):
+            have = np.stack([r.phase_faults, r.phase_migrated,
+                             r.phase_writebacks, r.phase_remote_cols])
+            if not np.array_equal(have, want[j].numpy()):
+                bad.append((t.name, nv, dataclasses.asdict(r.spec)))
+        host_checks += 1
+        lanes += len(specs)
+        for c, r in zip(cfgs, rs):                     # config by config
+            one = T.simulate(t, c, nv)
+            if (counter_bits(one) != counter_bits(r)
+                    or one.runtime_cycles != r.runtime_cycles):
+                bad.append((t.name, nv, "simulate_many != simulate", c))
+    emit({"phase": "um_host_oracle", "calls": host_checks, "lanes": lanes,
+          "mismatched": len(bad), "first_mismatches": [str(b)
+                                                       for b in bad[:4]]})
+    need(not bad, f"UM main path: {len(bad)} mismatches, first {bad[:2]}")
+
+    # the plain version at the main path's own size: fault and nvlink lanes
+    # of one default-size paging workload in one call, exactly
+    t = traces[(UM_PLAIN_WORKLOAD, None)]
+    specs = [um_engine.um_spec(hbm(t), nv) for nv in (False, True)]
+    args = um_engine.scan_args(t, specs, dev)
+    need(specs[0].n_frames < args["n_pages"],
+         f"{t.name} does not page at its default size")
+    got = um_ops.um_scan(**args)
+    plain = []
+    plain_ms = event_ms(torch, lambda: plain.append(
+        um_ref.um_scan_reference(**args)))
+    err = max([same(torch, got[0], plain[0][0])]
+              + [same(torch, a, b) for a, b in zip(got[1], plain[0][1])])
+    emit({"phase": "kernel_vs_plain", "name": "um_scan", "case": "main_path",
+          "trace": t.name, "n": t.n, "lanes": len(specs),
+          "pages": args["n_pages"], "frames": specs[0].n_frames,
+          "max_abs_err": err, "plain_ms": plain_ms,
+          "faults": got[0][:, 0].sum(dim=1).tolist(),
+          "migrated": got[0][:, 1].sum(dim=1).tolist()})
+
+    # the kernel alone per paging workload: both link modes in one call
+    for w in paged:
+        t = traces[(w, None)]
+        specs = [um_engine.um_spec(hbm(t), nv) for nv in (False, True)]
+        args = um_engine.scan_args(t, specs, dev)
+        kernel_ms = device_ms(torch, lambda: um_ops.um_scan(**args),
+                              "um_scan_kernel", "um_scan_launch", reps=2)
+        emit({"phase": "um_breakdown", "workload": w, "n": t.n,
+              "pages": args["n_pages"], "frames": specs[0].n_frames,
+              "lanes": 2, "um_scan_ms": kernel_ms,
+              "ns_per_step": kernel_ms * 1e6 / t.n,
+              **um_bounds(args, cycle_ms)})
+    return launches
 
 
 # ---- attention kernels and the serving path --------------------------------
@@ -813,11 +1184,15 @@ def kernel_count(torch, prof, needle: str) -> int:
                and needle in e.name)
 
 
-def decode_profile(torch, dev, model, cfg, scfg, traffic, name, steps=3):
+def decode_profile(torch, dev, model, cfg, scfg, traffic, name, steps=3,
+                   retries=2):
     """torch.profiler over one prefill and then ``steps`` decode steps of
     the traffic's first batch: wall time, device (kernel) time, the
     device's busy share, and the kernels that take the most of it.  Device
-    time is None when the profiler records no kernel on this machine."""
+    time is None when the profiler records no kernel on this machine.
+    Where the kernel counts miss their expected values, both windows are
+    profiled again, up to ``retries`` times (the tracer can drop a
+    record), and the last pair's counts must match."""
     import numpy as np
     from repro_torch.models import decode_step, prefill
     from repro_torch.serving import Request
@@ -870,6 +1245,15 @@ def decode_profile(torch, dev, model, cfg, scfg, traffic, name, steps=3):
             "prefill_ssd_mma": per_prefill.get("ssd_scan.mma", 0),
             "prefill_ssd_fma": per_prefill.get("ssd_scan.fma", 0),
             "decode_paged": per_decode.get("paged_attention", 0) * steps}
+    off = [k for k in counts
+           if (pkern if k.startswith("prefill") else kernels)
+           and counts[k] != want[k]]
+    if off and retries:
+        emit({"phase": "decode_profile_retry", "model": cfg.name,
+              "traffic": name, "device_kernel_counts": counts,
+              "expected": want})
+        return decode_profile(torch, dev, model, cfg, scfg, traffic, name,
+                              steps, retries - 1)
     for k in counts:
         seen = pkern if k.startswith("prefill") else kernels
         need(not seen or counts[k] == want[k],
@@ -1279,14 +1663,17 @@ def main(argv=None) -> int:
     plain_ms = event_ms(torch, lambda: plain.append(run_p()), reps=1)
     err = max(same(torch, a, b) for a, b in zip(got, plain[0]))
     # ms: the wrapper's call (plan, chain sort, kernel, scatter back), as
-    # a caller sees it; kernel_ms: the kernel alone
+    # a caller sees it; kernel_ms: the kernel alone; launch_ms: the events
+    # around its library entry, device_ms's fallback, run here every time
     ms = event_ms(torch, run_k, reps=3, flush=flush)
-    kernel_ms = device_ms(torch, run_k, "hms_chain_kernel")
+    kernel_ms = device_ms(torch, run_k, "hms_chain_kernel",
+                          "hms_scan_launch")
+    entry_ms = launch_ms(torch, run_k, "hms_scan_launch")
     bounds = scan_bounds(scan_ops, s, cycle_ms)
     summary["hms_scan"] = {
         "name": "hms_scan", "trace": t.name, "depth": depth, **bounds,
         "max_abs_err": err, "ms": ms, "kernel_ms": kernel_ms,
-        "plain_ms": plain_ms,
+        "launch_ms": entry_ms, "plain_ms": plain_ms,
         "ns_per_chain_step": kernel_ms * 1e6 / bounds["longest_chain"],
         "library_ms": None}
     emit({"phase": "kernel_vs_plain", **summary["hms_scan"]})
@@ -1366,6 +1753,10 @@ def main(argv=None) -> int:
         deferred.append(f"{len(mismatches)} of {n_points} baseline points "
                         f"differ, first: {mismatches[:1]}")
 
+    # ---- 4b. the UM paging kernel: its quirks, the committed UM baseline --
+    um_quirk_checks(torch, dev)
+    summary["um_scan"] = um_baseline_checks(torch, T, dev, flush, cycle_ms)
+
     # ---- 5. the main path at full size ------------------------------------
     runs = [(name, None) for name in sorted(T.WORKLOADS)] + [("zipf", 10**6)]
     traces = {(name, n): T.make_trace(name, n=n) for name, n in runs}
@@ -1435,7 +1826,8 @@ def main(argv=None) -> int:
         w = float(s["params"]["ema_weight"])
         run_s = lambda: scan_ops.hms_scan(s["slot"], s["meta"], **s["scan"])
         call_ms = event_ms(torch, run_s, reps=3)
-        scan_ms = device_ms(torch, run_s, "hms_chain_kernel")
+        scan_ms = device_ms(torch, run_s, "hms_chain_kernel",
+                            "hms_scan_launch")
         ema_ms = event_ms(torch, lambda: scan_ops.ema_scan(pen, w), reps=3)
         plan = scan_bounds(scan_ops, s, cycle_ms)
         emit({"phase": "breakdown", "workload": name, "n": t.n,
@@ -1455,7 +1847,8 @@ def main(argv=None) -> int:
         s = sim.scan_inputs(
             t, T.HMSConfig(footprint=t.footprint, **kw).validate(), dev)
         scan_ms = device_ms(torch, lambda: scan_ops.hms_scan(
-            s["slot"], s["meta"], **s["scan"]), "hms_chain_kernel", reps=2)
+            s["slot"], s["meta"], **s["scan"]), "hms_chain_kernel",
+            "hms_scan_launch", reps=2)
         plan = scan_bounds(scan_ops, s, cycle_ms)
         emit({"phase": "policy_breakdown", "workload": t.name, "config": kw,
               "ctc_ways": s["scan"]["ways_alloc"],
@@ -1466,6 +1859,9 @@ def main(argv=None) -> int:
               "scan_ns_per_chain_step":
                   scan_ms * 1e6 / max(plan["longest_chain"], 1),
               "bound_ms": plan["bound_ms"]})
+
+    # ---- 5b. the UM leg of the main path at default size ----------------
+    um_launches = um_main_path(torch, T, dev, traces, cycle_ms)
 
     # the AMIL probe's own path: its wrapper at the table sizes it names
     _build.reset_counts()
@@ -1514,7 +1910,9 @@ def main(argv=None) -> int:
              serve_launches["paged_attention"]),
             ("ssd_scan", "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
              "src/repro/kernels/ssd_scan/ssd_scan.py:71",
-             serve_launches["ssd_scan"])):
+             serve_launches["ssd_scan"]),
+            ("um_scan", "src/repro_torch/kernels/um_scan/csrc/um_scan.cu",
+             "src/repro/um/engine.py:226", um_launches["um_scan"])):
         row = summary[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src,

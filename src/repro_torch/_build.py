@@ -56,6 +56,13 @@ _SIGNATURES = {
                         _I, _I, _I, _I, _P),
     # p, n, chunk, dtype
     "ssd_scan_blocks_per_sm": (_I, _I, _I, _I),
+    # page, is_write, phase, n, n_phases, params, lanes, n_pages, resident,
+    # dirty, pages_alloc, frames, frames_alloc, hotness, ptr, counts, stream
+    "um_scan_launch": (_P, _P, _P, _L, _I, _P, _I, _I, _P, _P, _L, _P, _L,
+                       _P, _P, _P, _P),
+    # the same walk on host memory: up to counts
+    "um_scan_host": (_P, _P, _P, _L, _I, _P, _I, _I, _P, _P, _L, _P, _L, _P,
+                     _P, _P),
 }
 
 launches: Dict[str, int] = {}

@@ -16,7 +16,8 @@ from .timing import (
     metadata_bits_per_row,
 )
 from .traces import WORKLOADS, Trace, make_trace, preprocess
-from .simulator import SimResult, run_workload, set_forced_shards, simulate
+from .simulator import (SimResult, run_workload, set_forced_shards, simulate,
+                        simulate_many)
 
 # Populate the WORKLOADS registry with the phase-structured scenarios
 # (repro_torch.workloads appends to it on import; safe against the partial
@@ -30,4 +31,5 @@ __all__ = [
     "amil_fits_in_column", "metadata_bits_per_line", "metadata_bits_per_row",
     "WORKLOADS", "Trace", "make_trace", "preprocess",
     "SimResult", "run_workload", "set_forced_shards", "simulate",
+    "simulate_many",
 ]

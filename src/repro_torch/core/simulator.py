@@ -26,9 +26,14 @@ Engine layout (one ``simulate`` call):
     and energy on the host in NumPy float64, so the totals of a phased trace
     are ``np.sum`` of its per-phase vector.
 
+The ``hbm`` organization and any HMS footprint that overflows the HMS
+capacity add the Unified-Memory paging model (``repro_torch.um``), whose
+scan is the ``um_scan`` kernel: one warp per UM spec lane.
+:func:`simulate_many` runs every UM point of a batch in one ``um_scan``
+launch, then each config through :func:`simulate`.
+
 On the CPU (``device="cpu"``) the kernels' plain PyTorch versions run
-instead.  The UM paging engine — the ``hbm`` organization and HMS footprint
-overflow — is not ported yet; those inputs raise ``NotImplementedError``.
+instead.
 """
 
 from __future__ import annotations
@@ -36,15 +41,16 @@ from __future__ import annotations
 import dataclasses
 import functools
 import types
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .._device import resolve_device
 from ..resilience import validate as _rvalidate
+from ..um import engine as _um
 from . import bypass as bp
-from .timing import COLUMN_BYTES, POLICIES_WITH_CTC, HMSConfig
+from .timing import COLUMN_BYTES, POLICIES_WITH_CTC, UM_PAGE_BYTES, HMSConfig
 from .traces import Trace, preprocess, shard_plan
 
 _COUNTERS = (
@@ -63,8 +69,6 @@ _COUNTERS = (
 )
 
 _RNG_SEED = 0x9E3779B9
-_UM_TODO = ("the UM paging engine is not ported yet (ROADMAP item A5); "
-            "run this point with the JAX package")
 
 
 @dataclasses.dataclass
@@ -122,6 +126,17 @@ class SimResult:
                 "scm_bytes": scm_cols * COLUMN_BYTES,
                 "scm_write_cols": c["demand_scm_wr"] + c["wb_scm_wr"],
             }
+            if "um_faults" in c:
+                # UM paging attribution (oversubscribed runs): exact, since
+                # the whole-trace totals are these sums
+                out[name].update({
+                    "um_faults": c["um_faults"],
+                    "um_migrated_pages": c["um_migrated"],
+                    "um_writeback_pages": c["um_writebacks"],
+                    "um_remote_cols": c["um_remote_cols"],
+                    "um_link_bytes": (c["um_migrated"] + c["um_writebacks"])
+                    * UM_PAGE_BYTES + c["um_remote_cols"] * COLUMN_BYTES,
+                })
         return out
 
 
@@ -539,6 +554,49 @@ def _single_tier_counters(trace: Trace, cfg: HMSConfig, device_timing,
 
 
 # ---------------------------------------------------------------------------
+# Oversubscribed-HBM Unified-Memory baseline, through ``repro_torch.um``.
+# ---------------------------------------------------------------------------
+
+def _um_overflow_config(trace: Trace, cfg: HMSConfig) -> HMSConfig | None:
+    """The UM config of an HMS footprint overflow (Fig. 17's rel-footprint
+    4.0 case), or ``None`` when the HMS capacity holds the trace.
+
+    The UM model sizes frames as footprint * r_hbm, so footprint must be
+    the trace's (cfg.footprint may be pinned at a nominal size) for the
+    ratio to cancel and the resident bytes to equal the HMS capacity."""
+    if trace.footprint <= cfg.scm_capacity + cfg.dram_cache_capacity:
+        return None
+    return dataclasses.replace(
+        cfg, footprint=trace.footprint,
+        r_hbm=(cfg.scm_capacity + cfg.dram_cache_capacity)
+        / trace.footprint)
+
+
+def _um_specs(trace: Trace, configs: Sequence[HMSConfig],
+              nvlink: bool) -> List[_um.UMSpec]:
+    """The UM paging spec of every validated config of a batch that pages,
+    in input order: an ``hbm`` config, or an HMS whose footprint
+    overflows (repeats kept)."""
+    specs = []
+    for cfg in configs:
+        if cfg.organization == "hbm":
+            specs.append(_um.um_spec(cfg, nvlink))
+        elif cfg.organization in ("hms", "separate"):
+            big = _um_overflow_config(trace, cfg)
+            if big is not None:
+                specs.append(_um.um_spec(big, nvlink))
+    return specs
+
+
+def _um_fault_cycles(um, cfg: HMSConfig, nvlink: bool) -> float:
+    """Serialized fault-handling term: hardware-coherent links fault-stall
+    nothing; the PCIe path pays the (overlapped) fault latency."""
+    if nvlink:
+        return 0.0
+    return um.faults * cfg.fault_latency_ns / cfg.fault_overlap
+
+
+# ---------------------------------------------------------------------------
 # Runtime model + energy (host, NumPy float64).
 # ---------------------------------------------------------------------------
 
@@ -571,10 +629,13 @@ def _energy(C: Dict[str, float], cfg: HMSConfig, link_bytes: float):
 
 
 def _finish(name, cfg, C, link_bytes=0.0, fault_cycles=0.0,
-            n_requests=1, phase_names=()) -> SimResult:
+            n_requests=1, phase_names=(), um=None) -> SimResult:
     # Split phased counters: per-phase vectors are kept verbatim and the
     # whole-trace totals are their sums (np.sum over the same float64 vector
     # is deterministic, so per-phase attribution is exact by construction).
+    # UM paging counters, when the paging model ran, join the same split.
+    if um is not None:
+        C = {**C, **um.counter_arrays()}
     phase_counters = None
     totals: Dict[str, float] = {}
     for k, v in C.items():
@@ -648,32 +709,73 @@ def _finish(name, cfg, C, link_bytes=0.0, fault_cycles=0.0,
 # Public entry points.
 # ---------------------------------------------------------------------------
 
+def _finish_hms(trace: Trace, cfg: HMSConfig, C, nvlink: bool,
+                dev: torch.device) -> SimResult:
+    """Tail of the hms/separate path: the UM overflow model on top of the
+    cache model when the HMS cannot hold the trace, then ``_finish``.  The
+    paging run is memoized per (trace, spec) in ``repro_torch.um``, so a
+    batch that ``simulate_many`` prefetched never runs the scan here."""
+    fault_cycles = 0.0
+    link_bytes = 0.0
+    um = None
+    big = _um_overflow_config(trace, cfg)
+    if big is not None:
+        um = _um.simulate_um(trace, big, nvlink=nvlink, device=dev)
+        link_bytes = um.link_bytes
+        fault_cycles = _um_fault_cycles(um, cfg, nvlink)
+    return _finish(trace.name, cfg, C, link_bytes=link_bytes,
+                   fault_cycles=fault_cycles, n_requests=trace.n,
+                   phase_names=trace.phase_names, um=um)
+
+
 def simulate(trace: Trace, cfg: HMSConfig, nvlink: bool = False, *,
              device=None) -> SimResult:
     """Simulate ``trace`` on the memory system described by ``cfg``.
 
     ``device=None`` runs on the CUDA card and raises if there is none;
     ``device="cpu"`` runs the kernels' plain versions on the host.
-    ``nvlink`` selects the host link of the UM paging model, which this
-    port does not have yet (see the ``NotImplementedError`` cases)."""
+    ``nvlink`` selects the host link of the UM paging model (the ``hbm``
+    organization, and an HMS that cannot hold the trace): access-counter
+    migration over a coherent link instead of fault-driven chunks."""
     dev = resolve_device(device, "simulate")
     cfg = cfg.validate()
     _rvalidate.validate_trace(trace)
     org = cfg.organization
-    if org == "hbm":
-        raise NotImplementedError(f"organization 'hbm': {_UM_TODO}")
-    if org in ("inf_hbm", "scm"):
-        timing = cfg.dram_timing if org == "inf_hbm" else cfg.scm_timing
+    if org in ("inf_hbm", "scm", "hbm"):
+        timing = cfg.scm_timing if org == "scm" else cfg.dram_timing
         C = _single_tier_counters(trace, cfg, timing, dev)
+        if org == "hbm":
+            # oversubscribed HBM + UM paging over the host link
+            um = _um.simulate_um(trace, cfg, nvlink=nvlink, device=dev)
+            return _finish(trace.name, cfg, C, link_bytes=um.link_bytes,
+                           fault_cycles=_um_fault_cycles(um, cfg, nvlink),
+                           n_requests=trace.n,
+                           phase_names=trace.phase_names, um=um)
         return _finish(trace.name, cfg, C, n_requests=trace.n,
                        phase_names=trace.phase_names)
-    # hms / separate: refuse an overflow before any device work
-    if trace.footprint > cfg.scm_capacity + cfg.dram_cache_capacity:
-        raise NotImplementedError(
-            f"Trace({trace.name}) overflows the HMS capacity: {_UM_TODO}")
+    # hms / separate
     C = _run_hms_scan(trace, cfg, dev)
-    return _finish(trace.name, cfg, C, n_requests=trace.n,
-                   phase_names=trace.phase_names)
+    return _finish_hms(trace, cfg, C, nvlink, dev)
+
+
+def simulate_many(trace: Trace, configs: Sequence[HMSConfig],
+                  nvlink: bool = False, *, device=None) -> List[SimResult]:
+    """Simulate one trace under many configs; results in input order, equal
+    to :func:`simulate` config by config.
+
+    Every UM paging point of the batch (``hbm`` configs and HMS footprint
+    overflows) runs first, in ONE ``simulate_um_many`` call (one
+    ``um_scan`` launch, one lane per distinct spec); each config then runs
+    through :func:`simulate`, whose paging lookups hit the memo.  (The
+    reference also runs compatible HMS configs as lanes of one scan; here
+    each HMS config is its own ``hms_scan`` launch.)"""
+    dev = resolve_device(device, "simulate_many")
+    configs = [c.validate() for c in configs]
+    _rvalidate.validate_trace(trace)
+    um_specs = _um_specs(trace, configs, nvlink)
+    if um_specs:
+        _um.simulate_um_many(trace, um_specs, device=dev)
+    return [simulate(trace, cfg, nvlink, device=dev) for cfg in configs]
 
 
 def run_workload(name: str, cfg: HMSConfig, n: int | None = None,

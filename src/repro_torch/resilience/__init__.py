@@ -3,10 +3,11 @@ reference package's resilience layer: what ``simulate`` reaches)."""
 
 from .validate import (EngineInvariantError, ResilienceWarning,
                        ValidationError, check_hms_packing,
-                       unknown_policy_error, validate_config, validate_trace)
+                       unknown_policy_error, validate_config, validate_trace,
+                       validate_um_spec)
 
 __all__ = [
     "EngineInvariantError", "ResilienceWarning", "ValidationError",
     "check_hms_packing", "unknown_policy_error", "validate_config",
-    "validate_trace",
+    "validate_trace", "validate_um_spec",
 ]

@@ -300,3 +300,21 @@ def check_hms_packing(trace_name: str, *, tag_max: Optional[int] = None,
             "shard-local row groups below 2^23 - 1",
             "the footprint's row-group space overflows the CTC tag "
             "packing; shrink the footprint or raise the shard count")
+
+
+# ---------------------------------------------------------------------------
+# UM paging spec.
+# ---------------------------------------------------------------------------
+
+def validate_um_spec(spec) -> None:
+    """Validate a :class:`~repro_torch.um.engine.UMSpec` at engine entry."""
+    if spec.n_frames < 1:
+        _fail("UMSpec.n_frames", spec.n_frames,
+              "at least one resident HBM frame",
+              "n_frames derives from hbm_capacity // page; raise r_hbm")
+    if spec.chunk < 1:
+        _fail("UMSpec.chunk", spec.chunk,
+              "a migration chunk of at least 1 page")
+    if spec.hot_thresh < 0:
+        _fail("UMSpec.hot_thresh", spec.hot_thresh,
+              "a non-negative access count")

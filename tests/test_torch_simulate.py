@@ -152,16 +152,18 @@ def test_phase_sums_match_bincount():
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-12)
 
 
-def test_um_paths_raise_not_implemented():
-    t = T.make_trace("zipf", n=500)
-    with pytest.raises(NotImplementedError, match="A5"):
-        T.simulate(t, T.HMSConfig(footprint=t.footprint,
-                                  organization="hbm"), device="cpu")
-    # an HMS that cannot hold the footprint needs UM paging on top
-    small = T.HMSConfig(footprint=t.footprint, r_hbm=0.1)
+@pytest.mark.parametrize("nvlink", [False, True], ids=["fault", "nvlink"])
+def test_um_paths_match_reference(nvlink):
+    """The two UM paths: the hbm organization, and an HMS too small for the
+    footprint, which adds UM paging on top of the cache model."""
+    t = R.make_trace("zipf", n=500)
+    hbm = R.HMSConfig(footprint=t.footprint, organization="hbm")
+    _assert_result(_port(t, hbm, nvlink=nvlink), R.simulate(t, hbm, nvlink))
+    small = R.HMSConfig(footprint=t.footprint, r_hbm=0.1)
     assert t.footprint > small.scm_capacity + small.dram_cache_capacity
-    with pytest.raises(NotImplementedError, match="A5"):
-        T.simulate(t, small, device="cpu")
+    got = _port(t, small, nvlink=nvlink)
+    _assert_result(got, R.simulate(t, small, nvlink))
+    assert got.counters["um_faults"] > 0
 
 
 def test_default_device_without_cuda_raises(monkeypatch):
