@@ -31,9 +31,10 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                ``chip_smoke_traces.npz`` (same fingerprints) are used.
   4b. um     - um_scan against its plain version, counters and final
                state exactly: on short seeded streams that hit every quirk
-               of the reference's paging step (UM_QUIRKS: chunks 1-64,
-               windows that wrap the frame ring, a clipped last chunk, both
-               link modes, phases, a 40000-page footprint), and
+               of the reference's paging step (UM_QUIRKS: chunks 1-64 at
+               every window tier of the kernel, windows that wrap the frame
+               ring, a clipped last chunk, both link modes, phases, a
+               40000-page footprint, and the kernel's pass edges), and
                on the 16 points of benchmarks/baselines/BENCH_um.json (one
                8-lane call a workload, as the um suite batches them), which
                must also equal the baseline's counters (moe_expert and
@@ -60,7 +61,10 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                its plain version at the main path's size (gpt_train's
                default trace, fault and nvlink lanes in one call: counters
                and final state exactly), and the kernel alone per paging
-               workload.
+               workload beside its bounds (``um_bounds``).  Then
+               um_step_costs: cycles a step of the kernel alone, one lane a
+               launch, on synthetic hit and pure-migration streams (chunks
+               1, 4, 64 and nvlink) and on every paging workload's lanes.
   6. serving kernels against their plain versions: flash_attention at the
                serving slice's shape (B 4, S = T = 1024, 16 heads over 2 KV
                heads, hd 128; bf16 and float32, ragged, non-causal, softcap
@@ -117,6 +121,10 @@ Phases, each printed as one JSON line; any failure exits non-zero:
   9. the ``kernels`` summary line, then the ``ok`` line.
 
 ``--out DIR`` also writes every JSON line to DIR/chip_smoke.jsonl;
+``--only um`` runs phases 1-2 and the UM phases (4b, 5b and
+um_step_costs) and ``--only um_step_costs`` that phase alone, printing no
+``ok`` line (a copy of the script beside another checkout's ``src/``
+measures that checkout);
 ``--write-traces`` (no card needed) rewrites
 ``chip_smoke_traces.npz`` from ``make_trace`` for the workloads of both
 baselines (BENCH_sweep.json and BENCH_um.json, with phase ids where a
@@ -445,17 +453,24 @@ def scan_bounds(scan_ops, s, cycle_ms):
 # through um_scan's plain version (its 6315 pages clip the last chunk)
 UM_PLAIN_WORKLOAD = "gpt_train"
 
-def um_bounds(args, cycle_ms):
-    """um_scan's bounds on its arguments: every lane is one chain of n
-    dependent steps at STEP_CYCLES a step (lanes run side by side), and
-    the stream's bytes (page, write flag, phase) at the memory rate."""
+def um_bounds(args, counts, cycle_ms):
+    """um_scan's bounds on its arguments and its counts: the slowest lane's
+    chain, one dependent round trip (STEP_CYCLES) for each migrating step
+    (the lane's fault counter counts exactly those) and for each pass of up
+    to 32 hit steps, and the stream's bytes (page, write flag, phase) at
+    the memory rate.  Lanes run side by side.  ``step_chain_bound_ms`` is
+    the chain of n dependent steps that a kernel stepping one request at a
+    time is held to."""
     n = args["page"].shape[0]
-    chain_ms = n * STEP_CYCLES * cycle_ms
+    passes = max((int(f) + math.ceil((n - f) / 32)
+                  for f in counts[:, 0].sum(dim=1).tolist()), default=0)
+    chain_ms = passes * STEP_CYCLES * cycle_ms
     per_step = 5 + (4 if args["phase"] is not None else 0)
     bytes_ms = n * per_step / HBM_BYTES_PER_S * 1e3
     return {"bound_ms": max(chain_ms, bytes_ms),
             "bound_by": "operations" if chain_ms >= bytes_ms else "bytes",
-            "bytes_bound_ms": bytes_ms}
+            "bytes_bound_ms": bytes_ms, "chain_round_trips": passes,
+            "step_chain_bound_ms": n * STEP_CYCLES * cycle_ms}
 
 
 # (n, pages, phases, lanes as (n_frames, chunk, nvlink, hot_thresh)): every
@@ -469,11 +484,28 @@ UM_QUIRKS = {
     "chunk8_wrap": (1200, 203, 1, ([20, 9], [8, 8], [False, False], [0, 0])),
     "chunk64": (800, 517, 1, ([300, 100, 70], [64, 64, 64],
                               [False, False, False], [0, 0, 0])),
+    # the kernel's window tiers of 64 and 128 candidates, wrapped and not
+    "chunk16_32": (1000, 400, 1, ([200, 50, 300, 90], [16, 16, 32, 32],
+                                  [False] * 4, [0] * 4)),
     "nvlink": (1500, 300, 1, ([50, 3, 120], [1, 1, 1], [True, True, True],
                               [4, 0, 2])),
     "mixed_phased": (1500, 257, 3, ([64, 5, 40, 100], [8, 2, 1, 1],
                                     [False, False, True, True],
                                     [0, 0, 4, 1])),
+    # the kernel's pass edges (32 requests a pass), as (..., prefix, the
+    # longest phase run): an nvlink page that crosses its threshold at its
+    # 2nd, 3rd and 4th step of one pass; a migration at a pass's last and
+    # first request; phase runs of 1-40 requests, several in most passes
+    "pass_threshold": (1500, 300, 1, ([8, 8, 3], [1, 1, 1],
+                                      [True, True, True], [2, 3, 4]),
+                       [20, 21, 7, 9, 24, 25, 7, 27, 28, 29, 30, 7, 32, 33,
+                        34, 35, 36, 37, 38, 7, 40, 41, 42, 43, 44, 45, 46, 7,
+                        48, 9, 50, 51], 0),
+    "pass_edges": (1500, 300, 1, ([64, 9], [1, 4], [False, False], [0, 0]),
+                   [100] * 32 + [150, 200, 100, 150, 200], 0),
+    "pass_phases": (1500, 150, 3, ([40, 7, 40, 9], [4, 2, 1, 1],
+                                   [False, False, True, True], [0, 0, 3, 0]),
+                    [], 40),
 }
 
 
@@ -484,19 +516,24 @@ def um_quirk_checks(torch, dev) -> None:
     import numpy as np
     from repro_torch.kernels.um_scan import ops as um_ops
     from repro_torch.kernels.um_scan import ref as um_ref
-    for seed, (case, (n, n_pages, n_phases, lanes)) in enumerate(
+    for seed, (case, (n, n_pages, n_phases, lanes, *edges)) in enumerate(
             sorted(UM_QUIRKS.items())):
+        prefix, run = edges or ([], 0)
         rng = np.random.default_rng(seed)
         # runs near the last page, and jumps
         walk = np.cumsum(rng.integers(-3, 4, n)) % n_pages
         page = np.where(rng.random(n) < 0.7, walk,
                         rng.integers(0, n_pages, n))
+        page[:len(prefix)] = prefix
         page[-1] = n_pages - 1
+        phase = np.arange(n) // 250 % n_phases
+        if run:
+            phase = np.repeat(rng.integers(0, n_phases, n),
+                              rng.integers(1, run + 1, n))[:n]
         args = dict(
             page=torch.from_numpy(page.astype(np.int32)).to(dev),
             is_write=torch.from_numpy(rng.random(n) < 0.3).to(dev),
-            phase=torch.from_numpy((np.arange(n) // 250 % n_phases)
-                                   .astype(np.int32)).to(dev)
+            phase=torch.from_numpy(phase.astype(np.int32)).to(dev)
             if n_phases > 1 else None,
             n_phases=n_phases, n_pages=n_pages, n_frames=lanes[0],
             chunk=lanes[1], nvlink=lanes[2], hot_thresh=lanes[3])
@@ -549,7 +586,7 @@ def um_baseline_checks(torch, T, dev, flush, cycle_ms):
                    "lanes": len(specs), "phases": t.n_phases,
                    "pages": args["n_pages"], "max_abs_err": err, "ms": ms,
                    "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-                   **um_bounds(args, cycle_ms),
+                   **um_bounds(args, got[0], cycle_ms),
                    "ns_per_step": kernel_ms * 1e6 / t.n,
                    "faults": float(counts[:, 0].sum()),
                    "library_ms": None}
@@ -716,14 +753,115 @@ def um_main_path(torch, T, dev, traces, cycle_ms):
         t = traces[(w, None)]
         specs = [um_engine.um_spec(hbm(t), nv) for nv in (False, True)]
         args = um_engine.scan_args(t, specs, dev)
+        counts, _ = um_ops.um_scan(**args)
         kernel_ms = device_ms(torch, lambda: um_ops.um_scan(**args),
                               "um_scan_kernel", "um_scan_launch", reps=2)
         emit({"phase": "um_breakdown", "workload": w, "n": t.n,
               "pages": args["n_pages"], "frames": specs[0].n_frames,
               "lanes": 2, "um_scan_ms": kernel_ms,
               "ns_per_step": kernel_ms * 1e6 / t.n,
-              **um_bounds(args, cycle_ms)})
+              "faults": counts[:, 0].sum(dim=1).tolist(),
+              **um_bounds(args, counts, cycle_ms)})
     return launches
+
+
+# synthetic streams of um_step_costs: the pure-migration streams' frames
+# (a window of up to 256 wraps none) and the hit stream's resident set
+UM_COST_FRAMES = 4096
+UM_COST_HIT_PAGES = 8192
+
+
+def um_cost_streams(n_hit=240_000, n_mig=20_000, seed=11):
+    """um_step_costs' synthetic streams: (name, page int32, is_write, pages,
+    lane as (n_frames, chunk, nvlink, hot_thresh), steps timed).
+
+    ``warm`` sweeps the hit stream's 8192 pages once into as many frames;
+    ``hit`` is that sweep then ``n_hit`` uniform requests, which all hit:
+    the difference of the two launches is the hit steps' cost.  ``mig_*``
+    migrate on every step, into full frames after the first few: fault
+    mode touches a chunk never touched before each step (chunks 1, 4 and
+    64), nvlink mode (threshold 0, one page a migration whatever the chunk)
+    a page never touched before."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    wr = lambda n: rng.random(n) < 0.3
+    sweep = np.arange(UM_COST_HIT_PAGES)
+    hits = np.concatenate([sweep, rng.integers(0, UM_COST_HIT_PAGES, n_hit)])
+    out = []
+    for mode, lane in (("fault", (UM_COST_HIT_PAGES, 4, False, 0)),
+                       ("nvlink", (UM_COST_HIT_PAGES, 1, True, 0))):
+        out.append((f"warm_{mode}", sweep, wr(sweep.size),
+                    UM_COST_HIT_PAGES, lane))
+        out.append((f"hit_{mode}", hits, wr(hits.size), UM_COST_HIT_PAGES,
+                    lane))
+    t = np.arange(n_mig)
+    for c in (1, 4, 64):
+        out.append((f"mig_fault_chunk{c}", t * c, wr(n_mig), c * n_mig,
+                    (UM_COST_FRAMES, c, False, 0)))
+    out.append(("mig_nvlink", t, wr(n_mig), n_mig,
+                (UM_COST_FRAMES, 1, True, 0)))
+    return [(name, page.astype(np.int32), w, n_pages, lane)
+            for name, page, w, n_pages, lane in out]
+
+
+def um_step_costs(torch, T, dev, cycle_ms, traces=None):
+    """Cycles a step of um_scan's kernel alone, one lane a launch: on the
+    synthetic streams of :func:`um_cost_streams` (a hit step: the hit
+    stream less its warm-up sweep; a migrating step: the pure-migration
+    streams), and on the fault and nvlink lanes of every registered
+    workload that pages at its default size.  Cycles are kernel ms x the
+    card's max SM clock / steps."""
+    from repro_torch.kernels.um_scan import ops as um_ops
+    from repro_torch.um import engine as um_engine
+
+    def lane_ms(args):
+        counts, _ = um_ops.um_scan(**args)
+        ms = device_ms(torch, lambda: um_ops.um_scan(**args),
+                       "um_scan_kernel", "um_scan_launch", reps=2)
+        return ms, float(counts[0, 0].sum())
+
+    cyc = lambda ms: ms / cycle_ms
+    warm = {}
+    for name, page, wr, n_pages, lane in um_cost_streams():
+        args = dict(page=torch.from_numpy(page).to(dev),
+                    is_write=torch.from_numpy(wr).to(dev), phase=None,
+                    n_phases=1, n_pages=n_pages, n_frames=[lane[0]],
+                    chunk=[lane[1]], nvlink=[lane[2]], hot_thresh=[lane[3]])
+        ms, faults = lane_ms(args)
+        n = page.size
+        row = {"phase": "um_step_costs", "stream": name, "n": n,
+               "pages": n_pages, "frames": lane[0], "chunk": lane[1],
+               "nvlink": lane[2], "faults": faults, "kernel_ms": ms,
+               "cycles_per_step": cyc(ms) / n}
+        if name.startswith("warm_"):
+            warm[name[5:]] = (ms, n, faults)
+        elif name.startswith("hit_"):
+            w_ms, w_n, w_f = warm[name[4:]]
+            need(faults == w_f, f"{name}: {faults - w_f} faults after the "
+                 "warm-up")
+            row["cycles_per_hit_step"] = cyc(ms - w_ms) / (n - w_n)
+        else:
+            need(faults == n, f"{name}: {n - faults} steps did not migrate")
+        emit(row)
+    if traces is None:
+        traces = {(w, None): T.make_trace(w) for w in sorted(T.WORKLOADS)}
+    for (w, n), t in traces.items():
+        if n is not None:
+            continue
+        cfg = T.HMSConfig(footprint=t.footprint, organization="hbm")
+        _, n_pages = um_engine._page_stream(t)
+        if um_engine.um_spec(cfg).n_frames >= n_pages:
+            continue                 # early-out: HBM holds the footprint
+        for nv in (False, True):
+            spec = um_engine.um_spec(cfg, nv)
+            args = um_engine.scan_args(t, [spec], dev)
+            ms, faults = lane_ms(args)
+            emit({"phase": "um_step_costs", "stream": w, "n": t.n,
+                  "pages": n_pages, "frames": spec.n_frames,
+                  "chunk": spec.chunk, "nvlink": nv, "faults": faults,
+                  "migrating_share": faults / t.n, "kernel_ms": ms,
+                  "ns_per_step": ms * 1e6 / t.n,
+                  "cycles_per_step": cyc(ms) / t.n})
 
 
 # ---- attention kernels and the serving path --------------------------------
@@ -1554,6 +1692,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None)
     ap.add_argument("--write-traces", action="store_true")
+    ap.add_argument("--only", choices=["um", "um_step_costs"], default=None,
+                    help="run the device and build phases, then only the "
+                    "UM phases (4b, 5b and um_step_costs) or um_step_costs")
     args = ap.parse_args(argv)
     if args.write_traces:
         return write_traces()
@@ -1593,12 +1734,24 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     _build.library()
     ptxas = [ln.strip() for ln in str(_build.build_info.get("log", ""))
-             .splitlines() if "registers" in ln or "Compiling entry" in ln]
+             .splitlines() if "registers" in ln or "Compiling entry" in ln
+             or "stack frame" in ln]
     emit({"phase": "build", "wall_s": time.perf_counter() - t0,
           "nvcc_s": _build.build_info.get("seconds"),
           "sources": _build.build_info.get("sources"), "ptxas": ptxas})
 
     flush = torch.empty(64 * 2**20, dtype=torch.int8, device=dev)
+    if args.only:
+        if args.only == "um":
+            um_quirk_checks(torch, dev)
+            um_baseline_checks(torch, T, dev, flush, cycle_ms)
+            traces = {(w, None): T.make_trace(w) for w in sorted(T.WORKLOADS)}
+            um_main_path(torch, T, dev, traces, cycle_ms)
+            um_step_costs(torch, T, dev, cycle_ms, traces)
+        else:
+            um_step_costs(torch, T, dev, cycle_ms)
+        emit({"phase": "done", "wall_s": time.perf_counter() - t_start})
+        return 0
     summary = {}
 
     # ---- 3. kernels against their plain versions --------------------------
@@ -1862,6 +2015,7 @@ def main(argv=None) -> int:
 
     # ---- 5b. the UM leg of the main path at default size ----------------
     um_launches = um_main_path(torch, T, dev, traces, cycle_ms)
+    um_step_costs(torch, T, dev, cycle_ms, traces)
 
     # the AMIL probe's own path: its wrapper at the table sizes it names
     _build.reset_counts()

@@ -8,31 +8,45 @@
 // What bounds it: each lane is one chain of dependent steps.  Chunked
 // migration couples neighbouring pages and the eviction window reads frames
 // that any earlier step may have written, so a lane does not split into
-// state-disjoint chains as hms_scan's do.  The bound is the chain: n steps
-// at about 30 cycles each (one dependent L1 round trip) at 1980 MHz, 3.6 ms
-// for 240k steps.  The bytes are negligible: a 240k-request stream of page,
+// state-disjoint chains as hms_scan's do.  But between two migrations a step
+// only adds one to its page's access count (counts commute) and may set its
+// dirty flag (idempotent); no page's residence and no frame changes.  So
+// the chain that remains is one dependent round trip (about 30 cycles) for
+// each migrating step and for each pass of up to 32 hit steps: for the
+// slowest lane, (migrating steps + ceil(hit steps / 32)) x 30 cycles at
+// 1980 MHz (chip_smoke's um_bounds; a kernel that steps one request at a
+// time is held to n x 30 cycles).  The bytes are negligible: a 240k-request stream of page,
 // write flag and phase is about 2.2 MB, under a microsecond at 3.35 TB/s.
 // Lanes are independent and run side by side on separate SMs.
 //
 // The design: one CTA of one warp per lane (grid = lanes).  The lane's
 // state (access counts and frames int32, resident and dirty flags) lives in
-// the wrapper's device buffers, cold when the kernel starts, and L1 and L2
-// hold what they can of it: the step is bound by its own chain of dependent
-// instructions, not by where the state lives.  (A variant that kept the
-// state in shared memory was 1.7-5% faster on an H100 at the registered
-// sizes and was dropped for one path at every footprint.)  Every thread
-// reads the request and the page's flags (broadcast loads), the next
-// request is loaded while the current one runs, and thread 0 writes the
-// count and, at the end, the dirty flag.  A migration spreads the chunk's
-// pages and the 4 x chunk eviction window over the warp; the victims are
-// ranked by a stable rank (no sort: each candidate counts the colder ones
-// and the equally cold ones before it); the writes follow in the
-// reference's order, one __syncwarp between dependent phases
-// (um_step.cuh).  Counts stay in registers per phase and are added to the
-// int64 output at phase changes; the wrapper turns them into float64 once,
-// so the per-phase sums are exact.
+// the wrapper's device buffers at every footprint, cold when the kernel
+// starts.  The request stream comes through a ring in shared memory that
+// cp.async fills ahead of the walk (3-17% faster than loading each pass's
+// requests from device memory, on an H100).  A pass (um_step.cuh, um_lane)
+// gives each thread one of the next 32 requests, reads its page's resident
+// flag, and finds the first migrating step with one ballot: in fault mode
+// the first step on a page that is not resident; in nvlink mode the first
+// such step whose access count reaches the threshold, the count being the
+// page's count (read for those steps only) plus its earlier steps in the
+// pass (__match_any_sync).  The steps before it take effect at once: their
+// counts are added by reductions in device memory that nothing waits for,
+// writes to resident pages set dirty flags, nvlink steps to pages that are
+// not resident count as remote; each step's events go to its own phase's
+// int64 counter by the same reductions, so interleaved phases (the
+// scenarios change phase every 1-3 requests) do not cut passes.  The
+// migrating step (um_migrate) reads the window's frames loaded when the
+// last migration ended, then the candidates' counts and dirty flags and the
+// chunk's resident flags in one round trip; up to 32 candidates (chunks up
+// to 8, nvlink) it takes the victims one by one by warp minimum, above that
+// it ranks the window from shared memory; its writes need no order between
+// threads.  um_walk instantiates the walk per window tier (32, 64, 128 or
+// 256 candidates, 1-8 a thread) so a lane pays for its own window only.  The
+// wrapper turns the counts into float64 once, so the per-phase sums are
+// exact.
 //
-// um_scan_host runs the same step on the host, lane after lane: it is the
+// um_scan_host runs the same walk on the host, lane after lane: it is the
 // kernel's oracle at sizes where the plain PyTorch loop is too slow.
 
 #include <cuda_runtime.h>
@@ -62,6 +76,85 @@ __host__ __device__ inline UmLane lane_state(
   return L;
 }
 
+// The request stream through a ring in shared memory, filled ahead of the
+// walk by cp.async in chunks of RING_CHUNK requests, RING_AHEAD chunks in
+// flight, so a pass reads its 32 requests from shared memory.  The stream's
+// arrays are 16-byte aligned (the wrapper sees to it); the last chunk's
+// copies are cut at the stream's end and zero-filled.
+constexpr int RING_CHUNK = 256;
+constexpr int RING_AHEAD = 6;
+constexpr int RING_SLOTS = RING_AHEAD + 2;  // + the chunks a pass may read
+constexpr int RING = RING_CHUNK * RING_SLOTS;
+
+struct UmRing {
+  int32_t page[RING];
+  int32_t phase[RING];
+  uint8_t write[RING];
+};
+
+__device__ inline void copy16(void* dst, const void* src, int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes));
+}
+
+struct RingStream {
+  UmRing* ring;
+  const int32_t* page_;
+  const uint8_t* write_;
+  const int32_t* phase_;
+  int64_t n;
+  int64_t have;  // chunks [0, have] are in the ring
+  int lane;
+
+  // Copy chunk c into its slot (a group of copies, empty past the end).
+  __device__ void issue(int64_t c) {
+    const int64_t e0 = c * RING_CHUNK;
+    const int slot = (int)(c % RING_SLOTS) * RING_CHUNK;
+    if (e0 < n) {
+      for (int v = lane; v < RING_CHUNK / 4; v += 32) {
+        const int64_t e = e0 + 4 * v;
+        const int bytes = e < n ? (n - e < 4 ? (int)(n - e) * 4 : 16) : 0;
+        copy16(&ring->page[slot + 4 * v], bytes ? page_ + e : page_, bytes);
+        if (phase_)
+          copy16(&ring->phase[slot + 4 * v], bytes ? phase_ + e : phase_,
+                 bytes);
+      }
+      if (lane < RING_CHUNK / 16) {
+        const int64_t e = e0 + 16 * lane;
+        const int bytes = e < n ? (n - e < 16 ? (int)(n - e) : 16) : 0;
+        copy16(&ring->write[slot + 16 * lane], bytes ? write_ + e : write_,
+               bytes);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  }
+  // Every group but the RING_AHEAD newest has landed, for every thread.
+  __device__ void settle() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(RING_AHEAD));
+    __syncwarp();
+  }
+  __device__ void start() {
+    for (int c = 0; c <= RING_AHEAD; ++c) issue(c);
+    settle();
+    have = 0;
+  }
+  // A pass reads [t, t + 32): at most one chunk more than the last pass.
+  __device__ void ready(int64_t t) {
+    const int64_t c = (t + UM_BATCH - 1) / RING_CHUNK;
+    if (c > have) {
+      issue(c + RING_AHEAD);
+      settle();
+      have = c;
+    }
+  }
+  __device__ int32_t page(int64_t i) const { return ring->page[i % RING]; }
+  __device__ bool write(int64_t i) const { return ring->write[i % RING]; }
+  __device__ int32_t phase(int64_t i) const {
+    return phase_ ? ring->phase[i % RING] : 0;
+  }
+};
+
 __global__ void __launch_bounds__(32)
     um_scan_kernel(const int32_t* __restrict__ page,
                    const uint8_t* __restrict__ is_write,
@@ -72,12 +165,15 @@ __global__ void __launch_bounds__(32)
                    int64_t frames_alloc, int32_t* hotness, int32_t* ptr,
                    int64_t* counts) {
   __shared__ UmWork wk;
+  __shared__ __align__(16) UmRing ring;
   const int l = blockIdx.x;
   const int lane = threadIdx.x;
   UmLane L = lane_state(l, params, n_pages, resident, dirty, pages_alloc,
                         frames, frames_alloc, hotness);
-  um_lane(page, is_write, phase, n, n_phases, L, wk,
-          counts + (int64_t)l * 4 * n_phases, lane, 32);
+  RingStream src{&ring, page, is_write, phase, n, 0, lane};
+  src.start();
+  um_walk<32>(src, n, n_phases, L, wk, counts + (int64_t)l * 4 * n_phases,
+              lane);
   if (lane == 0) ptr[l] = L.ptr;
 }
 
@@ -98,7 +194,10 @@ extern "C" int um_scan_launch(const int32_t* page, const uint8_t* is_write,
   return (int)cudaGetLastError();
 }
 
-// The same walk on host memory, one lane after another, on one thread.
+// The same walk on host memory, one lane after another, on one thread
+// (left out of the device pass, which would otherwise build the one-thread
+// walk for the device too).
+#ifndef __CUDA_ARCH__
 extern "C" int um_scan_host(const int32_t* page, const uint8_t* is_write,
                             const int32_t* phase, int64_t n, int n_phases,
                             const int32_t* params, int lanes,
@@ -111,9 +210,11 @@ extern "C" int um_scan_host(const int32_t* page, const uint8_t* is_write,
   for (int l = 0; l < lanes; ++l) {
     UmLane L = lane_state(l, params, n_pages, resident, dirty, pages_alloc,
                           frames, frames_alloc, hotness);
-    um_lane(page, is_write, phase, n, n_phases, L, wk,
-            counts + (int64_t)l * 4 * n_phases, 0, 1);
+    UmStream src{page, is_write, phase};
+    um_walk<1>(src, n, n_phases, L, wk, counts + (int64_t)l * 4 * n_phases,
+               0);
     ptr[l] = L.ptr;
   }
   return 0;
 }
+#endif

@@ -21,15 +21,16 @@ MAX_CHUNK = 64          # UM_MAX_CHUNK in csrc/um_step.cuh
 
 def kernel_tier(chunk_max: int) -> int:
     """Eviction-window candidates each thread of the kernel's warp holds
-    for a migration chunk of ``chunk_max`` pages (a window of 4 x chunk);
-    raises ValueError above the top tier.  (The plain version takes any
-    chunk.)"""
+    for a migration chunk of ``chunk_max`` pages (a window of 4 x chunk, in
+    the smallest of the kernel's tiers of 32, 64, 128 and 256 candidates
+    that holds it: ``um_walk`` in ``csrc/um_step.cuh``); raises ValueError
+    above the top tier.  (The plain version takes any chunk.)"""
     if chunk_max > MAX_CHUNK:
         raise ValueError(f"um_scan: a migration chunk of {chunk_max} pages "
                          f"exceeds the kernel's tier of {MAX_CHUNK} pages "
                          f"(a window of {4 * MAX_CHUNK} candidates, "
                          f"{4 * MAX_CHUNK // 32} a thread)")
-    return -(-4 * max(1, chunk_max) // 32)
+    return 1 << (-(-4 * max(1, chunk_max) // 32) - 1).bit_length()
 
 
 def _check(page, is_write, phase, n_phases, n_pages, lanes):
@@ -72,6 +73,13 @@ def _lane_params(n_frames, chunk, nvlink, hot_thresh):
                         dtype=torch.int32).reshape(-1, 4)
 
 
+def _aligned(t):
+    """``t`` contiguous at a 16-byte aligned address: the kernel copies the
+    request stream into shared memory in 16-byte pieces."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _run(entry: str, page, is_write, phase, n_phases, n_pages, lanes,
          *launch):
     """Call the library's ``entry`` on a fresh cold state (``launch``: the
@@ -84,8 +92,8 @@ def _run(entry: str, page, is_write, phase, n_phases, n_pages, lanes,
         return counts, state
     params = _lane_params(*lanes).to(page.device)
     resident, dirty, frames, ptr, hotness = state
-    page, is_write = page.contiguous(), is_write.contiguous()
-    phase = phase.contiguous() if phase is not None else None
+    page, is_write = _aligned(page), _aligned(is_write)
+    phase = _aligned(phase) if phase is not None else None
     err = getattr(_build.library(), entry)(
         page.data_ptr(), is_write.data_ptr(),
         phase.data_ptr() if phase is not None else None, page.shape[0],

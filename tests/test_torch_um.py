@@ -458,14 +458,20 @@ extern "C" void walk(const int32_t* page, const uint8_t* is_write,
     L.chunk = params[4 * l + 1];
     L.nvlink = params[4 * l + 2] != 0;
     L.hot_thresh = params[4 * l + 3];
-    um_lane(page, is_write, phase, n, n_phases, L, wk,
-            counts + (int64_t)l * 4 * n_phases, 0, 1);
+    UmStream src{page, is_write, phase};
+    um_walk<1>(src, n, n_phases, L, wk, counts + (int64_t)l * 4 * n_phases,
+               0);
     ptr[l] = L.ptr;
   }
 }
 
 extern "C" void ranks(const int32_t* hot, int w, int32_t* out) {
-  for (int c = 0; c < w; ++c) out[c] = um_stable_rank(hot, w, c);
+  int32_t h[UM_MAX_WINDOW] = {0};
+  int r[UM_MAX_WINDOW];
+  UmWork wk;
+  for (int c = 0; c < w; ++c) h[c] = hot[c];
+  um_window_ranks<1, UM_MAX_WINDOW>(wk, h, w, 0, r);
+  for (int c = 0; c < w; ++c) out[c] = r[c];
 }
 
 extern "C" int max_chunk() { return UM_MAX_CHUNK; }
