@@ -11,7 +11,12 @@ Phases, each printed as one JSON line; any failure exits non-zero:
   3. kernels - each kernel against its plain PyTorch version on the card,
                on the same inputs, exactly (integer outputs and the
                rounded float64 EMA): amil_probe at 256 and 8192 table
-               lanes x 2^20 requests; hms_scan + ema_scan on the golden
+               lanes x 2^20 requests, at N % 4 = 1 and on views at offset
+               1 (each row: the call, the kernel alone, every device
+               kernel of a call, which must be one launch of the probe
+               kernel), at the largest table the wrapper takes, and
+               a child process whose out-of-range slot must fail the
+               stream; hms_scan + ema_scan on the golden
                trace under all 8 policies (and 48 CTC ways of 64 and 96 of
                128: two and four a thread in the kernel) and on one
                workload at its full
@@ -85,7 +90,10 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                (H 80, N 64) in bf16 and float32, ragged L 11 and 130, a
                nonzero initial state, G = 2 and the smoke configs' shape
                (P 16, N 16) (see ``ssd_checks``): bf16 must run the
-               tensor-core kernel, float32 the FMA kernel.  Then
+               tensor-core kernel, float32 the design ``ops.DESIGNS``
+               names (the three-piece tensor-core kernel), each row with
+               its CTAs per SM and, in float32, the tensor-core and FMA
+               bounds.  Then
                ``repro_torch.launch.serve --arch mamba2-1.3b --smoke`` on
                the card (``smoke_serve``).
   7. serve   - qwen2.5-3b at full width (36 layers, bf16, random weights
@@ -122,9 +130,11 @@ Phases, each printed as one JSON line; any failure exits non-zero:
 
 ``--out DIR`` also writes every JSON line to DIR/chip_smoke.jsonl;
 ``--only um`` runs phases 1-2 and the UM phases (4b, 5b and
-um_step_costs) and ``--only um_step_costs`` that phase alone, printing no
-``ok`` line (a copy of the script beside another checkout's ``src/``
-measures that checkout);
+um_step_costs), ``--only um_step_costs`` that phase alone, ``--only
+amil_probe`` the amil_probe rows and the out-of-range check (the one-launch
+rule not judged) and ``--only ssd`` the ssd_scan rows, printing no ``ok``
+line (a copy of the script beside another checkout's ``src/`` measures
+that checkout);
 ``--write-traces`` (no card needed) rewrites
 ``chip_smoke_traces.npz`` from ``make_trace`` for the workloads of both
 baselines (BENCH_sweep.json and BENCH_um.json, with phase ids where a
@@ -155,6 +165,9 @@ TRACES = ROOT / "chip_smoke_traces.npz"
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (data sheet)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, data sheet
 ATTN_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# bf16 products a term of the float32 ssd_scan design (three bf16 pieces an
+# operand; the six piece products that reach float32's rounding)
+F32_PIECE_PRODUCTS = 6
 # bf16 card-vs-CPU logits, as a share of the largest logit: the CPU tests'
 # bf16 logit tolerance against JAX (atol = rtol = 2e-2)
 BF16_LOGIT_TOL = 2e-2
@@ -361,6 +374,143 @@ def counter_bits(r) -> dict:
     for k, v in (r.phase_counters or {}).items():
         bits["phase:" + k] = np.asarray(v, np.float64).tobytes()
     return bits
+
+
+# ---- the AMIL probe ----------------------------------------------------------
+
+# (case, table lanes, requests, offset of the slot and tag views): the two
+# table sizes the reference names, an N with N % 4 = 1, views at offset 1
+# (slots[1:], tags[1:]: every request scalar) and the largest table the
+# wrapper takes (227 KiB of shared memory less the kernel's 16-byte mbarrier)
+AMIL_CASES = (("lanes_256", 256, 1 << 20, 0),
+              ("lanes_8192", 8192, 1 << 20, 0),
+              ("odd_n", 8192, (1 << 20) - 3, 0),
+              ("view_offset_1", 8192, 1 << 20, 1),
+              ("lanes_max", (227 * 1024 - 16) // 4, 1 << 20, 0))
+
+
+def call_split(torch, fn, reps: int = 5, windows: int = 3):
+    """{device kernel name: [launches a call, mean ms a launch]} of ``fn``
+    from torch.profiler over ``reps`` calls after a warm-up; a window that
+    saw no kernel is profiled again, up to ``windows`` times (None then)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(windows):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        seen = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                seen.setdefault(e.name, []).append(
+                    e.time_range.elapsed_us() / 1e3)
+        if seen:
+            return {k: [len(v) / reps, statistics.mean(v)]
+                    for k, v in seen.items()}
+    return None
+
+
+def amil_checks(torch, dev, flush, judge: bool):
+    """amil_probe against its plain version, bit for bit, on AMIL_CASES:
+    the wrapper's call (CUDA events, L2 flushed), the kernel alone
+    (profiler), every device kernel of a call with its time (``split``),
+    the plain version and the bytes bound (20 B a request and the table).
+    ``judge``: a call must be one launch of the probe kernel and nothing
+    else.  A copy of this script beside another checkout's ``src/``
+    measures that checkout (``--only amil_probe``).  Returns the lanes_8192
+    row."""
+    from repro_torch.kernels.amil_probe import ops as probe_ops
+    from repro_torch.kernels.amil_probe.ref import amil_probe_reference
+    rows = {}
+    for seed, (case, n_slots, n_req, shift) in enumerate(AMIL_CASES, 1):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        meta = torch.randint(0, 64, (n_slots,), generator=g, device=dev,
+                             dtype=torch.int32)
+        slots = torch.randint(0, n_slots, (n_req + shift,), generator=g,
+                              device=dev, dtype=torch.int32)[shift:]
+        tags = torch.randint(0, 4, (n_req + shift,), generator=g, device=dev,
+                             dtype=torch.int32)[shift:]
+        run = lambda: probe_ops.amil_probe(meta, slots, tags)
+        got = run()
+        want = amil_probe_reference(meta, slots, tags)
+        torch.cuda.synchronize()
+        err = max(same(torch, a, b) for a, b in zip(got, want))
+        event_ms(torch, run, reps=5, flush=flush)          # warm-up
+        ms = event_ms(torch, run, reps=20, flush=flush)
+        kernel_ms = device_ms(torch, run, "amil_probe_kernel",
+                              "amil_probe_launch", reps=5)
+        split = call_split(torch, run)
+        per_call = None if split is None else sum(
+            v[0] for v in split.values())
+        if judge:
+            need(per_call == 1 and all(
+                "amil_probe_kernel" in k for k in split),
+                f"amil_probe {case}: a call launched {split}, not one "
+                "launch of the probe kernel")
+        plain_ms = event_ms(
+            torch, lambda: amil_probe_reference(meta, slots, tags), reps=5,
+            flush=flush)
+        bytes_moved = 20 * n_req + 4 * n_slots
+        row = {"name": "amil_probe", "case": case, "table_lanes": n_slots,
+               "requests": n_req, "view_offset": shift, "max_abs_err": err,
+               "ms": ms, "kernel_ms": kernel_ms, "split": split,
+               "kernels_per_call": per_call,
+               "plain_ms": plain_ms,
+               "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
+               "bound_by": "bytes", "library_ms": None,
+               "hit_rate": float(got[0].float().mean())}
+        emit({"phase": "kernel_vs_plain", **row})
+        rows[case] = row
+    return rows["lanes_8192"]
+
+
+_AMIL_OUT_OF_RANGE = """
+import sys
+sys.path.insert(0, {src!r})
+import torch
+from repro_torch.kernels.amil_probe import ops
+dev = torch.device("cuda")
+meta = torch.zeros(256, dtype=torch.int32, device=dev)
+slots = torch.arange(1 << 16, dtype=torch.int32, device=dev) % 256
+ops.amil_probe(meta, slots, slots)
+torch.cuda.synchronize()
+print("in_range_ok", flush=True)
+slots[40001] = 256
+ops.amil_probe(meta, slots, slots)
+torch.cuda.synchronize()
+print("out_of_range_passed", flush=True)
+"""
+
+
+def amil_out_of_range(torch, dev) -> None:
+    """A slot outside the table fails the stream: a child process probes
+    once in range (which must pass) and then with one slot at n_slots,
+    and must exit non-zero before it passes the second synchronize; this
+    process's context is unharmed (a probe after it equals the plain
+    version)."""
+    from repro_torch.kernels.amil_probe import ops as probe_ops
+    from repro_torch.kernels.amil_probe.ref import amil_probe_reference
+    child = subprocess.run(
+        [sys.executable, "-c",
+         _AMIL_OUT_OF_RANGE.format(src=str(ROOT / "src"))],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    lines = child.stdout.split()
+    err_tail = child.stderr.strip().splitlines()[-3:]
+    meta = torch.randint(0, 64, (256,), device=dev, dtype=torch.int32)
+    slots = torch.randint(0, 256, (4097,), device=dev, dtype=torch.int32)
+    after = max(same(torch, a, b) for a, b in zip(
+        probe_ops.amil_probe(meta, slots, slots & 3),
+        amil_probe_reference(meta, slots, slots & 3)))
+    torch.cuda.synchronize()
+    emit({"phase": "amil_out_of_range", "child_exit": child.returncode,
+          "child_stdout": lines, "child_stderr_tail": err_tail,
+          "parent_probe_after_max_abs_err": after})
+    need(child.returncode != 0 and lines == ["in_range_ok"],
+         f"an out-of-range slot did not fail the stream: exit "
+         f"{child.returncode}, stdout {lines}, stderr {err_tail}")
 
 
 # ---- the scan kernels ---------------------------------------------------------
@@ -1099,13 +1249,18 @@ def ssd_checks(torch, dev, flush):
     sums in another order), bf16 y to 2e-2 (both round one float32 value
     to bf16; they differ where that value straddles a rounding step).  B
     and C are column slices of one (b, l, 2gn) projection, as the model
-    hands them over.  Each row names the design that ran (bf16: the
-    tensor-core kernel, float32: the FMA kernel, from the launch counts)
-    and its CTAs per SM.  Returns the mamba2 bf16 row."""
+    hands them over.  Each row names the design that ran (from the launch
+    counts: the wrapper's ``ops.DESIGNS`` for the type, and bf16 must be
+    the tensor-core ``mma`` kernel) and its CTAs per SM.  float32 rows give
+    two bounds: ``bound_ms`` at the tensor cores' bf16 rate for the six
+    piece products a term of the three-piece design
+    (``F32_PIECE_PRODUCTS``), and ``fma_bound_ms`` at the FMA pipes' float32
+    rate for the plain operation count.  Returns the mamba2 bf16 row."""
     from repro_torch import _build
     from repro_torch.kernels.ssd_scan import ops, ref
     g = torch.Generator(device=dev).manual_seed(15)
     bf16, f32 = torch.bfloat16, torch.float32
+    need(ops.DESIGNS[bf16] == "mma", "ssd: bf16 is not the mma design")
     mamba = (64, 1, 128, 64)            # H, G, n, p of mamba2-1.3b
     zamba = (80, 1, 64, 64)             # of zamba2-2.7b
     smoke = (8, 1, 16, 16)              # of both smoke configs
@@ -1141,7 +1296,7 @@ def ssd_checks(torch, dev, flush):
         torch.cuda.synchronize()
         design = [k.split(".")[1] for k, v in _build.launches.items()
                   if k.startswith("ssd_scan.") and v]
-        want = "mma" if dt_ == bf16 else "fma"
+        want = ops.DESIGNS[dt_]
         need(design == [want], f"ssd {case}: ran {design}, not {want}")
         tol = 2e-2 if dt_ == bf16 else 3e-4
         need(y.shape == yw.shape and y.dtype == yw.dtype, f"ssd {case}: y")
@@ -1154,8 +1309,14 @@ def ssd_checks(torch, dev, flush):
         need(torch.allclose(st, sw, atol=3e-4, rtol=3e-4),
              f"ssd {case}: max |state - plain| {serr} beyond 3e-4")
         flops, nbytes = ssd_bound(x, Bm, l, chunk, init)
-        t_ops = flops / PEAK_FLOPS[dtype_name(dt_)] * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        bounds = {}
+        if dt_ == bf16:
+            t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        else:
+            t_ops = F32_PIECE_PRODUCTS * flops / PEAK_FLOPS["bfloat16"] * 1e3
+            bounds = {"fma_bound_ms": flops / PEAK_FLOPS["float32"] * 1e3,
+                      "tensor_bound_ms": t_ops, "bytes_bound_ms": t_bytes}
         event_ms(torch, run_k, reps=3, flush=flush)          # warm-up
         row = {"name": "ssd_scan", "case": case,
                "shape": {"b": b, "l": l, "h": h, "p": p, "g": G, "n": n,
@@ -1171,7 +1332,7 @@ def ssd_checks(torch, dev, flush):
                "flops": flops, "bytes": nbytes,
                "bound_ms": max(t_ops, t_bytes),
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-               "library_ms": None}
+               **bounds, "library_ms": None}
         emit({"phase": "kernel_vs_plain", **row})
         rows[case] = row
     return rows["mamba2"]
@@ -1215,15 +1376,17 @@ def path_launches(cfg):
     attention layer runs flash_attention in prefill (bf16 through the
     wgmma kernel only, float32 through the FMA kernel only: the
     ``flash_attention.<design>`` counts) and paged_attention, one launch,
-    in decode; every Mamba2 layer runs ssd_scan in prefill (bf16 through
-    the tensor-core kernel only, float32 through the FMA kernel only: the
+    in decode; every Mamba2 layer runs ssd_scan in prefill (only through
+    the design of the model's type, ``ssd_ops.DESIGNS``: the
     ``ssd_scan.<design>`` counts; its decode step is plain torch ops); the
     hybrid applies its shared attention block after every ``attn_every``
     Mamba2 layers."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     L = cfg.n_layers
     bf16 = cfg.dtype == "bfloat16"
     design = "flash_attention." + ("wgmma" if bf16 else "fma")
-    ssd = {"ssd_scan": L, "ssd_scan." + ("mma" if bf16 else "fma"): L}
+    ssd = {"ssd_scan": L,
+           "ssd_scan." + ssd_ops.DESIGNS[cfg.torch_dtype]: L}
     if cfg.family == "dense":
         return {"flash_attention": L, design: L}, {"paged_attention": L}
     if cfg.family == "ssm":
@@ -1375,13 +1538,14 @@ def decode_profile(torch, dev, model, cfg, scfg, traffic, name, steps=3,
               "prefill_flash_fma": kernel_count(torch, pprof,
                                                 "flash_kernel"),
               "prefill_ssd_mma": kernel_count(torch, pprof, "ssd_mma_kernel"),
-              "prefill_ssd_fma": kernel_count(torch, pprof, "ssd_fma_kernel"),
+              "prefill_ssd_mma3": kernel_count(torch, pprof,
+                                               "ssd_mma3_kernel"),
               "decode_paged": kernel_count(torch, prof, "paged_kernel")}
     want = {"prefill_flash_wgmma": per_prefill.get("flash_attention.wgmma",
                                                    0),
             "prefill_flash_fma": per_prefill.get("flash_attention.fma", 0),
             "prefill_ssd_mma": per_prefill.get("ssd_scan.mma", 0),
-            "prefill_ssd_fma": per_prefill.get("ssd_scan.fma", 0),
+            "prefill_ssd_mma3": per_prefill.get("ssd_scan.mma3", 0),
             "decode_paged": per_decode.get("paged_attention", 0) * steps}
     off = [k for k in counts
            if (pkern if k.startswith("prefill") else kernels)
@@ -1482,7 +1646,9 @@ def serve_card_vs_cpu(torch, dev, arch: str, n_layers: int,
     kernels is shown beside it."""
     import copy
     import dataclasses
+    from repro_torch import _build
     from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.models import Transformer
     from repro_torch.serving import Engine, Request, ServeConfig
     cfg = dataclasses.replace(get_config(arch), n_layers=n_layers,
@@ -1495,14 +1661,18 @@ def serve_card_vs_cpu(torch, dev, arch: str, n_layers: int,
         card = Transformer(cfg, generator=torch.Generator(
             device=dev).manual_seed(1), device=dev)
         host = copy.deepcopy(card).to("cpu")
-        outs, stats = [], []
+        outs, stats, launches = [], [], {}
         for model, where in ((card, dev), (host, "cpu")):
             if dtype != "float32":
                 break                   # bf16 tokens may differ: not served
             eng = Engine(cfg, model, ServeConfig(), device=where)
             for r in launcher_traffic(Request, cfg.vocab):
                 eng.submit(r)
+            _build.reset_counts()
             outs.append(eng.run())
+            if where == dev:
+                torch.cuda.synchronize()
+                launches = {k: v for k, v in _build.launches.items() if v}
             stats.append(eng.kv_stats)
         toks = torch.randint(1, cfg.vocab, (4, 12), generator=torch.Generator(
         ).manual_seed(2), dtype=torch.int32)
@@ -1531,8 +1701,14 @@ def serve_card_vs_cpu(torch, dev, arch: str, n_layers: int,
         same_tokens = sorted(outs[0]) == sorted(outs[1]) and all(
             (outs[0][k] == outs[1][k]).all() for k in outs[0])
         row.update(requests=len(outs[0]), tokens_equal=bool(same_tokens),
-                   kv_stats_equal=stats[0] == stats[1], kv_stats=stats[0])
+                   kv_stats_equal=stats[0] == stats[1], kv_stats=stats[0],
+                   launches=launches)
         emit(row)
+        ssd = launches.get("ssd_scan", 0)
+        need(cfg.family == "dense" or (
+            ssd > 0 and launches.get(
+                "ssd_scan." + ssd_ops.DESIGNS[torch.float32], 0) == ssd),
+             f"{cfg.name}: float32 ssd_scan launches {launches}")
         need(same_tokens, f"{cfg.name}: card and CPU generate different "
              f"tokens (max logit difference {diff} over logits up to "
              f"{scale})")
@@ -1692,9 +1868,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None)
     ap.add_argument("--write-traces", action="store_true")
-    ap.add_argument("--only", choices=["um", "um_step_costs"], default=None,
+    ap.add_argument("--only", choices=["um", "um_step_costs", "amil_probe",
+                                       "ssd"], default=None,
                     help="run the device and build phases, then only the "
-                    "UM phases (4b, 5b and um_step_costs) or um_step_costs")
+                    "UM phases (4b, 5b and um_step_costs), um_step_costs, "
+                    "the amil_probe rows (with the out-of-range check) or "
+                    "the ssd_scan rows")
     args = ap.parse_args(argv)
     if args.write_traces:
         return write_traces()
@@ -1708,7 +1887,6 @@ def main(argv=None) -> int:
     from repro_torch import _build
     from repro_torch.core import simulator as sim
     from repro_torch.kernels.amil_probe import ops as probe_ops
-    from repro_torch.kernels.amil_probe.ref import amil_probe_reference
     from repro_torch.kernels.hms_scan import ops as scan_ops
     from repro_torch.kernels.hms_scan import ref as scan_ref
 
@@ -1748,6 +1926,11 @@ def main(argv=None) -> int:
             traces = {(w, None): T.make_trace(w) for w in sorted(T.WORKLOADS)}
             um_main_path(torch, T, dev, traces, cycle_ms)
             um_step_costs(torch, T, dev, cycle_ms, traces)
+        elif args.only == "amil_probe":
+            amil_checks(torch, dev, flush, judge=False)
+            amil_out_of_range(torch, dev)
+        elif args.only == "ssd":
+            ssd_checks(torch, dev, flush)
         else:
             um_step_costs(torch, T, dev, cycle_ms)
         emit({"phase": "done", "wall_s": time.perf_counter() - t_start})
@@ -1755,34 +1938,8 @@ def main(argv=None) -> int:
     summary = {}
 
     # ---- 3. kernels against their plain versions --------------------------
-    for n_slots, seed in ((256, 1), (8192, 2)):
-        n_req = 1 << 20
-        g = torch.Generator(device=dev).manual_seed(seed)
-        meta = torch.randint(0, 64, (n_slots,), generator=g, device=dev,
-                             dtype=torch.int32)
-        slots = torch.randint(0, n_slots, (n_req,), generator=g, device=dev,
-                              dtype=torch.int32)
-        tags = torch.randint(0, 4, (n_req,), generator=g, device=dev,
-                             dtype=torch.int32)
-        got = probe_ops.amil_probe(meta, slots, tags)
-        want = amil_probe_reference(meta, slots, tags)
-        torch.cuda.synchronize()
-        err = max(same(torch, a, b) for a, b in zip(got, want))
-        run = lambda: probe_ops.amil_probe(meta, slots, tags)
-        event_ms(torch, run, reps=5, flush=flush)          # warm-up
-        ms = event_ms(torch, run, reps=20, flush=flush)
-        plain_ms = event_ms(
-            torch, lambda: amil_probe_reference(meta, slots, tags), reps=5,
-            flush=flush)
-        bytes_moved = 20 * n_req + 4 * n_slots
-        row = {"name": "amil_probe", "table_lanes": n_slots,
-               "requests": n_req, "max_abs_err": err, "ms": ms,
-               "plain_ms": plain_ms,
-               "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
-               "bound_by": "bytes", "library_ms": None,
-               "hit_rate": float(got[0].float().mean())}
-        emit({"phase": "kernel_vs_plain", **row})
-        summary["amil_probe"] = row                # the 8192-lane case
+    summary["amil_probe"] = amil_checks(torch, dev, flush, judge=True)
+    amil_out_of_range(torch, dev)
 
     for kw in GOLDEN_CONFIGS + WIDE_CTC:
         t = golden_trace(T)

@@ -24,8 +24,10 @@
 // B 4 x L 1024 (H 64, P 64, G 1, N 128) needs 15.1 GFLOP (the causal half
 // of the chunk-square products) against 78.6 MB (bf16 x and y, float32 dt
 // and final state, bf16 B/C per group): 0.0235 ms at 3.35 TB/s against
-// 0.015 ms at the tensor cores' 989 TFLOP/s.  In float32 the bound is the
-// FMA pipes' 67 TFLOP/s (0.225 ms).
+// 0.015 ms at the tensor cores' 989 TFLOP/s.  In float32 the call moves
+// 147.8 MB (0.044 ms) and its six bf16 products a term take 90.6 GFLOP
+// (0.092 ms at 989 TFLOP/s); on the FMA pipes the 15.1 GFLOP would take
+// 0.225 ms at 67 TFLOP/s.
 //
 // bf16: ssd_mma_kernel, the chunk products on the tensor cores.
 //   * mma.sync m16n8k16 (bf16 in, float32 accumulators), not wgmma: a
@@ -58,11 +60,10 @@
 //   * A ragged last chunk computes only the 16-row tiles that hold rows
 //     below l (tiles of y, and k-tiles of the state update); the rest of
 //     those tiles is zero-filled by the copies.
-// float32: ssd_fma_kernel, one 256-thread CTA per (b, h) with the chunk loop
-// inside and the state in shared memory; its four products are
-// register-tiled fmaf loops (the port builds with --fmad=false, so the FMAs
-// are written out).  Kept off the tensor cores: TF32 would move the float32
-// cuts' tokens and miss the 3e-4 tolerance.
+// float32: ssd_mma3_kernel, the same tiles on the tensor cores with every
+//   operand split into three bf16 pieces and six products a term (see its
+//   section below): float32's accuracy, which TF32 (10 mantissa bits)
+//   would not keep.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,11 +78,9 @@ constexpr unsigned FULL = 0xffffffffu;
 // Per-chunk cumulative sums of dt * a over CS positions, by one warp (4
 // positions a lane, then a shuffle scan), dt_at(i) giving dt at position i
 // of the chunk (0 past l): cum, exp(cum) and
-// wdec_i = scale_i * exp(cum_end - cum_i) (scale = dt for the bf16 kernel,
-// 1 for the float32 one, which folds dt into x).
+// wdec_i = dt_i * exp(cum_end - cum_i).
 template <typename DtAt>
-__device__ __forceinline__ void chunk_cumsum(DtAt dt_at, float a,
-                                             bool times_dt, float* cum,
+__device__ __forceinline__ void chunk_cumsum(DtAt dt_at, float a, float* cum,
                                              float* ecum, float* wdec) {
   const int lane = threadIdx.x & 31;
   constexpr int PER = CS / 32;
@@ -107,293 +106,10 @@ __device__ __forceinline__ void chunk_cumsum(DtAt dt_at, float a,
     const float ci = excl + v[u];
     cum[i] = ci;
     ecum[i] = expf(ci);
-    const float dec = expf(tot - ci);
-    wdec[i] = times_dt ? dt_at(i) * dec : dec;
+    wdec[i] = dt_at(i) * expf(tot - ci);
   }
 }
 
-// ===========================================================================
-// float32: the FMA kernel
-// ===========================================================================
-
-constexpr int FMA_THREADS = 256;
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float at(const float4& v, int u) {
-  return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
-}
-
-// X [CS][LDP] (x dt), Bt and Ct [N][LDC] (transposed, float32), St [N][LDP]
-// (St[k][pp] = S[pp][k]), cum / exp(cum) / exp(cum_end - cum), and P
-// [CS][LDC], laid over the dead Bt and Ct where they are large enough.
-// Rows padded by 4 floats: float4-aligned, and the row-strided float4 reads
-// of the state update hit distinct banks.
-template <int N, int P>
-struct FmaSmem {
-  static constexpr int LDP = P + 4;
-  static constexpr int LDC = CS + 4;
-  static constexpr int kX = CS * LDP;
-  static constexpr int kB = N * LDC;
-  static constexpr int kS = N * LDP;
-  static constexpr int kVec = 3 * CS;
-  static constexpr bool kOver = CS * LDC <= 2 * kB;
-  static constexpr int kP = kOver ? 0 : CS * LDC;
-  static constexpr size_t bytes =
-      (size_t)(kX + 2 * kB + kS + kVec + kP) * sizeof(float);
-  static_assert(N % 16 == 0 && P % 16 == 0, "tile shapes");
-  static_assert(bytes <= 232448, "shared memory of one block");
-};
-
-// Threads tile the products three ways:
-//   y (1 and 4): (ty, tx) with tx over P/4 column groups, rows ty*4 + RSTEP ra;
-//   the state (2): (sy, sx), rows sy*4 of P, columns sx + SX q of N;
-//   the scores (3): a 16 x 16 grid of 4 x 4 tiles, 64-row steps.
-// At P 64 the first two are the 16 x 16 grid too; at P 16 some threads sit
-// out a product (they still meet every barrier).
-template <int N, int P>
-__global__ void __launch_bounds__(FMA_THREADS, 1)
-ssd_fma_kernel(const float* __restrict__ x, const float* __restrict__ dt,
-               const float* __restrict__ A, const float* __restrict__ Bm,
-               const float* __restrict__ Cm, int64_t bc_row,
-               const float* __restrict__ init, float* __restrict__ y,
-               float* __restrict__ fstate, int L, int H, int G) {
-  using S = FmaSmem<N, P>;
-  constexpr int LDP = S::LDP, LDC = S::LDC;
-  constexpr int YX = P / 4, YY = FMA_THREADS / YX, RSTEP = 4 * YY;
-  constexpr int RA = RSTEP >= CS ? 1 : CS / RSTEP;
-  constexpr int SX = FMA_THREADS / (P / 4);
-  constexpr int NQ = SX >= N ? 1 : N / SX;
-  constexpr int RQ = CS / 64;
-  extern __shared__ float4 smem4[];
-  float* X = reinterpret_cast<float*>(smem4);
-  float* Bt = X + S::kX;
-  float* Ct = Bt + S::kB;
-  float* St = Ct + S::kB;
-  float* cum = St + S::kS;
-  float* ecum = cum + CS;
-  float* dec = ecum + CS;
-  float* Pm = S::kOver ? Bt : dec + CS;
-
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int grp = h / (H / G);
-  const int tid = threadIdx.x;
-  const int ty = tid / YX, tx = tid % YX;
-  const bool yact = ty * 4 < CS;
-  const int sy = tid / SX, sx = tid % SX;
-  const bool sact = sx < N;
-  const int qy = tid >> 4, qx = tid & 15;
-  const float a = A[h];
-  const int64_t sbase = ((int64_t)b * H + h) * P * N;
-
-  for (int i = tid; i < P * N; i += FMA_THREADS)
-    St[(i % N) * LDP + i / N] = init != nullptr ? init[sbase + i] : 0.f;
-
-  const int nc = (L + CS - 1) / CS;
-  for (int c = 0; c < nc; ++c) {
-    const int t0 = c * CS;
-    __syncthreads();               // last chunk's P and X reads are done
-
-    // ---- stage x dt, B, C; cumulative sums of dt A (warp 0) -------------
-    for (int i = tid; i < CS * P; i += FMA_THREADS) {
-      const int r = i / P, col = i % P, t = t0 + r;
-      float v = 0.f;
-      if (t < L) {
-        const int64_t row = ((int64_t)b * L + t) * H + h;
-        v = x[row * P + col] * dt[row];
-      }
-      X[r * LDP + col] = v;
-    }
-    for (int i = tid; i < CS * N; i += FMA_THREADS) {
-      const int r = i / N, k = i % N, t = t0 + r;
-      float bv = 0.f, cv = 0.f;
-      if (t < L) {
-        const int64_t off = ((int64_t)b * L + t) * bc_row + (int64_t)grp * N
-                            + k;
-        bv = Bm[off];
-        cv = Cm[off];
-      }
-      Bt[k * LDC + r] = bv;
-      Ct[k * LDC + r] = cv;
-    }
-    if (tid < 32) {
-      auto dt_at = [&](int i) {
-        const int t = t0 + i;
-        return t < L ? dt[((int64_t)b * L + t) * H + h] : 0.f;
-      };
-      chunk_cumsum(dt_at, a, false, cum, ecum, dec);
-    }
-    __syncthreads();
-
-    // ---- 1. y = exp(cum) o (C S^T) ---------------------------------------
-    float yacc[RA][4][4];
-#pragma unroll
-    for (int ra = 0; ra < RA; ++ra)
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) yacc[ra][r][q] = 0.f;
-    if (yact) {
-#pragma unroll 4
-      for (int k = 0; k < N; ++k) {
-        const float4 sv = ld4(&St[k * LDP + tx * 4]);
-#pragma unroll
-        for (int ra = 0; ra < RA; ++ra) {
-          const float4 cv = ld4(&Ct[k * LDC + RSTEP * ra + ty * 4]);
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-#pragma unroll
-            for (int q = 0; q < 4; ++q)
-              yacc[ra][r][q] = fmaf(at(cv, r), at(sv, q), yacc[ra][r][q]);
-        }
-      }
-#pragma unroll
-      for (int ra = 0; ra < RA; ++ra)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const float e = ecum[RSTEP * ra + ty * 4 + r];
-#pragma unroll
-          for (int q = 0; q < 4; ++q) yacc[ra][r][q] = yacc[ra][r][q] * e;
-        }
-    }
-
-    // ---- 2. S' = exp(cum_end) S + (X o decay)^T B -------------------------
-    {
-      float snew[4][NQ];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int q = 0; q < NQ; ++q) snew[r][q] = 0.f;
-      if (sact) {
-#pragma unroll 2
-        for (int i0 = 0; i0 < CS; i0 += 4) {
-          const float4 d4 = ld4(&dec[i0]);
-          float xd[4][4];
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            const float4 xv = ld4(&X[(i0 + u) * LDP + sy * 4]);
-            const float du = at(d4, u);
-#pragma unroll
-            for (int r = 0; r < 4; ++r) xd[u][r] = at(xv, r) * du;
-          }
-#pragma unroll
-          for (int q = 0; q < NQ; ++q) {
-            const float4 bv = ld4(&Bt[(sx + SX * q) * LDC + i0]);
-#pragma unroll
-            for (int u = 0; u < 4; ++u)
-#pragma unroll
-              for (int r = 0; r < 4; ++r)
-                snew[r][q] = fmaf(xd[u][r], at(bv, u), snew[r][q]);
-          }
-        }
-        const float etot = expf(cum[CS - 1]);
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int q = 0; q < NQ; ++q)
-            snew[r][q] = St[(sx + SX * q) * LDP + sy * 4 + r] * etot
-                         + snew[r][q];
-      }
-      __syncthreads();             // every read of the old state is done
-      if (sact) {
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int q = 0; q < NQ; ++q)
-            St[(sx + SX * q) * LDP + sy * 4 + r] = snew[r][q];
-      }
-    }
-
-    // ---- 3. P = (C B^T) o L -------------------------------------------------
-    {
-      float sc[RQ][4][RQ][4];
-#pragma unroll
-      for (int ra = 0; ra < RQ; ++ra)
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int rb = 0; rb < RQ; ++rb)
-#pragma unroll
-            for (int q = 0; q < 4; ++q) sc[ra][r][rb][q] = 0.f;
-#pragma unroll 2
-      for (int k = 0; k < N; ++k) {
-        float4 cv[RQ], bv[RQ];
-#pragma unroll
-        for (int ra = 0; ra < RQ; ++ra) {
-          cv[ra] = ld4(&Ct[k * LDC + 64 * ra + qy * 4]);
-          bv[ra] = ld4(&Bt[k * LDC + 64 * ra + qx * 4]);
-        }
-#pragma unroll
-        for (int ra = 0; ra < RQ; ++ra)
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-#pragma unroll
-            for (int rb = 0; rb < RQ; ++rb)
-#pragma unroll
-              for (int q = 0; q < 4; ++q)
-                sc[ra][r][rb][q] = fmaf(at(cv[ra], r), at(bv[rb], q),
-                                        sc[ra][r][rb][q]);
-      }
-      __syncthreads();             // Bt and Ct are dead: P may go over them
-#pragma unroll
-      for (int ra = 0; ra < RQ; ++ra)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int i = 64 * ra + qy * 4 + r;
-          const float ci = cum[i];
-#pragma unroll
-          for (int rb = 0; rb < RQ; ++rb) {
-            float4 pv;
-            float* pw = reinterpret_cast<float*>(&pv);
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              const int j = 64 * rb + qx * 4 + q;
-              pw[q] = i >= j ? sc[ra][r][rb][q] * expf(ci - cum[j]) : 0.f;
-            }
-            *reinterpret_cast<float4*>(&Pm[i * LDC + 64 * rb + qx * 4]) = pv;
-          }
-        }
-      __syncthreads();
-    }
-
-    // ---- 4. y += P X (columns j <= the thread's last row) ------------------
-    if (yact) {
-      const int jend = RSTEP * (RA - 1) + ty * 4 + 4;
-      for (int j0 = 0; j0 < jend; j0 += 4) {
-        float4 xv[4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) xv[u] = ld4(&X[(j0 + u) * LDP + tx * 4]);
-#pragma unroll
-        for (int ra = 0; ra < RA; ++ra)
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const float4 pv = ld4(&Pm[(RSTEP * ra + ty * 4 + r) * LDC + j0]);
-#pragma unroll
-            for (int u = 0; u < 4; ++u)
-#pragma unroll
-              for (int q = 0; q < 4; ++q)
-                yacc[ra][r][q] = fmaf(at(pv, u), at(xv[u], q),
-                                      yacc[ra][r][q]);
-          }
-      }
-#pragma unroll
-      for (int ra = 0; ra < RA; ++ra)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int t = t0 + RSTEP * ra + ty * 4 + r;
-          if (t >= L) continue;
-          float* out = y + (((int64_t)b * L + t) * H + h) * P + tx * 4;
-#pragma unroll
-          for (int q = 0; q < 4; ++q) out[q] = yacc[ra][r][q];
-        }
-    }
-  }
-
-  __syncthreads();
-  for (int i = tid; i < P * N; i += FMA_THREADS)
-    fstate[sbase + i] = St[(i % N) * LDP + i / N];
-}
 
 // ===========================================================================
 // bf16: the tensor-core kernel
@@ -503,16 +219,17 @@ struct MmaSmem {
 };
 
 // Rows [0, rows) of a chunk starting at t0 into dst (row stride ld):
-// W elements a row from src + t * stride, zero past l.
-template <int W>
-__device__ __forceinline__ void stage_rows(bf16* dst, int ld,
-                                           const bf16* src, int64_t stride,
-                                           int t0, int rows, int L) {
-  constexpr int PIECES = W / 8;
-  for (int i = threadIdx.x; i < rows * PIECES; i += MMA_THREADS) {
+// W elements a row from src + t * stride, zero past l, by a CTA of THREADS.
+template <int W, int THREADS, typename T>
+__device__ __forceinline__ void stage_rows(T* dst, int ld, const T* src,
+                                           int64_t stride, int t0, int rows,
+                                           int L) {
+  constexpr int EL = 16 / sizeof(T);   // elements a 16-byte piece
+  constexpr int PIECES = W / EL;
+  for (int i = threadIdx.x; i < rows * PIECES; i += THREADS) {
     const int r = i / PIECES, k = i % PIECES, t = t0 + r;
-    cp16(dst + r * ld + k * 8, src + (int64_t)(t < L ? t : t0) * stride + k * 8,
-         t < L);
+    cp16(dst + r * ld + k * EL,
+         src + (int64_t)(t < L ? t : t0) * stride + k * EL, t < L);
   }
 }
 
@@ -610,16 +327,16 @@ ssd_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
     return 16 * ((nv + 15) >> 4);  // the 16-row tiles holding rows < l
   };
   auto stage_xdt = [&](int c, int buf) {
-    stage_rows<PT>(Xs + buf * CS * LDX, LDX, xrow, xstride, c * CS,
-                   valid_rows(c), L);
+    stage_rows<PT, MMA_THREADS>(Xs + buf * CS * LDX, LDX, xrow, xstride,
+                              c * CS, valid_rows(c), L);
     const int t = c * CS + tid;
     cp4(dts + buf * CS + tid, dtrow + (int64_t)(t < L ? t : 0) * H, t < L);
   };
   if (nc > 0) {
-    stage_rows<N>(Cs, LDN, crow, bc_row, 0, valid_rows(0), L);
+    stage_rows<N, MMA_THREADS>(Cs, LDN, crow, bc_row, 0, valid_rows(0), L);
     stage_xdt(0, 0);
     cp_commit();
-    stage_rows<N>(Bs, LDN, brow, bc_row, 0, valid_rows(0), L);
+    stage_rows<N, MMA_THREADS>(Bs, LDN, brow, bc_row, 0, valid_rows(0), L);
     cp_commit();
   }
 
@@ -634,7 +351,7 @@ ssd_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
     if (more) stage_xdt(c + 1, buf ^ 1);
     cp_commit();
     if (warp == 0)
-      chunk_cumsum([&](int i) { return d[i]; }, a, true, cum, ecum, wdec);
+      chunk_cumsum([&](int i) { return d[i]; }, a, cum, ecum, wdec);
     __syncthreads();
 
     // ---- y = exp(cum) o (C S_prev^T), S_prev as hi + lo -------------------
@@ -736,8 +453,9 @@ ssd_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
       }
     }
     __syncthreads();               // C and the split state are free
-    if (more) stage_rows<N>(Cs, LDN, crow, bc_row, t0 + CS,
-                            valid_rows(c + 1), L);
+    if (more)
+      stage_rows<N, MMA_THREADS>(Cs, LDN, crow, bc_row, t0 + CS,
+                              valid_rows(c + 1), L);
     cp_commit();
 
     // ---- S = exp(cum_end) S + (x o dt o exp(cum_end - cum))^T B -----------
@@ -796,8 +514,9 @@ ssd_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
       if (more) put_split();
     }
     __syncthreads();               // B is free
-    if (more) stage_rows<N>(Bs, LDN, brow, bc_row, t0 + CS,
-                            valid_rows(c + 1), L);
+    if (more)
+      stage_rows<N, MMA_THREADS>(Bs, LDN, brow, bc_row, t0 + CS,
+                              valid_rows(c + 1), L);
     cp_commit();
   }
 
@@ -816,6 +535,452 @@ ssd_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
 }
 
 // ===========================================================================
+// float32: the tensor-core kernel on three bf16 pieces
+// ===========================================================================
+//
+// The bf16 kernel's tiles, warps, head-dim split and cp.async pipeline, on
+// float32 x, B and C.  Every operand of every product, x, B and C included,
+// is split into three bf16 pieces v = hi + mid + lo (each residual exact in
+// float32, so the pieces sum to v in float32's normal range), and a
+// product sums the six piece products that reach float32's rounding:
+// lo hi, hi lo, mid mid, mid hi, hi mid, hi hi (smallest first, on one
+// float32 accumulator); lo mid, mid lo and lo lo lie below 2^-24 of it.
+// The CPU model of tests/test_torch_ssd_design.py settled the six: its
+// y and state lie as close to a float64 recurrence as the plain float32
+// version, and two pieces with three products lie 6-20x farther.
+//
+// Shared memory holds float32 (C, B [CS][N + 8], x double-buffered
+// [CS][PT + 4], the state [PT][N + 8]), and the pieces are cut while a
+// fragment is built: three bf16 planes of B and C would need 208 KB at
+// N 128.  Row pads: a fragment's float pairs (rows g, columns 2t) hit 32
+// distinct banks at a stride of 8 mod 32 words; the column reads of x
+// (rows 2t, columns g) at a stride of 4 mod 32.  One CTA an SM at N 64 and
+// 128 (196 KB at N 128), four at N 16.
+
+// (v0, v1) -> bf16 pairs hi, mid, lo with hi + mid + lo = v exactly.
+__device__ __forceinline__ void split3(float v0, float v1, uint32_t& hi,
+                                       uint32_t& mid, uint32_t& lo) {
+  hi = pack2(v0, v1);
+  float2 f = unpack2(hi);
+  const float r0 = v0 - f.x, r1 = v1 - f.y;
+  mid = pack2(r0, r1);
+  f = unpack2(mid);
+  lo = pack2(r0 - f.x, r1 - f.y);
+}
+
+// An m16k16 A operand (or two n8 B operands) in three pieces.
+struct Frag3 {
+  uint32_t h[4], m[4], l[4];
+};
+
+// The fragment of rows r0 + g, r0 + g + 8 and columns c0 + 2t, + 1, + 8,
+// + 9 of a float32 [row][col] array (p = &a[(r0 + g) * ld + c0 + 2t]):
+// [0] (row g, col 2t), [1] (row g + 8), [2] (row g, col 2t + 8), [3] (row
+// g + 8, col 2t + 8).  As an A operand: rows m, columns k.  As B operands
+// of two n8 tiles stored [n][k]: b0, b1 of tile 0 are [0], [2], of tile 1
+// [1], [3].
+__device__ __forceinline__ void load3(Frag3& f, const float* p, int ld) {
+  const float2 v0 = *reinterpret_cast<const float2*>(p);
+  const float2 v1 = *reinterpret_cast<const float2*>(p + 8 * ld);
+  const float2 v2 = *reinterpret_cast<const float2*>(p + 8);
+  const float2 v3 = *reinterpret_cast<const float2*>(p + 8 * ld + 8);
+  split3(v0.x, v0.y, f.h[0], f.m[0], f.l[0]);
+  split3(v1.x, v1.y, f.h[1], f.m[1], f.l[1]);
+  split3(v2.x, v2.y, f.h[2], f.m[2], f.l[2]);
+  split3(v3.x, v3.y, f.h[3], f.m[3], f.l[3]);
+}
+
+// Product k (0-5) of d += a b over the six piece products, b the n8 tile
+// (b0, b1) = pieces [i0], [i1] of `b`, smallest first: lo hi, hi lo,
+// mid mid, mid hi, hi mid, hi hi.  The callers take k outermost over
+// several accumulators, so that independent mma chains are in flight: one
+// warp a scheduler has no other warp to hide an mma's latency behind.
+__device__ __forceinline__ void mma_k(int k, float (&d)[4], const Frag3& a,
+                                      const Frag3& b, int i0, int i1) {
+  switch (k) {
+    case 0: mma(d, a.l, b.h[i0], b.h[i1]); break;
+    case 1: mma(d, a.h, b.l[i0], b.l[i1]); break;
+    case 2: mma(d, a.m, b.m[i0], b.m[i1]); break;
+    case 3: mma(d, a.m, b.h[i0], b.h[i1]); break;
+    case 4: mma(d, a.h, b.m[i0], b.m[i1]); break;
+    default: mma(d, a.h, b.h[i0], b.h[i1]); break;
+  }
+}
+
+constexpr int MMA3_THREADS = 256;  // 8 warps
+constexpr int MMA3_WARPS = MMA3_THREADS / 32;
+
+template <int N, int PT>
+struct Mma3Smem {
+  static constexpr int LDN = N + 8;
+  static constexpr int LDX = PT + 4;
+  static constexpr int NTY = PT / 8;
+  static constexpr size_t oC = 0;
+  static constexpr size_t oB = oC + (size_t)CS * LDN * 4;
+  static constexpr size_t oX = oB + (size_t)CS * LDN * 4;
+  static constexpr size_t oS = oX + (size_t)2 * CS * LDX * 4;
+  static constexpr size_t oY = oS + (size_t)PT * LDN * 4;
+  static constexpr size_t oDt = oY + (size_t)(MMA3_WARPS / 2) * 2 * NTY * 4 *
+                                         32 * 4;
+  static constexpr size_t oCum = oDt + (size_t)2 * CS * 4;
+  static constexpr size_t oEc = oCum + (size_t)CS * 4;
+  static constexpr size_t oW = oEc + (size_t)CS * 4;
+  static constexpr size_t bytes = oW + (size_t)CS * 4;
+  static_assert(N % 16 == 0 && PT % 16 == 0, "tile shapes");
+  static_assert(LDN % 32 == 8 || LDN % 32 == 24, "fragment rows on banks");
+  static_assert(LDX % 8 == 4, "x columns on banks");
+  static_assert(bytes <= 232448, "shared memory of one block");
+};
+
+// Grid (P / PT, H, B): CTA (pb, h, b) computes y[b, :, h, pb*PT : +PT] and
+// the matching rows of the final state.  8 warps: one CTA an SM leaves 4
+// warps (the bf16 kernel's) with no other warp to hide a split's or an
+// mma's latency behind.  Warps w and w + 4 share the m-tiles w and 7 - w of
+// y (equal causal work): for each, the lower half of its j-tiles and of the
+// state's k16 steps in C S_prev^T go to warp w, the upper halves to warp
+// w + 4, whose partial y warp w adds through shared memory before it
+// stores.  Each warp owns N / 64 n8 tiles of the state's columns (one at
+// N 64; warps 0 and 1 at N 16).
+template <int N, int PT>
+__global__ void __launch_bounds__(MMA3_THREADS, 1)
+ssd_mma3_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+                const float* __restrict__ A, const float* __restrict__ Bm,
+                const float* __restrict__ Cm, int64_t bc_row,
+                const float* __restrict__ init, float* __restrict__ y,
+                float* __restrict__ fstate, int L, int H, int G, int P) {
+  using S = Mma3Smem<N, PT>;
+  constexpr int LDN = S::LDN, LDX = S::LDX;
+  constexpr int KN = N / 16;       // k16 steps over the state
+  constexpr int KH = (KN + 1) / 2; // of them, the lower half's
+  constexpr int NTY = PT / 8;      // n8 tiles of y
+  constexpr int NTS = N / 8;       // n8 tiles of the state's columns
+  constexpr int MTS = PT / 16;     // m16 tiles of the state's rows
+  constexpr int NPW = NTS >= MMA3_WARPS ? NTS / MMA3_WARPS : 1;
+  constexpr int JH = MT / 2;       // j-tiles of a half, at most
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* Cs = reinterpret_cast<float*>(smem + S::oC);
+  float* Bs = reinterpret_cast<float*>(smem + S::oB);
+  float* Xs = reinterpret_cast<float*>(smem + S::oX);
+  float* Ss = reinterpret_cast<float*>(smem + S::oS);
+  float* Ys = reinterpret_cast<float*>(smem + S::oY);
+  float* dts = reinterpret_cast<float*>(smem + S::oDt);
+  float* cum = reinterpret_cast<float*>(smem + S::oCum);
+  float* ecum = reinterpret_cast<float*>(smem + S::oEc);
+  float* wdec = reinterpret_cast<float*>(smem + S::oW);
+
+  const int p0 = blockIdx.x * PT, h = blockIdx.y, b = blockIdx.z;
+  const int grp = h / (H / G);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int pw = warp & 3, hf = warp >> 2;   // m-tile pair, half
+  const float a = A[h];
+  const int64_t sbase = ((int64_t)b * H + h) * P * N + (int64_t)p0 * N;
+  const float* xrow = x + ((int64_t)b * L * H + h) * P + p0;
+  const int64_t xstride = (int64_t)H * P;
+  const float* brow = Bm + (int64_t)b * L * bc_row + (int64_t)grp * N;
+  const float* crow = Cm + (int64_t)b * L * bc_row + (int64_t)grp * N;
+  const float* dtrow = dt + (int64_t)b * L * H + h;
+  // this thread's slot of the upper half's partial y
+  float* ypart = Ys + pw * (2 * NTY * 4 * 32) + lane;
+
+  const bool owner = warp * NPW < NTS;
+  const int nbase = warp * NPW * 8;
+  float sacc[MTS][NPW][4];
+#pragma unroll
+  for (int ms = 0; ms < MTS; ++ms)
+#pragma unroll
+    for (int q = 0; q < NPW; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sacc[ms][q][e] = 0.f;
+  // the state [p][n] in shared memory, B operand of C S_prev^T
+  auto put_state = [&]() {
+#pragma unroll
+    for (int ms = 0; ms < MTS; ++ms)
+#pragma unroll
+      for (int q = 0; q < NPW; ++q)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          *reinterpret_cast<float2*>(
+              Ss + (ms * 16 + g + 8 * hh) * LDN + nbase + q * 8 + 2 * t4) =
+              make_float2(sacc[ms][q][2 * hh], sacc[ms][q][2 * hh + 1]);
+  };
+  if (owner && init != nullptr) {
+#pragma unroll
+    for (int ms = 0; ms < MTS; ++ms)
+#pragma unroll
+      for (int q = 0; q < NPW; ++q)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const float2 v = *reinterpret_cast<const float2*>(
+              init + sbase + (int64_t)(ms * 16 + g + 8 * hh) * N + nbase
+              + q * 8 + 2 * t4);
+          sacc[ms][q][2 * hh] = v.x;
+          sacc[ms][q][2 * hh + 1] = v.y;
+        }
+    put_state();
+  }
+
+  const int nc = (L + CS - 1) / CS;
+  auto valid_rows = [&](int c) {
+    const int nv = L - c * CS < CS ? L - c * CS : CS;
+    return 16 * ((nv + 15) >> 4);  // the 16-row tiles holding rows < l
+  };
+  auto stage_xdt = [&](int c, int buf) {
+    stage_rows<PT, MMA3_THREADS>(Xs + buf * CS * LDX, LDX, xrow, xstride,
+                                 c * CS, valid_rows(c), L);
+    const int t = c * CS + tid;
+    if (tid < CS)
+      cp4(dts + buf * CS + tid, dtrow + (int64_t)(t < L ? t : 0) * H, t < L);
+  };
+  if (nc > 0) {
+    stage_rows<N, MMA3_THREADS>(Cs, LDN, crow, bc_row, 0, valid_rows(0), L);
+    stage_xdt(0, 0);
+    cp_commit();
+    stage_rows<N, MMA3_THREADS>(Bs, LDN, brow, bc_row, 0, valid_rows(0), L);
+    cp_commit();
+  }
+
+  for (int c = 0; c < nc; ++c) {
+    const int buf = c & 1, t0 = c * CS;
+    const int mt = valid_rows(c) >> 4;
+    const bool more = c + 1 < nc;
+    const float* X = Xs + buf * CS * LDX;
+    const float* d = dts + buf * CS;
+    cp_wait<1>();                  // C, x and dt of chunk c (B may pend)
+    __syncthreads();
+    if (more) stage_xdt(c + 1, buf ^ 1);
+    cp_commit();
+    if (warp == 0)
+      chunk_cumsum([&](int i) { return d[i]; }, a, cum, ecum, wdec);
+    __syncthreads();
+
+    // ---- y = exp(cum) o (C S_prev^T), this half's k16 steps ---------------
+    float yacc[2][NTY][4];
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int nt = 0; nt < NTY; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) yacc[s][nt][e] = 0.f;
+    if (c > 0 || init != nullptr) {
+      const int k1 = hf ? KN : KH;
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const int mi = s ? MT - 1 - pw : pw;
+        if (mi >= mt) continue;
+#pragma unroll 2
+        for (int kk = hf * KH; kk < k1; ++kk) {
+          Frag3 cf, sf[PT / 16];
+          load3(cf, Cs + (mi * 16 + g) * LDN + kk * 16 + 2 * t4, LDN);
+#pragma unroll
+          for (int np = 0; np < PT / 16; ++np)
+            load3(sf[np], Ss + (np * 16 + g) * LDN + kk * 16 + 2 * t4, LDN);
+#pragma unroll
+          for (int k = 0; k < 6; ++k)
+#pragma unroll
+            for (int np = 0; np < PT / 16; ++np) {
+              mma_k(k, yacc[s][2 * np], cf, sf[np], 0, 2);
+              mma_k(k, yacc[s][2 * np + 1], cf, sf[np], 1, 3);
+            }
+        }
+        const float e0 = ecum[mi * 16 + g], e1 = ecum[mi * 16 + g + 8];
+#pragma unroll
+        for (int nt = 0; nt < NTY; ++nt) {
+          yacc[s][nt][0] = yacc[s][nt][0] * e0;
+          yacc[s][nt][1] = yacc[s][nt][1] * e0;
+          yacc[s][nt][2] = yacc[s][nt][2] * e1;
+          yacc[s][nt][3] = yacc[s][nt][3] * e1;
+        }
+      }
+    }
+    cp_wait<1>();                  // B of chunk c
+    __syncthreads();
+
+    // ---- y += ((C B^T) o L o dt_j) x, this half's j-tiles -------------------
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const int mi = s ? MT - 1 - pw : pw;
+      if (mi >= mt) continue;
+      const int nj = mi + 1, jsplit = (nj + 1) >> 1;
+      const int jlo = hf ? jsplit : 0, jn = hf ? nj - jsplit : jsplit;
+      // the scores of the m-tile against the half's j-tiles, k outside
+      float sc[JH][2][4];
+#pragma unroll
+      for (int u = 0; u < JH; ++u)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[u][0][e] = sc[u][1][e] = 0.f;
+#pragma unroll 2
+      for (int kk = 0; kk < KN; ++kk) {
+        Frag3 cf;
+        load3(cf, Cs + (mi * 16 + g) * LDN + kk * 16 + 2 * t4, LDN);
+        // j-tiles two at a time: four accumulators in flight
+#pragma unroll
+        for (int u = 0; u < JH; u += 2) {
+          if (u >= jn) break;
+          const float* bp =
+              Bs + ((jlo + u) * 16 + g) * LDN + kk * 16 + 2 * t4;
+          Frag3 b0, b1;
+          load3(b0, bp, LDN);
+          if (u + 1 < jn) {
+            load3(b1, bp + 16 * LDN, LDN);
+#pragma unroll
+            for (int k = 0; k < 6; ++k) {
+              mma_k(k, sc[u][0], cf, b0, 0, 2);
+              mma_k(k, sc[u][1], cf, b0, 1, 3);
+              mma_k(k, sc[u + 1][0], cf, b1, 0, 2);
+              mma_k(k, sc[u + 1][1], cf, b1, 1, 3);
+            }
+          } else {
+#pragma unroll
+            for (int k = 0; k < 6; ++k) {
+              mma_k(k, sc[u][0], cf, b0, 0, 2);
+              mma_k(k, sc[u][1], cf, b0, 1, 3);
+            }
+          }
+        }
+      }
+      const int i0 = mi * 16 + g, i1 = i0 + 8;
+      const float ci0 = cum[i0], ci1 = cum[i1];
+#pragma unroll
+      for (int u = 0; u < JH; ++u) {
+        if (u >= jn) break;
+        const int jt = jlo + u;
+        Frag3 pf;                  // P as the A operand (rows i, k = j)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const int j = jt * 16 + nt * 8 + 2 * t4;
+          const float cj0 = cum[j], cj1 = cum[j + 1];
+          const float d0 = d[j], d1 = d[j + 1];
+          const float v00 =
+              i0 >= j ? sc[u][nt][0] * expf(ci0 - cj0) * d0 : 0.f;
+          const float v01 =
+              i0 >= j + 1 ? sc[u][nt][1] * expf(ci0 - cj1) * d1 : 0.f;
+          const float v10 =
+              i1 >= j ? sc[u][nt][2] * expf(ci1 - cj0) * d0 : 0.f;
+          const float v11 =
+              i1 >= j + 1 ? sc[u][nt][3] * expf(ci1 - cj1) * d1 : 0.f;
+          split3(v00, v01, pf.h[2 * nt], pf.m[2 * nt], pf.l[2 * nt]);
+          split3(v10, v11, pf.h[2 * nt + 1], pf.m[2 * nt + 1],
+                 pf.l[2 * nt + 1]);
+        }
+        Frag3 xf[NTY];
+#pragma unroll
+        for (int nt = 0; nt < NTY; ++nt) {
+          // x as the B operand (k = j, n = p): rows 2t, 2t + 1 and + 8
+          const float* xc = X + (jt * 16 + 2 * t4) * LDX + nt * 8 + g;
+          split3(xc[0], xc[LDX], xf[nt].h[0], xf[nt].m[0], xf[nt].l[0]);
+          split3(xc[8 * LDX], xc[9 * LDX], xf[nt].h[1], xf[nt].m[1],
+                 xf[nt].l[1]);
+        }
+#pragma unroll
+        for (int k = 0; k < 6; ++k)
+#pragma unroll
+          for (int nt = 0; nt < NTY; ++nt)
+            mma_k(k, yacc[s][nt], pf, xf[nt], 0, 1);
+      }
+      if (hf) {                    // the upper half's partial y
+#pragma unroll
+        for (int nt = 0; nt < NTY; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            ypart[((s * NTY + nt) * 4 + e) * 32] = yacc[s][nt][e];
+      }
+    }
+    __syncthreads();               // C, the state copy and the partials
+    if (more)
+      stage_rows<N, MMA3_THREADS>(Cs, LDN, crow, bc_row, t0 + CS,
+                                  valid_rows(c + 1), L);
+    cp_commit();
+    if (!hf) {                     // the lower half adds and stores y
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const int mi = s ? MT - 1 - pw : pw;
+        if (mi >= mt) continue;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int t = t0 + mi * 16 + g + 8 * hh;
+          if (t >= L) continue;
+          float* out = y + (((int64_t)b * L + t) * H + h) * P + p0 + 2 * t4;
+#pragma unroll
+          for (int nt = 0; nt < NTY; ++nt) {
+            const float* up = ypart + ((s * NTY + nt) * 4 + 2 * hh) * 32;
+            *reinterpret_cast<float2*>(out + nt * 8) =
+                make_float2(yacc[s][nt][2 * hh] + up[0],
+                            yacc[s][nt][2 * hh + 1] + up[32]);
+          }
+        }
+      }
+    }
+
+    // ---- S = exp(cum_end) S + (x o dt o exp(cum_end - cum))^T B -----------
+    if (owner) {
+      const float eend = ecum[CS - 1];
+#pragma unroll
+      for (int ms = 0; ms < MTS; ++ms)
+#pragma unroll
+        for (int q = 0; q < NPW; ++q)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sacc[ms][q][e] = sacc[ms][q][e] * eend;
+#pragma unroll 2
+      for (int kt = 0; kt < mt; ++kt) {
+        const int j = kt * 16 + 2 * t4;
+        const float w0 = wdec[j], w1 = wdec[j + 1];
+        const float w8 = wdec[j + 8], w9 = wdec[j + 9];
+        Frag3 wf[MTS];             // W^T as the A operand (rows p, k = j)
+#pragma unroll
+        for (int ms = 0; ms < MTS; ++ms) {
+          const float* xc = X + j * LDX + ms * 16 + g;
+          split3(xc[0] * w0, xc[LDX] * w1, wf[ms].h[0], wf[ms].m[0],
+                 wf[ms].l[0]);
+          split3(xc[8] * w0, xc[LDX + 8] * w1, wf[ms].h[1], wf[ms].m[1],
+                 wf[ms].l[1]);
+          split3(xc[8 * LDX] * w8, xc[9 * LDX] * w9, wf[ms].h[2],
+                 wf[ms].m[2], wf[ms].l[2]);
+          split3(xc[8 * LDX + 8] * w8, xc[9 * LDX + 8] * w9, wf[ms].h[3],
+                 wf[ms].m[3], wf[ms].l[3]);
+        }
+        Frag3 bf[NPW];
+#pragma unroll
+        for (int q = 0; q < NPW; ++q) {
+          // B as the B operand (k = j, n = state column): rows 2t, 2t + 1
+          // and + 8
+          const float* bc = Bs + j * LDN + nbase + q * 8 + g;
+          split3(bc[0], bc[LDN], bf[q].h[0], bf[q].m[0], bf[q].l[0]);
+          split3(bc[8 * LDN], bc[9 * LDN], bf[q].h[1], bf[q].m[1],
+                 bf[q].l[1]);
+        }
+#pragma unroll
+        for (int k = 0; k < 6; ++k)
+#pragma unroll
+          for (int q = 0; q < NPW; ++q)
+#pragma unroll
+            for (int ms = 0; ms < MTS; ++ms)
+              mma_k(k, sacc[ms][q], wf[ms], bf[q], 0, 1);
+      }
+      if (more) put_state();
+    }
+    __syncthreads();               // B and the partials are free
+    if (more)
+      stage_rows<N, MMA3_THREADS>(Bs, LDN, brow, bc_row, t0 + CS,
+                                  valid_rows(c + 1), L);
+    cp_commit();
+  }
+
+  if (owner) {
+#pragma unroll
+    for (int ms = 0; ms < MTS; ++ms)
+#pragma unroll
+      for (int q = 0; q < NPW; ++q)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          *reinterpret_cast<float2*>(
+              fstate + sbase + (int64_t)(ms * 16 + g + 8 * hh) * N + nbase
+              + q * 8 + 2 * t4) =
+              make_float2(sacc[ms][q][2 * hh], sacc[ms][q][2 * hh + 1]);
+  }
+}
+
+// ===========================================================================
 // launch
 // ===========================================================================
 
@@ -826,25 +991,6 @@ struct Args {
   void *y, *fstate;
   int b, l, h, g, p;
 };
-
-template <int N, int P>
-cudaError_t launch_fma(const Args& q, cudaStream_t st, int* per_sm) {
-  auto kernel = ssd_fma_kernel<N, P>;
-  constexpr size_t smem = FmaSmem<N, P>::bytes;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  if (per_sm != nullptr)
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
-                                                         FMA_THREADS, smem);
-  kernel<<<dim3(q.h, q.b), FMA_THREADS, smem, st>>>(
-      static_cast<const float*>(q.x), static_cast<const float*>(q.dt),
-      static_cast<const float*>(q.A), static_cast<const float*>(q.B),
-      static_cast<const float*>(q.C), q.bc_row,
-      static_cast<const float*>(q.init), static_cast<float*>(q.y),
-      static_cast<float*>(q.fstate), q.l, q.h, q.g);
-  return cudaGetLastError();
-}
 
 template <int N, int PT>
 cudaError_t launch_mma(const Args& q, cudaStream_t st, int* per_sm) {
@@ -869,15 +1015,38 @@ cudaError_t launch_mma(const Args& q, cudaStream_t st, int* per_sm) {
   return cudaGetLastError();
 }
 
+template <int N, int PT>
+cudaError_t launch_mma3(const Args& q, cudaStream_t st, int* per_sm) {
+  auto kernel = ssd_mma3_kernel<N, PT>;
+  constexpr size_t smem = Mma3Smem<N, PT>::bytes;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return e;
+  if (per_sm != nullptr)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
+                                                         MMA3_THREADS, smem);
+  kernel<<<dim3(q.p / PT, q.h, q.b), MMA3_THREADS, smem, st>>>(
+      static_cast<const float*>(q.x), static_cast<const float*>(q.dt),
+      static_cast<const float*>(q.A), static_cast<const float*>(q.B),
+      static_cast<const float*>(q.C), q.bc_row,
+      static_cast<const float*>(q.init), static_cast<float*>(q.y),
+      static_cast<float*>(q.fstate), q.l, q.h, q.g, q.p);
+  return cudaGetLastError();
+}
+
 // The instance for (p, n, chunk, dtype): launch it, or (per_sm != null)
 // report its resident CTAs per SM instead.
 cudaError_t dispatch(const Args& q, int n, int chunk, int dtype,
                      cudaStream_t st, int* per_sm) {
   if (chunk != CS) return cudaErrorInvalidValue;
   if (dtype == 0) {
-    if (q.p == 64 && n == 128) return launch_fma<128, 64>(q, st, per_sm);
-    if (q.p == 64 && n == 64) return launch_fma<64, 64>(q, st, per_sm);
-    if (q.p == 16 && n == 16) return launch_fma<16, 16>(q, st, per_sm);
+    if (q.p == 64 && n == 128) return launch_mma3<128, 32>(q, st, per_sm);
+    if (q.p == 64 && n == 64) return launch_mma3<64, 32>(q, st, per_sm);
+    if (q.p == 16 && n == 16) return launch_mma3<16, 16>(q, st, per_sm);
   } else if (dtype == 1) {
     if (q.p == 64 && n == 128) return launch_mma<128, 32>(q, st, per_sm);
     if (q.p == 64 && n == 64) return launch_mma<64, 32>(q, st, per_sm);
@@ -888,7 +1057,7 @@ cudaError_t dispatch(const Args& q, int n, int chunk, int dtype,
 
 }  // namespace
 
-// dtype: 0 = float32 (the FMA kernel), 1 = bfloat16 (the tensor-core
+// dtype: 0 = float32 (the three-piece kernel), 1 = bfloat16 (the bf16
 // kernel), of x, B, C and y.  init may be null (a zero initial state).
 // bc_row is the element stride between the (batch, position) rows of B and
 // of C.  Returns cudaGetLastError() after the launch (or the error that

@@ -1,9 +1,9 @@
 """Public wrapper: the SSD chunked scan in the model layout.
 
 On CUDA tensors :func:`ssd` launches the kernel in ``csrc/ssd_scan.cu``
-(bf16: ``ssd_mma_kernel`` on the tensor cores; float32: ``ssd_fma_kernel``
-on the FMA pipes); on CPU tensors it runs the plain version
-(``ref.ssd_plain``).  Any other placement raises.
+(bf16: ``ssd_mma_kernel``; float32: ``ssd_mma3_kernel``, its operands split
+into three bf16 pieces; both on the tensor cores); on CPU tensors it runs
+the plain version (``ref.ssd_plain``).  Any other placement raises.
 """
 
 from __future__ import annotations
@@ -18,12 +18,12 @@ from .ref import ssd_plain
 # (ssm_head_dim, ssm_state, ssm_chunk) the kernels are built for: every SSM
 # config of ``repro_torch.configs``, full and smoke
 KERNEL_SHAPES = ((64, 128, 128), (64, 64, 128), (16, 16, 128))
-DESIGNS = {torch.bfloat16: "mma", torch.float32: "fma"}
+DESIGNS = {torch.bfloat16: "mma", torch.float32: "mma3"}
 
 
 def check_kernel_shape(p: int, n: int, chunk: int, dtype: torch.dtype) -> str:
     """The kernel design that runs this (head dim, state, chunk) and element
-    type on the card ("mma" for bf16, "fma" for float32); raises
+    type on the card ("mma" for bf16, "mma3" for float32); raises
     ValueError for any other."""
     if dtype not in DESIGNS:
         raise ValueError(f"ssd: dtype {dtype} not supported (float32 or "
@@ -91,15 +91,14 @@ def ssd(x, dt, A, B, C, chunk: int,
     rs = _row_stride("B", B)
     if _row_stride("C", C) != rs:
         raise ValueError("ssd: B and C rows differ in stride")
-    # the bf16 kernel copies 16-byte pieces of x, B and C rows and reads
-    # the initial state as float pairs
-    if design == "mma" and (
-            any(v % 16 for v in (x.data_ptr(), B.data_ptr(), C.data_ptr(),
-                                 rs * B.element_size()))
-            or (initial_state is not None and initial_state.data_ptr() % 8)):
-        raise ValueError("ssd: bf16 x, B and C must start on 16-byte "
-                         "addresses with B/C rows a multiple of 16 bytes "
-                         "apart, and initial_state on 8")
+    # the kernels copy 16-byte pieces of x, B and C rows and read the
+    # initial state as float pairs
+    if any(v % 16 for v in (x.data_ptr(), B.data_ptr(), C.data_ptr(),
+                            rs * B.element_size())) \
+            or (initial_state is not None and initial_state.data_ptr() % 8):
+        raise ValueError("ssd: x, B and C must start on 16-byte addresses "
+                         "with B/C rows a multiple of 16 bytes apart, and "
+                         "initial_state on 8")
     y = torch.empty_like(x)
     state = torch.empty(b, h, p, n, dtype=torch.float32, device=x.device)
     lib = _build.library()
