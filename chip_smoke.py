@@ -72,12 +72,16 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                1, 4, 64 and nvlink) and on every paging workload's lanes.
   6. serving kernels against their plain versions: flash_attention at the
                serving slice's shape (B 4, S = T = 1024, 16 heads over 2 KV
-               heads, hd 128; bf16 and float32, ragged, non-causal, softcap
-               30, S = T = 1000, S 512 under T 1024, and the launcher's
-               S = T = 11), at zamba2-2.7b's (32 heads, hd 80) and in bf16
-               at hd 16, 32 and 64: each row names the design that ran
-               (bf16: the wgmma kernel, float32: the FMA kernel) and must be
-               the one for its type; paged_attention (page 16, 128 pages per
+               heads, hd 128; ragged, non-causal, softcap 30, S = T = 1000,
+               S 512 under T 1024, and the launcher's S = T = 11), at
+               zamba2-2.7b's (32 heads, hd 80; and S = T = 11) and at hd 16,
+               32 and 64, every case in bf16 and in float32: each row names
+               the design that ran (bf16: the wgmma kernel, float32: the
+               ``mma3`` kernel, Q, K, V and P split into three bf16 pieces
+               on the tensor cores) and must be the one for its type;
+               float32 rows give the tensor-core, FMA and bytes bounds and
+               the kernel's CTAs per SM (``--only flash`` runs these rows
+               alone); paged_attention (page 16, 128 pages per
                sequence, random tables and lengths at both head shapes,
                every length 1 token, every length at a page edge, one
                sequence, and an identity table over a dense cache; bf16 and
@@ -122,19 +126,21 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                at one super-block (6 Mamba2 layers + the shared block).  In
                float32 (all three) the same requests served on the card and
                through the port's CPU path give the same tokens and KV
-               stats; in bf16 (qwen2.5-3b, zamba2-2.7b: the card's prefill
-               attention is the wgmma kernel) the largest logit difference
-               over a prefill and 3 decode steps stays within 2e-2 of the
-               logit scale, the CPU tests' bf16 logit tolerance.
+               stats, every flash_attention and ssd_scan launch of the
+               card the ``mma3`` design; in bf16 (qwen2.5-3b, zamba2-2.7b:
+               the card's prefill attention is the wgmma kernel) the
+               largest logit difference over a prefill and 3 decode steps
+               stays within 2e-2 of the logit scale, the CPU tests' bf16
+               logit tolerance.
   9. the ``kernels`` summary line, then the ``ok`` line.
 
 ``--out DIR`` also writes every JSON line to DIR/chip_smoke.jsonl;
 ``--only um`` runs phases 1-2 and the UM phases (4b, 5b and
 um_step_costs), ``--only um_step_costs`` that phase alone, ``--only
 amil_probe`` the amil_probe rows and the out-of-range check (the one-launch
-rule not judged) and ``--only ssd`` the ssd_scan rows, printing no ``ok``
-line (a copy of the script beside another checkout's ``src/`` measures
-that checkout);
+rule not judged), ``--only ssd`` the ssd_scan rows and ``--only flash``
+the flash_attention rows, printing no ``ok`` line (a copy of the script
+beside another checkout's ``src/`` measures that checkout);
 ``--write-traces`` (no card needed) rewrites
 ``chip_smoke_traces.npz`` from ``make_trace`` for the workloads of both
 baselines (BENCH_sweep.json and BENCH_um.json, with phase ids where a
@@ -1042,9 +1048,18 @@ def bound(flops: float, nbytes: float, dt):
 
 
 def flash_checks(torch, dev, flush):
-    """flash_attention against its plain version; returns the slice row.
-    Each row names the design that ran (bf16: the wgmma kernel, float32:
-    the FMA kernel), read from the launch counts of its own call."""
+    """flash_attention against its plain version, every case in bf16 and in
+    float32; returns the bf16 slice row.  Each row names the design that
+    ran, read from the launch counts of its own call, which must be the
+    one ``ops.DESIGNS`` names for the type (bf16: the wgmma kernel,
+    float32: the three-piece mma kernel).  float32 rows give three bounds:
+    ``bound_ms`` at the tensor cores' bf16 rate for the six piece products
+    of the three-piece design (``F32_PIECE_PRODUCTS``; the larger of it and
+    the bytes), ``fma_bound_ms`` at the FMA pipes' float32 rate, and
+    ``bytes_bound_ms``, and the kernel's CTAs per SM.  SDPA (TF32 off for
+    float32) is timed beside every case without a softcap.  A copy of this
+    script beside another checkout's ``src/`` measures that checkout's
+    kernels (``--only flash``)."""
     from repro_torch import _build
     from repro_torch.kernels.flash_attention import ops, ref
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1053,21 +1068,22 @@ def flash_checks(torch, dev, flush):
     rows = {}
     qwen = (16, 2, 128)                 # qwen2.5-3b: H, KV, hd
     zamba = (32, 32, 80)                # zamba2-2.7b's shared block
-    for case, B, S, T, dt, causal, cap, (H, KV, hd) in (
-            ("slice", 4, 1024, 1024, bf16, True, 0.0, qwen),
-            ("slice_float32", 4, 1024, 1024, f32, True, 0.0, qwen),
-            ("ragged", 2, 130, 200, bf16, True, 0.0, qwen),
-            ("non_causal", 4, 1024, 1024, bf16, False, 0.0, qwen),
-            ("softcap_30", 4, 1024, 1024, bf16, True, 30.0, qwen),
-            ("zamba2_hd80", 4, 1024, 1024, bf16, True, 0.0, zamba),
-            ("zamba2_hd80_float32", 4, 1024, 1024, f32, True, 0.0, zamba),
-            ("zamba2_hd80_ragged", 4, 11, 11, bf16, True, 0.0, zamba),
-            ("hd16", 2, 256, 256, bf16, True, 0.0, (4, 2, 16)),
-            ("hd32", 2, 256, 256, bf16, True, 0.0, (4, 2, 32)),
-            ("hd64", 2, 256, 256, bf16, True, 0.0, (4, 2, 64)),
-            ("edges_1000", 4, 1000, 1000, bf16, True, 0.0, qwen),
-            ("right_aligned_512_1024", 4, 512, 1024, bf16, True, 0.0, qwen),
-            ("launcher_11", 4, 11, 11, bf16, True, 0.0, qwen)):
+    cases = (
+        ("slice", 4, 1024, 1024, True, 0.0, qwen),
+        ("ragged", 2, 130, 200, True, 0.0, qwen),
+        ("non_causal", 4, 1024, 1024, False, 0.0, qwen),
+        ("softcap_30", 4, 1024, 1024, True, 30.0, qwen),
+        ("zamba2_hd80", 4, 1024, 1024, True, 0.0, zamba),
+        ("zamba2_hd80_ragged", 4, 11, 11, True, 0.0, zamba),
+        ("hd16", 2, 256, 256, True, 0.0, (4, 2, 16)),
+        ("hd32", 2, 256, 256, True, 0.0, (4, 2, 32)),
+        ("hd64", 2, 256, 256, True, 0.0, (4, 2, 64)),
+        ("edges_1000", 4, 1000, 1000, True, 0.0, qwen),
+        ("right_aligned_512_1024", 4, 512, 1024, True, 0.0, qwen),
+        ("launcher_11", 4, 11, 11, True, 0.0, qwen))
+    for (base, B, S, T, causal, cap, (H, KV, hd)), dt in (
+            (c, dt) for c in cases for dt in (bf16, f32)):
+        case = base if dt == bf16 else base + "_float32"
         q, k, v = (torch.randn(B, n, h, hd, generator=g, device=dev).to(dt)
                    for n, h in ((S, H), (T, KV), (T, KV)))
         run_k = lambda: ops.flash_attention(q, k, v, causal=causal,
@@ -1076,8 +1092,8 @@ def flash_checks(torch, dev, flush):
                                                       softcap=cap)
         _build.reset_counts()
         got = run_k()
-        designs = [d for d in ("wgmma", "fma")
-                   if _build.launches.get(f"flash_attention.{d}")]
+        designs = [n.split(".")[1] for n, c in _build.launches.items()
+                   if n.startswith("flash_attention.") and c]
         want = run_p()
         torch.cuda.synchronize()
         err = close(torch, got, want, f"flash_attention {case}")
@@ -1086,9 +1102,20 @@ def flash_checks(torch, dev, flush):
         # (query, key) pairs this run's masks keep
         pairs = sum(min(T, s + T - S + 1) for s in range(S)) if causal \
             else S * T
-        bound_ms, bound_by = bound(
-            4 * B * H * hd * pairs,
-            (2 * q.numel() + k.numel() + v.numel()) * q.element_size(), dt)
+        flops = 4 * B * H * hd * pairs
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        bound_ms, bound_by = bound(flops, nbytes, dt)
+        extra = {}
+        if dt == f32:
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = F32_PIECE_PRODUCTS * flops / PEAK_FLOPS["bfloat16"] * 1e3
+            extra = {"fma_bound_ms": flops / PEAK_FLOPS["float32"] * 1e3,
+                     "tensor_bound_ms": t_ops, "bytes_bound_ms": t_bytes,
+                     "blocks_per_sm": None}
+            if designs == ["mma3"]:    # else an older checkout's FMA kernel
+                extra["blocks_per_sm"] = ops.blocks_per_sm(hd)
+                bound_ms = max(t_ops, t_bytes)
+                bound_by = "operations" if t_ops >= t_bytes else "bytes"
         event_ms(torch, run_k, reps=3, flush=flush)         # warm-up
         library_ms = None
         if cap == 0.0:
@@ -1102,7 +1129,7 @@ def flash_checks(torch, dev, flush):
                 run_l = lambda: sdpa(qt, kt, vt, attn_mask=mask,
                                      enable_gqa=True)
             # float32: SDPA with TF32 off for matmuls and cuDNN, as the
-            # kernel computes in full float32
+            # kernel keeps float32's accuracy
             tf32 = (torch.backends.cuda.matmul.allow_tf32,
                     torch.backends.cudnn.allow_tf32)
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -1120,7 +1147,7 @@ def flash_checks(torch, dev, flush):
                "max_abs_err": err,
                "ms": event_ms(torch, run_k, reps=20, flush=flush),
                "plain_ms": event_ms(torch, run_p, reps=3, flush=flush),
-               "bound_ms": bound_ms, "bound_by": bound_by,
+               "bound_ms": bound_ms, "bound_by": bound_by, **extra,
                "library_ms": library_ms}
         emit({"phase": "kernel_vs_plain", **row})
         rows[case] = row
@@ -1373,18 +1400,19 @@ class StepClock:
 
 def path_launches(cfg):
     """Kernel launches of one prefill and of one decode step: every
-    attention layer runs flash_attention in prefill (bf16 through the
-    wgmma kernel only, float32 through the FMA kernel only: the
+    attention layer runs flash_attention in prefill (only through the
+    design of the model's type, ``flash_ops.DESIGNS``: bf16 the wgmma
+    kernel, float32 the three-piece mma kernel; the
     ``flash_attention.<design>`` counts) and paged_attention, one launch,
     in decode; every Mamba2 layer runs ssd_scan in prefill (only through
     the design of the model's type, ``ssd_ops.DESIGNS``: the
     ``ssd_scan.<design>`` counts; its decode step is plain torch ops); the
     hybrid applies its shared attention block after every ``attn_every``
     Mamba2 layers."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     L = cfg.n_layers
-    bf16 = cfg.dtype == "bfloat16"
-    design = "flash_attention." + ("wgmma" if bf16 else "fma")
+    design = "flash_attention." + flash_ops.DESIGNS[cfg.torch_dtype]
     ssd = {"ssd_scan": L,
            "ssd_scan." + ssd_ops.DESIGNS[cfg.torch_dtype]: L}
     if cfg.family == "dense":
@@ -1535,15 +1563,16 @@ def decode_profile(torch, dev, model, cfg, scfg, traffic, name, steps=3,
     per_prefill, per_decode = path_launches(cfg)
     counts = {"prefill_flash_wgmma": kernel_count(torch, pprof,
                                                   "flash_wgmma_kernel"),
-              "prefill_flash_fma": kernel_count(torch, pprof,
-                                                "flash_kernel"),
+              "prefill_flash_mma3": kernel_count(torch, pprof,
+                                                 "flash_mma3_kernel"),
               "prefill_ssd_mma": kernel_count(torch, pprof, "ssd_mma_kernel"),
               "prefill_ssd_mma3": kernel_count(torch, pprof,
                                                "ssd_mma3_kernel"),
               "decode_paged": kernel_count(torch, prof, "paged_kernel")}
     want = {"prefill_flash_wgmma": per_prefill.get("flash_attention.wgmma",
                                                    0),
-            "prefill_flash_fma": per_prefill.get("flash_attention.fma", 0),
+            "prefill_flash_mma3": per_prefill.get("flash_attention.mma3",
+                                                  0),
             "prefill_ssd_mma": per_prefill.get("ssd_scan.mma", 0),
             "prefill_ssd_mma3": per_prefill.get("ssd_scan.mma3", 0),
             "decode_paged": per_decode.get("paged_attention", 0) * steps}
@@ -1648,6 +1677,7 @@ def serve_card_vs_cpu(torch, dev, arch: str, n_layers: int,
     import dataclasses
     from repro_torch import _build
     from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.models import Transformer
     from repro_torch.serving import Engine, Request, ServeConfig
@@ -1709,6 +1739,12 @@ def serve_card_vs_cpu(torch, dev, arch: str, n_layers: int,
             ssd > 0 and launches.get(
                 "ssd_scan." + ssd_ops.DESIGNS[torch.float32], 0) == ssd),
              f"{cfg.name}: float32 ssd_scan launches {launches}")
+        flash = launches.get("flash_attention", 0)
+        need(cfg.family == "ssm" or (
+            flash > 0 and launches.get(
+                "flash_attention." + flash_ops.DESIGNS[torch.float32],
+                0) == flash),
+             f"{cfg.name}: float32 flash_attention launches {launches}")
         need(same_tokens, f"{cfg.name}: card and CPU generate different "
              f"tokens (max logit difference {diff} over logits up to "
              f"{scale})")
@@ -1869,11 +1905,11 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None)
     ap.add_argument("--write-traces", action="store_true")
     ap.add_argument("--only", choices=["um", "um_step_costs", "amil_probe",
-                                       "ssd"], default=None,
+                                       "ssd", "flash"], default=None,
                     help="run the device and build phases, then only the "
                     "UM phases (4b, 5b and um_step_costs), um_step_costs, "
-                    "the amil_probe rows (with the out-of-range check) or "
-                    "the ssd_scan rows")
+                    "the amil_probe rows (with the out-of-range check), "
+                    "the ssd_scan rows or the flash_attention rows")
     args = ap.parse_args(argv)
     if args.write_traces:
         return write_traces()
@@ -1931,6 +1967,8 @@ def main(argv=None) -> int:
             amil_out_of_range(torch, dev)
         elif args.only == "ssd":
             ssd_checks(torch, dev, flush)
+        elif args.only == "flash":
+            flash_checks(torch, dev, flush)
         else:
             um_step_costs(torch, T, dev, cycle_ms)
         emit({"phase": "done", "wall_s": time.perf_counter() - t_start})

@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels at first use and bind them with ctypes.
 
 Every ``kernels/*/csrc/*.cu`` source is compiled by ``nvcc`` for Hopper
-(``sm_90a``), one process per source, all started together, and the
+(``sm_90a``), one process per source, all started together (headers
+shared between kernels in ``kernels/csrc/`` on the include path), and the
 objects are linked into one shared library with a plain C interface.  The
 library lands in ``build/repro_torch/`` at the checkout root, named by a
 hash of the sources and flags, so an unchanged tree reuses it and a
@@ -28,6 +29,7 @@ from typing import Dict, List, Optional
 
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG.parent.parent / "build" / "repro_torch"
+SHARED_HEADERS = _PKG / "kernels" / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC")
 
@@ -45,6 +47,8 @@ _SIGNATURES = {
     # q, k, v, o, B, S, T, H, KV, hd, causal, softcap, scale, dtype, stream
     "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _F, _F, _I, _P),
+    # hd (the float32 kernel)
+    "flash_attention_blocks_per_sm": (_I,),
     # q, k_pages, v_pages, block_table, lengths, o, workspace, counters, B,
     # KV, G, gp, hd, pool, page, n_pages, n_split, softcap, scale, dtype,
     # stream
@@ -77,7 +81,7 @@ def sources() -> List[Path]:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sorted(_PKG.glob("kernels/*/csrc/*")):
+    for p in sorted(_PKG.glob("kernels/**/csrc/*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
@@ -103,7 +107,8 @@ def _compile(so: Path, tag: str) -> None:
     jobs = []
     for src in sources():
         obj = BUILD_DIR / f"{src.stem}_{tag}.o"
-        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(SHARED_HEADERS), "-c", str(src),
+               "-o", str(obj)]
         jobs.append((src, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     logs, failed = [], []

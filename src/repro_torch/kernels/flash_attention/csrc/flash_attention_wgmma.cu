@@ -9,8 +9,8 @@
 // s = (q . k) * scale then the optional softcap c * tanh(s / c), online
 // softmax with m, l and acc in float32, p rounded to bf16 before P @ V (the
 // Pallas kernel's p.astype(v.dtype)) while l sums the unrounded p, and
-// out = acc / max(l, 1e-30).  float32 inputs stay on the FMA kernel in
-// flash_attention.cu: a float32 product on the tensor cores is TF32.
+// out = acc / max(l, 1e-30).  float32 inputs go to the three-piece mma.sync
+// kernel of flash_attention_mma3.cu: a float32 product here would be TF32.
 //
 // What bounds it on an H100: operations.  The causal slice shape (B 4,
 // S = T = 1024, H 16, hd 128) is 17.2 GFLOP against 37.7 MB of bf16

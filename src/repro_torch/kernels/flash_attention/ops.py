@@ -1,11 +1,13 @@
 """Public wrapper: model-layout flash attention.
 
 On CUDA tensors :func:`flash_attention` launches a kernel chosen by the
-inputs' type: bf16 the tensor-core kernel in ``csrc/flash_attention_wgmma.cu``,
-float32 the FMA kernel in ``csrc/flash_attention.cu`` (a float32 product on
-the tensor cores would be TF32).  That is dispatch on the type, not a
-fallback: a bf16 call the wgmma kernel refuses raises.  On CPU tensors it
-runs the plain version in ``ref.py``.  Any other placement raises.
+inputs' type, both on the tensor cores: bf16 the wgmma kernel in
+``csrc/flash_attention_wgmma.cu``, float32 the ``mma.sync`` kernel in
+``csrc/flash_attention_mma3.cu``, whose operands are split into three bf16
+pieces each (a float32 product on the tensor cores would be TF32).  That
+is dispatch on the type, not a fallback: a call the kernel refuses raises.
+On CPU tensors it runs the plain version in ``ref.py``.  Any other
+placement raises.
 """
 
 from __future__ import annotations
@@ -18,12 +20,12 @@ from ... import _build
 from .ref import flash_attention_reference
 
 HEAD_DIMS = (16, 32, 64, 80, 128)   # the kernels' instantiations
-DESIGNS = {torch.bfloat16: "wgmma", torch.float32: "fma"}
+DESIGNS = {torch.bfloat16: "wgmma", torch.float32: "mma3"}
 
 
 def check_kernel_shape(hd: int, dtype: torch.dtype) -> str:
     """The kernel design that runs this head dim and element type on the
-    card ("wgmma" for bf16, "fma" for float32); raises for any other."""
+    card ("wgmma" for bf16, "mma3" for float32); raises for any other."""
     if dtype not in DESIGNS:
         raise ValueError(f"flash_attention: dtype {dtype} not supported "
                          "(float32 or bfloat16)")
@@ -72,3 +74,11 @@ def flash_attention(q, k, v, *, causal: bool = True, softcap: float = 0.0):
     _build.count("flash_attention")
     _build.count(f"flash_attention.{design}")
     return out
+
+
+def blocks_per_sm(hd: int) -> int:
+    """CTAs of the float32 kernel (design "mma3") at this head dim that one
+    SM of the current card holds at once (CUDA's occupancy calculator);
+    needs the card."""
+    check_kernel_shape(hd, torch.float32)
+    return int(_build.library().flash_attention_blocks_per_sm(hd))

@@ -70,6 +70,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma3.cuh"  // mma, the bf16 pieces, cp.async, ldmatrix
+
 namespace {
 
 constexpr int CS = 128;           // chunk length (ssm_chunk)
@@ -115,79 +117,26 @@ __device__ __forceinline__ void chunk_cumsum(DtAt dt_at, float a, float* cum,
 // bf16: the tensor-core kernel
 // ===========================================================================
 
-typedef __nv_bfloat16 bf16;
 constexpr int MMA_THREADS = 128;  // 4 warps
 constexpr int MT = CS / 16;       // 16-row tiles of a chunk
 static_assert(MT == 2 * (MMA_THREADS / 32), "two m-tiles a warp");
 static_assert(MMA_THREADS == CS, "one thread a position stages dt");
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-// 16 (or 4) bytes global -> shared, asynchronously; zeros where !valid.
-__device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
+// 4 bytes global -> shared, asynchronously; zeros where !valid.
 __device__ __forceinline__ void cp4(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
                    smem_u32(dst)),
                "l"(src), "r"(valid ? 4 : 0)
                : "memory");
 }
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// this thread's copies done except the newest `N` groups
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// ldmatrix: four (x4) or two (x2) 8 x 8 bf16 tiles; lane l gives the row
-// address of tile l / 8.  .trans hands each thread the transposed tile.
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
+// ldmatrix.x2.trans: two 8 x 8 bf16 tiles, transposed (the x4 forms are in
+// mma3.cuh).
 __device__ __forceinline__ void ldsm2t(uint32_t (&r)[2], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
                : "=r"(r[0]), "=r"(r[1])
                : "r"(smem_u32(p)));
 }
 
-// d += a b: a 16 x 16 (row), b 16 x 8 (col), bf16 in, float32 accumulators.
-// Fragments (g = lane / 4, t = lane % 4):
-//   a[0] (row g, k 2t..2t+1), a[1] (row g+8, same k), a[2] (row g, k 2t+8..),
-//   a[3] (row g+8, k 2t+8..); b0 (k 2t..2t+1, col g), b1 (k 2t+8.., col g);
-//   d[0..1] (row g, cols 2t..2t+1), d[2..3] (row g+8, same cols).
-// (Not volatile: a register-only op the compiler may schedule freely.)
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack2(float lo_k, float hi_k) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo_k, hi_k);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-__device__ __forceinline__ float2 unpack2(uint32_t r) {
-  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&r));
-}
 // (v0, v1) -> bf16 pairs hi and lo with hi + lo = v to ~2^-17 relative.
 __device__ __forceinline__ void split2(float v0, float v1, uint32_t& hi,
                                        uint32_t& lo) {
@@ -540,14 +489,12 @@ ssd_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
 //
 // The bf16 kernel's tiles, warps, head-dim split and cp.async pipeline, on
 // float32 x, B and C.  Every operand of every product, x, B and C included,
-// is split into three bf16 pieces v = hi + mid + lo (each residual exact in
-// float32, so the pieces sum to v in float32's normal range), and a
-// product sums the six piece products that reach float32's rounding:
-// lo hi, hi lo, mid mid, mid hi, hi mid, hi hi (smallest first, on one
-// float32 accumulator); lo mid, mid lo and lo lo lie below 2^-24 of it.
-// The CPU model of tests/test_torch_ssd_design.py settled the six: its
-// y and state lie as close to a float64 recurrence as the plain float32
-// version, and two pieces with three products lie 6-20x farther.
+// is split into three bf16 pieces hi + mid + lo, and a product sums the six
+// piece products that reach float32's rounding, smallest first (split3 and
+// mma_k of mma3.cuh).  The CPU model of tests/test_torch_ssd_design.py
+// settled the six: its y and state lie as close to a float64 recurrence as
+// the plain float32 version, and two pieces with three products lie 6-20x
+// farther.
 //
 // Shared memory holds float32 (C, B [CS][N + 8], x double-buffered
 // [CS][PT + 4], the state [PT][N + 8]), and the pieces are cut while a
@@ -556,22 +503,6 @@ ssd_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
 // distinct banks at a stride of 8 mod 32 words; the column reads of x
 // (rows 2t, columns g) at a stride of 4 mod 32.  One CTA an SM at N 64 and
 // 128 (196 KB at N 128), four at N 16.
-
-// (v0, v1) -> bf16 pairs hi, mid, lo with hi + mid + lo = v exactly.
-__device__ __forceinline__ void split3(float v0, float v1, uint32_t& hi,
-                                       uint32_t& mid, uint32_t& lo) {
-  hi = pack2(v0, v1);
-  float2 f = unpack2(hi);
-  const float r0 = v0 - f.x, r1 = v1 - f.y;
-  mid = pack2(r0, r1);
-  f = unpack2(mid);
-  lo = pack2(r0 - f.x, r1 - f.y);
-}
-
-// An m16k16 A operand (or two n8 B operands) in three pieces.
-struct Frag3 {
-  uint32_t h[4], m[4], l[4];
-};
 
 // The fragment of rows r0 + g, r0 + g + 8 and columns c0 + 2t, + 1, + 8,
 // + 9 of a float32 [row][col] array (p = &a[(r0 + g) * ld + c0 + 2t]):
@@ -588,23 +519,6 @@ __device__ __forceinline__ void load3(Frag3& f, const float* p, int ld) {
   split3(v1.x, v1.y, f.h[1], f.m[1], f.l[1]);
   split3(v2.x, v2.y, f.h[2], f.m[2], f.l[2]);
   split3(v3.x, v3.y, f.h[3], f.m[3], f.l[3]);
-}
-
-// Product k (0-5) of d += a b over the six piece products, b the n8 tile
-// (b0, b1) = pieces [i0], [i1] of `b`, smallest first: lo hi, hi lo,
-// mid mid, mid hi, hi mid, hi hi.  The callers take k outermost over
-// several accumulators, so that independent mma chains are in flight: one
-// warp a scheduler has no other warp to hide an mma's latency behind.
-__device__ __forceinline__ void mma_k(int k, float (&d)[4], const Frag3& a,
-                                      const Frag3& b, int i0, int i1) {
-  switch (k) {
-    case 0: mma(d, a.l, b.h[i0], b.h[i1]); break;
-    case 1: mma(d, a.h, b.l[i0], b.l[i1]); break;
-    case 2: mma(d, a.m, b.m[i0], b.m[i1]); break;
-    case 3: mma(d, a.m, b.h[i0], b.h[i1]); break;
-    case 4: mma(d, a.h, b.m[i0], b.m[i1]); break;
-    default: mma(d, a.h, b.h[i0], b.h[i1]); break;
-  }
 }
 
 constexpr int MMA3_THREADS = 256;  // 8 warps

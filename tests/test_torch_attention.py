@@ -206,16 +206,17 @@ def test_paged_rejects_bad_inputs():
 def test_config_head_dims_have_kernels(arch, smoke):
     """Every registered config with attention heads has a head dim, at its
     dtype (and in float32, the type of the card-vs-CPU cuts), that both
-    attention kernels are built for: flash_attention by the wgmma kernel in
-    bf16 and the FMA kernel in float32, paged_attention in either.  A
-    kernel that drops an instantiation fails here, not on the card."""
+    attention kernels are built for: flash_attention by the design
+    ``ops.DESIGNS`` names for the type (bf16 the wgmma kernel, float32 the
+    three-piece mma kernel), paged_attention in either.  A kernel that
+    drops an instantiation fails here, not on the card."""
     cfg = get_config(arch, smoke=smoke)
     if cfg.n_heads == 0:
         assert cfg.family == "ssm"          # no attention layer at all
         return
-    want = {torch.bfloat16: "wgmma", torch.float32: "fma"}
     for dt in {cfg.torch_dtype, torch.float32}:
-        assert flash_ops.check_kernel_shape(cfg.hd, dt) == want[dt]
+        assert flash_ops.check_kernel_shape(cfg.hd, dt) == \
+            flash_ops.DESIGNS[dt]
         paged_ops.check_kernel_shape(cfg.hd, dt)
 
 

@@ -41,6 +41,8 @@ import torch
 from repro.kernels.ssd_scan.ops import ssd as pallas_ssd
 from repro.kernels.ssd_scan.ref import ssd_reference as jax_ssd_reference
 from repro_torch.configs import ARCH_IDS, PAPER_CASES, get_config
+from repro_torch.kernels.pieces import (bf as _bf, prod as _prod,
+                                       split as _split, split3 as _split3)
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan import ref
 
@@ -56,27 +58,6 @@ JAX_TOL = 2e-5
 ORACLE_RATIO = 4
 
 
-def _bf(t):
-    """t rounded to bf16 and back: what a bf16 operand holds."""
-    return t.to(torch.bfloat16).to(torch.float32)
-
-
-def _split(v):
-    """The bf16 kernel's hi + lo pair of a float32 operand."""
-    hi = _bf(v)
-    return hi, _bf(v - hi)
-
-
-def _split3(v):
-    """The float32 kernel's three bf16 pieces hi + mid + lo of a float32
-    operand: each residual is exact in float32, so hi + mid + lo == v in
-    float32's normal range."""
-    hi = _bf(v)
-    r = v - hi
-    mid = _bf(r)
-    return hi, mid, _bf(r - mid)
-
-
 def _once(v):
     """A float32 operand rounded to bf16 once (no lo part)."""
     return _bf(v), torch.zeros_like(v)
@@ -85,21 +66,6 @@ def _once(v):
 def _exact(v):
     """A bf16 operand: one piece, exact."""
     return (v,)
-
-
-def _prod(a, b):
-    """The kernel's product of split operands: a_i @ b_j summed over the
-    piece pairs with i + j below the longer split's length, the smallest
-    terms first.  Two pieces against one exact operand: hi b + lo b; three
-    against three: the six products hi hi, hi mid, mid hi, hi lo, lo hi,
-    mid mid (the other three lie below float32's rounding)."""
-    k = max(len(a), len(b)) - 1
-    pairs = sorted(((i, j) for i in range(len(a)) for j in range(len(b))
-                    if i + j <= k), key=lambda ij: -sum(ij))
-    out = a[pairs[0][0]] @ b[pairs[0][1]]
-    for i, j in pairs[1:]:
-        out = out + a[i] @ b[j]
-    return out
 
 
 def _t(pieces):
