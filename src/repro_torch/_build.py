@@ -38,9 +38,9 @@ _I = ctypes.c_int
 _L = ctypes.c_int64
 _F = ctypes.c_float
 _SIGNATURES = {
-    # policy, slot, meta, offsets, lanes, cache, lines_alloc, ctc,
-    # sets_alloc, ways_alloc, e_ways, n_domains, y, stream
-    "hms_scan_launch": (_I, _P, _P, _P, _I, _P, _L, _P, _I, _I, _I, _I, _P,
+    # policy, slot, meta, offsets, lane_ways, lanes, cache, lines_alloc,
+    # ctc, sets_alloc, ways_alloc, n_domains, y, stream
+    "hms_scan_launch": (_I, _P, _P, _P, _P, _I, _P, _L, _P, _I, _I, _I, _P,
                         _P),
     "ema_scan_launch": (_P, _L, ctypes.c_double, _P, _P),
     "amil_probe_launch": (_P, _I, _P, _P, _L, _P, _P, _P, _I, _P),
@@ -60,13 +60,14 @@ _SIGNATURES = {
                         _I, _I, _I, _I, _P),
     # p, n, chunk, dtype
     "ssd_scan_blocks_per_sm": (_I, _I, _I, _I),
-    # page, is_write, phase, n, n_phases, params, lanes, n_pages, resident,
-    # dirty, pages_alloc, frames, frames_alloc, hotness, ptr, counts, stream
-    "um_scan_launch": (_P, _P, _P, _L, _I, _P, _I, _I, _P, _P, _L, _P, _L,
-                       _P, _P, _P, _P),
+    # page, flags, phase, n, row_stride, segs, n_phases, params, lanes,
+    # n_pages, resident, dirty, pages_alloc, frames, frames_alloc, hotness,
+    # ptr, counts, stream
+    "um_scan_launch": (_P, _P, _P, _L, _L, _I, _I, _P, _I, _I, _P, _P, _L,
+                       _P, _L, _P, _P, _P, _P),
     # the same walk on host memory: up to counts
-    "um_scan_host": (_P, _P, _P, _L, _I, _P, _I, _I, _P, _P, _L, _P, _L, _P,
-                     _P, _P),
+    "um_scan_host": (_P, _P, _P, _L, _L, _I, _I, _P, _I, _I, _P, _P, _L, _P,
+                     _L, _P, _P, _P),
 }
 
 launches: Dict[str, int] = {}

@@ -7,30 +7,40 @@ two-level SCM-aware bypass policy, prior-work policies, and the shared-bus,
 separate-bus, SCM-only and infinite-HBM organizations.  Runtime is the
 bottleneck model of ``_finish``; counters are float64.
 
-Engine layout (one ``simulate`` call):
+Engine layout (one ``simulate`` call, or one config group of
+``simulate_many``):
 
   * ``traces.preprocess`` and ``traces.shard_plan`` (NumPy, host) decompose
     addresses, segment the MSHR activation runs and partition the trace into
-    S state-disjoint shards (S = 1 unless :func:`set_forced_shards` pins it).
-  * The per-request-pure precompute runs in torch on the device: SCM penalty
-    scores, running maxima, discretized levels, the xorshift dice and fill
-    candidacy.  The float64 penalty EMA is a sequential recurrence; it runs
-    as the ``ema_scan`` kernel (one CTA, the chain read from shared memory).
+    S state-disjoint shards; ``tsplit.split_positions`` cuts each shard into
+    T temporal segments.  (S, T) comes from ``costmodel.plan_hms_split``
+    (or :func:`set_forced_shards` / ``costmodel.set_forced_tsplit``).
+  * The per-request-pure precompute runs in torch on the device, once per
+    config: SCM penalty scores, running maxima, discretized levels, the
+    xorshift dice and fill candidacy.  The float64 penalty EMA is a
+    sequential recurrence; it runs as the ``ema_scan`` kernel.
   * The stateful core — packed DRAM-cache words and CTC rows — is the
-    ``hms_scan`` kernel: one warp per (shard lane, CTC set) walks that set's
-    requests in order (without a CTC, per row-group residue) and emits one
-    int32 decision word per request.
-  * The decision words are scattered back to trace order and every counter
-    is reduced vectorially on the device (segment sums per phase for
-    scenario traces); ``_finish`` turns the counters into runtime, traffic
-    and energy on the host in NumPy float64, so the totals of a phased trace
-    are ``np.sum`` of its per-phase vector.
+    ``hms_scan`` kernel.  Its lanes are configs x shards x segments, each
+    lane with its own CTC ways and sets; one warp per (lane, CTC set) walks
+    that set's requests in order (without a CTC, per row-group residue) and
+    emits one int32 decision word per request.  With T > 1 the segments
+    start from boundary guesses and the stitch (``tsplit.stitch``) relaunches
+    the kernel with each guess replaced by its predecessor's output until
+    nothing changes: one launch and one host sync a round, on device
+    tensors.  The whole run is guarded by the degradation ladder
+    (``repro_torch.resilience.guard``): (S, T) -> (S, 1) -> (1, 1), an OOM
+    bisecting a batch; no rung leaves the card.
+  * The converged round's decision words are scattered back to trace order
+    and every counter is reduced vectorially on the device, once per config
+    (segment sums per phase for scenario traces); ``_finish`` turns the
+    counters into runtime, traffic and energy on the host in NumPy float64,
+    so the totals of a phased trace are ``np.sum`` of its per-phase vector.
 
 The ``hbm`` organization and any HMS footprint that overflows the HMS
 capacity add the Unified-Memory paging model (``repro_torch.um``), whose
-scan is the ``um_scan`` kernel: one warp per UM spec lane.
+scan is the ``um_scan`` kernel: one warp per UM spec x temporal segment.
 :func:`simulate_many` runs every UM point of a batch in one ``um_scan``
-launch, then each config through :func:`simulate`.
+call first.
 
 On the CPU (``device="cpu"``) the kernels' plain PyTorch versions run
 instead.
@@ -41,17 +51,22 @@ from __future__ import annotations
 import dataclasses
 import functools
 import types
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..resilience import guard as _guard
+from ..resilience import sweepckpt as _sweepckpt
 from ..resilience import validate as _rvalidate
 from ..um import engine as _um
 from . import bypass as bp
+from . import costmodel
+from . import ctc as ctc_mod
+from . import tsplit
 from .timing import COLUMN_BYTES, POLICIES_WITH_CTC, UM_PAGE_BYTES, HMSConfig
-from .traces import Trace, preprocess, shard_plan
+from .traces import Trace, chain_depth, preprocess, shard_plan
 
 _COUNTERS = (
     # bus traffic, in 32B columns
@@ -141,21 +156,23 @@ class SimResult:
 
 
 # ---------------------------------------------------------------------------
-# Device, shard count and engine shapes.
+# Engine shapes: the (S, T) plan and the bucketed allocations.
 # ---------------------------------------------------------------------------
 
-_FORCED_SHARDS: Optional[int] = None
+def set_max_shards(cap: int) -> int:
+    """Set the shard-count cap (1 = sequential engine); returns the old
+    cap.  Delegates to :func:`repro_torch.core.costmodel.set_max_shards`."""
+    return costmodel.set_max_shards(cap)
 
 
 def set_forced_shards(n: int | None) -> int | None:
-    """Pin the shard count S (lanes of the scan kernel); ``None`` restores
-    the default S = 1.  Counters are identical at every S.  Returns the
-    previous value."""
-    global _FORCED_SHARDS
+    """Pin the shard count S (bypassing the cost model); ``None`` restores
+    automatic selection.  Counters are identical at every S.  Returns the
+    previous value.  Delegates to
+    :func:`repro_torch.core.costmodel.set_forced_shards`."""
     if n is not None and int(n) < 1:
         raise ValueError(f"shard count must be >= 1, got {n}")
-    old, _FORCED_SHARDS = _FORCED_SHARDS, None if n is None else int(n)
-    return old
+    return costmodel.set_forced_shards(n)
 
 
 def _bucket(n: int) -> int:
@@ -168,27 +185,77 @@ def _bucket(n: int) -> int:
 class _EngineKey:
     policy: str
     n: int                  # trace length
-    shards: int             # lanes S (1 = sequential scan)
-    depth: int              # per-lane scan length
+    shards: int             # spatial shards S (1 = sequential scan)
+    depth: int              # padded per-shard scan length
     lines_alloc: int        # per-lane DRAM-cache slot allocation (bucketed)
     ctc_sets_alloc: int     # per-lane CTC set allocation (bucketed)
     ctc_ways_alloc: int
     ctc_sectors: int
     phases: int = 1         # counter segments (scenario phase count)
+    t_segments: int = 1     # temporal segments T (1 = no splitting)
+    replay: int = 0         # replay-prefix steps per segment (T > 1 only)
 
 
 def _engine_key(trace: Trace, cfg: HMSConfig) -> _EngineKey:
-    shards = _FORCED_SHARDS or 1
-    plan = shard_plan(trace, cfg, shards)
-    use_ctc = cfg.policy in POLICIES_WITH_CTC
+    return group_engine_key(trace, [cfg])
+
+
+# The planner's decision behind each engine key (prediction + rejected
+# alternatives), for the drift sentinel.
+_PLAN_BY_KEY: Dict[_EngineKey, costmodel.SplitPlan] = {}
+
+
+def group_engine_key(trace: Trace,
+                     configs: Sequence[HMSConfig]) -> _EngineKey:
+    """The engine key ``simulate_many`` uses for a batch of scan configs of
+    one (policy, sectors) group: (S, T) from the cost model for the batch,
+    allocations the group's bucketed maxima, so it can differ from any
+    single config's ``_engine_key``."""
+    cfgs = [c.validate() for c in configs]
+    policies = {c.policy for c in cfgs}
+    sectors = {c.ctc_sectors_per_line for c in cfgs}
+    if len(policies) != 1 or len(sectors) != 1:
+        raise ValueError("group_engine_key wants configs from one "
+                         "static-structure group (one policy, one sector "
+                         "count)")
+    replay = tsplit.replay_prefix()
+    split = costmodel.plan_hms_split(plan_depth(trace, cfgs), len(cfgs),
+                                     replay)
+    key = _shape_key(trace, cfgs, split.shards, split.t_segments, replay)
+    _PLAN_BY_KEY[key] = split
+    return key
+
+
+def plan_depth(trace: Trace, configs: Sequence[HMSConfig]):
+    """``depth_of(S)`` for the planner: the longest chain the scan kernel
+    walks at S shards (:func:`~repro_torch.core.traces.chain_depth`), the
+    group's maximum.  The reference costs the padded shard depth, the
+    length of its per-shard scan; the port's kernel walks each (lane, CTC
+    set) chain on its own, so under a CTC policy its depth does not fall
+    with S."""
+    return lambda s: max(chain_depth(trace, c, s) for c in configs)
+
+
+def _shape_key(trace: Trace, cfgs: Sequence[HMSConfig], shards: int,
+               t_segments: int = 1, replay: int = 0) -> _EngineKey:
+    """The engine key of one config group at a given (S, T): allocations
+    are the group's bucketed maxima; a T above the shard depth is cut to
+    it (segments need >= 1 core step)."""
+    plans = [shard_plan(trace, c, shards) for c in cfgs]
+    depth = max(p["depth"] for p in plans)
+    t_seg = max(1, min(t_segments, depth))
+    policy = cfgs[0].policy
+    use_ctc = policy in POLICIES_WITH_CTC
     return _EngineKey(
-        policy=cfg.policy, n=trace.n, shards=shards, depth=plan["depth"],
-        lines_alloc=_bucket(plan["lines_bound"]),
+        policy=policy, n=trace.n, shards=shards, depth=depth,
+        lines_alloc=_bucket(max(p["lines_bound"] for p in plans)),
         # non-CTC policies carry no CTC state; allocate the minimum
-        ctc_sets_alloc=_bucket(plan["n_sets_local"]) if use_ctc else 1,
-        ctc_ways_alloc=_bucket(cfg.ctc_ways) if use_ctc else 1,
-        ctc_sectors=cfg.ctc_sectors_per_line,
-        phases=trace.n_phases)
+        ctc_sets_alloc=_bucket(max(p["n_sets_local"] for p in plans))
+        if use_ctc else 1,
+        ctc_ways_alloc=_bucket(max(c.ctc_ways for c in cfgs))
+        if use_ctc else 1,
+        ctc_sectors=cfgs[0].ctc_sectors_per_line, phases=trace.n_phases,
+        t_segments=t_seg, replay=replay if t_seg > 1 else 0)
 
 
 def _runtime_params(cfg: HMSConfig,
@@ -251,6 +318,22 @@ def _engine_inputs(trace: Trace, cfg: HMSConfig, pre, key: _EngineKey,
     plan = shard_plan(trace, cfg, key.shards)
     _rvalidate.check_hms_packing(
         trace.name, rg_max=int(plan["rg_local"].max(initial=0)))
+    pos = plan["pos"]
+    if plan["depth"] < key.depth:       # pad to the engine's (group) depth
+        pad = np.full((key.shards, key.depth - plan["depth"]), trace.n,
+                      np.int32)
+        pos = np.concatenate([pos, pad], axis=1)
+    if key.t_segments > 1:
+        # cut each shard row into T temporal segments: the lanes become
+        # S*T, scatter positions keep replay/pad steps on the dropped
+        # sentinel, gather positions re-execute the replay window
+        lanes = key.shards * key.t_segments
+        sp = tsplit.split_positions(pos, trace.n, key.t_segments, key.replay)
+        spos = sp["spos"].reshape(lanes, -1)
+        gpos = sp["gpos"].reshape(lanes, -1)
+        replay = sp["replay"].reshape(lanes, -1) if key.replay > 0 else None
+    else:
+        spos, gpos, replay = pos, np.minimum(pos, trace.n - 1), None
 
     def to(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -268,8 +351,13 @@ def _engine_inputs(trace: Trace, cfg: HMSConfig, pre, key: _EngineKey,
         # tag layout folds into per-request data + cost scalars
         "excluded": to(pre["amil_excluded"] & (cfg.tag_layout == "amil")),
         "dice": _dice(trace.n, dev),
-        "pos": to(plan["pos"].astype(np.int64)),
+        # (lanes, L) scatter positions (pad and replay steps == n) and
+        # gather positions
+        "pos": to(spos.astype(np.int64)),
+        "gpos": to(gpos.astype(np.int64)),
     }
+    if replay is not None:
+        xs["replay"] = to(replay)
     if trace.n_phases > 1:
         xs["phase"] = to(trace.phase_id.astype(np.int64))
     return xs
@@ -277,9 +365,11 @@ def _engine_inputs(trace: Trace, cfg: HMSConfig, pre, key: _EngineKey,
 
 def _scan_streams(key: _EngineKey, xs, p, dev):
     """The precompute: per-request-pure work, then the two packed input
-    streams of the scan kernel in (lanes, depth) layout.  Returns
-    ``(slot, meta, derived)``, ``derived`` holding what the counter
-    reduction reads again."""
+    streams of the scan kernel in (lanes, L) layout, gathered at
+    ``xs["gpos"]`` with the live bit on real core steps.  Returns ``(slot,
+    meta, derived)``, ``derived`` holding what the counter reduction reads
+    again (and, with a replay prefix, ``meta_warm``: the stitch's warm-up
+    stream, replay steps live too)."""
     from ..kernels.hms_scan import ops as scan_ops   # kernels import core
 
     policy = key.policy
@@ -325,8 +415,8 @@ def _scan_streams(key: _EngineKey, xs, p, dev):
         raise _rvalidate.unknown_policy_error(policy)
 
     # one int64 word per request: bits 0 is_write | 1 dec_ok | 2 cand |
-    # 3..7 sector | 8..15 req_aff_lvl | 16 live (pad gate, set after the
-    # shard gather) | 17..39 row group | 40..61 tag
+    # 3..7 sector | 8..15 req_aff_lvl | 16 live (pad and replay gate, set
+    # after the lane gather) | 17..39 row group | 40..61 tag
     i64 = torch.int64
     meta_tr = (is_write.to(i64)
                | (dec_ok.to(i64) << 1)
@@ -335,11 +425,15 @@ def _scan_streams(key: _EngineKey, xs, p, dev):
                | (req_aff_lvl.to(i64) << 8)
                | (xs["row_group"].to(i64) << 17)
                | (xs["tag"].to(i64) << 40))
-    pos = xs["pos"]                              # (lanes, depth), pad == n
-    posc = pos.clamp_max(key.n - 1)
-    slot = xs["slot"][posc]
-    meta = meta_tr[posc] | ((pos < key.n).to(i64) << 16)
+    gpos = xs["gpos"]                           # (lanes, L) gathers
+    slot = xs["slot"][gpos]
+    meta = meta_tr[gpos]
+    live = xs["pos"] < key.n                    # real core steps
     derived = dict(dram=dram, scm=scm, pass1=pass1, pen64=pen64)
+    if "replay" in xs:
+        # the stitch's warm-up round also runs the replay prefixes live
+        derived["meta_warm"] = meta | ((live | xs["replay"]).to(i64) << 16)
+    meta = meta | (live.to(i64) << 16)
     return slot, meta, derived
 
 
@@ -475,18 +569,21 @@ def _reduce_counters(key: _EngineKey, xs, p, y_tr, derived,
     return C
 
 
-def scan_inputs(trace: Trace, cfg: HMSConfig, dev) -> Dict[str, object]:
+def scan_inputs(trace: Trace, cfg: HMSConfig, dev,
+                key: _EngineKey | None = None) -> Dict[str, object]:
     """Everything the HMS engine launches its scan kernel with, for one
-    validated (trace, cfg) on device ``dev``: the engine ``key``, the
-    device inputs ``xs``, the runtime ``params``, the packed ``slot`` /
-    ``meta`` streams in (lanes, depth) layout, the ``derived`` precompute
-    the reduction reads again, and the kernel's keyword arguments
-    ``scan``."""
-    key = _engine_key(trace, cfg)
+    validated (trace, cfg) on device ``dev``: the engine ``key`` (by
+    default the planned one at T = 1), the device inputs ``xs``, the
+    runtime ``params``, the packed ``slot`` / ``meta`` streams in (lanes,
+    L) layout, the ``derived`` precompute the reduction reads again, and
+    the kernel's keyword arguments ``scan``.  ``key`` defaults to one
+    unsplit scan at the pinned shard count (1 unless
+    :func:`set_forced_shards` pins one)."""
+    if key is None:
+        key = _shape_key(trace, [cfg], costmodel._FORCED_SHARDS or 1)
     use_ctc = key.policy in POLICIES_WITH_CTC
     xs = _engine_inputs(trace, cfg, preprocess(trace, cfg), key, dev)
-    n_sets = shard_plan(trace, cfg, key.shards)["n_sets_local"] \
-        if use_ctc else 1
+    n_sets = _local_sets(trace, cfg, key)
     p = _runtime_params(cfg, n_sets)
     slot, meta, derived = _scan_streams(key, xs, p, dev)
     scan = dict(policy=key.policy,
@@ -499,19 +596,212 @@ def scan_inputs(trace: Trace, cfg: HMSConfig, dev) -> Dict[str, object]:
                 derived=derived, scan=scan)
 
 
-def _run_hms_scan(trace: Trace, cfg: HMSConfig,
-                  dev: torch.device) -> Dict[str, np.ndarray]:
+def _local_sets(trace: Trace, cfg: HMSConfig, key: _EngineKey) -> int:
+    if cfg.policy not in POLICIES_WITH_CTC:
+        return 1
+    return shard_plan(trace, cfg, key.shards)["n_sets_local"]
+
+
+def _stitch_masks(key: _EngineKey, s, dev):
+    """Touched masks of the fixed-point stitch for one config's lanes:
+    which cache slots (bool[S, T, lines_alloc]) and CTC set rows
+    (bool[S, T, sets_alloc]) each (shard, segment)'s *real core* steps
+    access.  Every scan step reads and writes exactly its own slot and
+    CTC row (dead steps write the old value back), so a segment's output
+    restricted to its touched mask is a pure function of its input
+    restricted to that mask — which makes masked composition in
+    :func:`_run_split` equal to sequential chaining at the fixed point.
+    Replay-prefix steps scatter to the sentinel, so they are excluded:
+    their perturbations never leak into composed boundaries."""
+    S, T = key.shards, key.t_segments
+    lanes = S * T
+    real = s["xs"]["pos"] < key.n
+    lane = torch.arange(lanes, device=dev)[:, None]
+    slot_m = torch.zeros(lanes * key.lines_alloc, dtype=torch.bool,
+                         device=dev)
+    slot_m[(lane * key.lines_alloc + s["slot"])[real]] = True
+    set_m = torch.zeros(lanes * key.ctc_sets_alloc, dtype=torch.bool,
+                        device=dev)
+    if key.policy in POLICIES_WITH_CTC:
+        rows = ((s["meta"] >> 17) & 0x7FFFFF) % s["scan"]["n_sets"]
+        set_m[(lane * key.ctc_sets_alloc + rows)[real]] = True
+    return (slot_m.view(S, T, key.lines_alloc),
+            set_m.view(S, T, key.ctc_sets_alloc))
+
+
+def _run_split(key: _EngineKey, width: int, launch, meta, meta_warm,
+               masks, dev):
+    """Drive a T > 1 scan to its exact fixed point (see
+    ``repro_torch.core.tsplit``): one ``hms_scan`` launch a round over
+    every lane of the batch (``launch(cache, ctc, meta)``), the
+    composition and the equality test on device tensors, one host sync a
+    round.  ``masks`` are the batch's touched masks with a leading batch
+    axis.  Returns ``(y, rounds)`` — the decision words of the converged
+    round only, so they are bit for bit the sequential scan's."""
+    slot_m, set_m = masks
+    S, T = key.shards, key.t_segments
+    lanes = width * S * T
+    ctc_row = ctc_mod.packed_init(key.ctc_sets_alloc, key.ctc_ways_alloc,
+                                  key.ctc_sectors, dev)
+    cache0 = torch.zeros((lanes, key.lines_alloc), dtype=torch.int32,
+                         device=dev)
+    ctc0 = ctc_row.expand(lanes, -1, -1).contiguous()
+    seg_c = (width, S, T, key.lines_alloc)
+    seg_t = (width, S, T) + tuple(ctc_row.shape)
+
+    def run(g, m):
+        y, cache_f, ctc_f = launch(g[0], g[1], m)
+        return (cache_f, ctc_f), y
+
+    def advance(g, out):
+        # a slot's value at boundary t is the last earlier segment's output
+        # where touched, else the cold value — sequential semantics once
+        # outputs are exact on their touched masks
+        cache_o = out[0].view(seg_c)
+        ctc_o = out[1].view(seg_t)
+        new_c = torch.empty_like(cache_o)
+        new_t = torch.empty_like(ctc_o)
+        new_c[:, :, 0] = 0
+        new_t[:, :, 0] = ctc_row
+        for t in range(1, T):
+            new_c[:, :, t] = torch.where(slot_m[:, :, t - 1],
+                                         cache_o[:, :, t - 1],
+                                         new_c[:, :, t - 1])
+            new_t[:, :, t] = torch.where(set_m[:, :, t - 1, :, None],
+                                         ctc_o[:, :, t - 1],
+                                         new_t[:, :, t - 1])
+        return new_c.view(cache0.shape), new_t.view(ctc0.shape)
+
+    def equal(a, b):
+        return not bool(torch.stack([(a[0] != b[0]).any(),
+                                     (a[1] != b[1]).any()]).any())
+
+    g = (cache0, ctc0)
+    extra = 0
+    if key.replay > 0:
+        # warm-up round: replay prefixes live, for closer guesses; its
+        # decisions are never used (replay perturbs segment state)
+        out, _ = run(g, meta_warm)
+        g = advance(g, out)
+        extra = 1
+    y, rounds = tsplit.stitch(lambda gg, _r: run(gg, meta), g, advance,
+                              equal, max_rounds=key.t_segments + 1)
+    return y, rounds + extra
+
+
+def _scan_attempt(trace: Trace, cfgs: Sequence[HMSConfig], key: _EngineKey,
+                  dev):
+    """One rung: the batch's configs x shards x segments as the lanes of
+    one ``hms_scan`` launch a stitch round; then each config's decision
+    words back to trace order and its counters reduced once.  Returns
+    ``(counters, rounds, key)``, one counter dict per config."""
     from ..kernels.hms_scan import ops as scan_ops   # kernels import core
 
-    s = scan_inputs(trace, cfg, dev)
-    key, pos = s["key"], s["xs"]["pos"]
-    y_sh, _, _ = scan_ops.hms_scan(s["slot"], s["meta"], **s["scan"])
-    # scatter the decision words back to trace order; padding sentinels
-    # land in the dropped overflow slot n
-    y_tr = torch.zeros(key.n + 1, dtype=torch.int32, device=dev)
-    y_tr[pos.reshape(-1)] = y_sh.reshape(-1)
-    return _reduce_counters(key, s["xs"], s["params"], y_tr[: key.n],
-                            s["derived"], dev)
+    per = [scan_inputs(trace, c, dev, key) for c in cfgs]
+    slot = torch.cat([s["slot"] for s in per])
+    meta = torch.cat([s["meta"] for s in per])
+    rep = key.shards * key.t_segments              # lanes a config
+    kw = dict(per[0]["scan"])
+    for name in ("e_ways", "n_sets", "spg"):
+        kw[name] = [s["scan"][name] for s in per for _ in range(rep)]
+    if key.t_segments == 1:
+        y, _, _ = scan_ops.hms_scan(slot, meta, **kw)
+        rounds = 1
+    else:
+        prep = scan_ops.prepare(slot, meta, **kw)
+        warm = (torch.cat([s["derived"]["meta_warm"] for s in per])
+                if key.replay > 0 else None)
+        pairs = [_stitch_masks(key, s, dev) for s in per]
+        masks = (torch.stack([a for a, _ in pairs]),
+                 torch.stack([b for _, b in pairs]))
+        y, rounds = _run_split(
+            key, len(cfgs),
+            lambda cache, ctc, m: scan_ops.hms_scan(
+                slot, m, **kw, cache=cache, ctc=ctc, prepared=prep),
+            meta, warm, masks, dev)
+    out = []
+    for j, s in enumerate(per):
+        # scatter the decision words back to trace order; padding and
+        # replay sentinels land in the dropped overflow slot n
+        y_tr = torch.zeros(key.n + 1, dtype=torch.int32, device=dev)
+        y_tr[s["xs"]["pos"].reshape(-1)] = y[j * rep:(j + 1) * rep].reshape(-1)
+        out.append(_reduce_counters(key, s["xs"], s["params"], y_tr[: key.n],
+                                    s["derived"], dev))
+    return out, rounds, key
+
+
+def _hms_ladder_keys(trace: Trace, cfgs: Sequence[HMSConfig],
+                     key: _EngineKey) -> List[_EngineKey]:
+    """Engine keys for the degradation rungs (S, T) -> (S, 1) -> (1, 1);
+    every one reproduces the sequential scan bit for bit.  There is no
+    rung below (1, 1): the reference's last rung, its frozen seed engine,
+    would run on the host here, not on the card."""
+    out = []
+    for s, t in costmodel.degradation_ladder(key.shards, key.t_segments):
+        if (s, t) == (key.shards, key.t_segments):
+            out.append(key)
+        elif s == key.shards:
+            out.append(dataclasses.replace(key, t_segments=1, replay=0))
+        else:
+            # a degraded rung is a smaller planned shape, not a special
+            # engine
+            out.append(_shape_key(trace, cfgs, s))
+    return out
+
+
+# What each guarded scan call did (newest last, at most _RUNS_KEPT): the
+# shape that produced the counters, the stitch rounds, the ladder's rung
+# and its events.  The reference records the same in its run ledger.
+_RUNS: List[Dict[str, object]] = []
+_RUNS_KEPT = 4096
+
+
+def _run_hms_batch(trace: Trace, cfgs: Sequence[HMSConfig], key: _EngineKey,
+                   dev, site: str = "hms_batch") -> List[Dict[str, object]]:
+    """Run one compatible config group under the degradation ladder: the
+    planned (S, T), then (S, 1), then (1, 1); an OOM on a batch of several
+    configs bisects it into guarded halves (the allocations in ``key`` are
+    group maxima, so the halves reuse it).  Returns one counter dict per
+    config."""
+    import time
+
+    def attempt(k: _EngineKey):
+        return lambda: _scan_attempt(trace, cfgs, k, dev)
+
+    def bisect():
+        h = len(cfgs) // 2
+        return (_run_hms_batch(trace, cfgs[:h], key, dev, site)
+                + _run_hms_batch(trace, cfgs[h:], key, dev, site)), 0, key
+
+    rungs = [(f"S{k.shards}T{k.t_segments}", attempt(k))
+             for k in _hms_ladder_keys(trace, cfgs, key)]
+    t0 = time.perf_counter()
+    (Cs, rounds, used), outcome = _guard.run_ladder(
+        site, rungs, bisect=bisect if len(cfgs) > 1 else None)
+    wall = time.perf_counter() - t0
+    plan = _PLAN_BY_KEY.get(key)
+    # (a bisected batch's halves are runs of their own; its own entry
+    # carries the OOM event and no rounds)
+    _RUNS.append({"site": site, "trace": trace.name, "batch": len(cfgs),
+                  "shards": used.shards, "t_segments": used.t_segments,
+                  "replay": used.replay, "rounds": rounds,
+                  "rung": outcome.rung, "events": outcome.events,
+                  "wall_s": wall})
+    del _RUNS[:-_RUNS_KEPT]
+    if outcome.rung != "bisect":
+        if plan is not None and used == key:
+            costmodel.check_plan_drift(
+                f"hms:{key.policy}:n{key.n}:s{key.shards}x{key.depth}"
+                f":T{key.t_segments}r{key.replay}:w{len(cfgs)}",
+                plan.predicted_us, wall)
+    return Cs
+
+
+def _run_hms_scan(trace: Trace, cfg: HMSConfig, dev,
+                  key: _EngineKey | None = None) -> Dict[str, np.ndarray]:
+    if key is None:
+        key = _engine_key(trace, cfg)
+    return _run_hms_batch(trace, [cfg], key, dev, site="hms")[0]
 
 
 # ---------------------------------------------------------------------------
@@ -736,10 +1026,17 @@ def simulate(trace: Trace, cfg: HMSConfig, nvlink: bool = False, *,
     ``device="cpu"`` runs the kernels' plain versions on the host.
     ``nvlink`` selects the host link of the UM paging model (the ``hbm``
     organization, and an HMS that cannot hold the trace): access-counter
-    migration over a coherent link instead of fault-driven chunks."""
+    migration over a coherent link instead of fault-driven chunks.  The
+    scan's (S, T) shape comes from the cost model; counters are identical
+    at every shape."""
     dev = resolve_device(device, "simulate")
     cfg = cfg.validate()
     _rvalidate.validate_trace(trace)
+    return _simulate(trace, cfg, nvlink, dev)
+
+
+def _simulate(trace: Trace, cfg: HMSConfig, nvlink: bool,
+              dev: torch.device) -> SimResult:
     org = cfg.organization
     if org in ("inf_hbm", "scm", "hbm"):
         timing = cfg.scm_timing if org == "scm" else cfg.dram_timing
@@ -760,22 +1057,59 @@ def simulate(trace: Trace, cfg: HMSConfig, nvlink: bool = False, *,
 
 def simulate_many(trace: Trace, configs: Sequence[HMSConfig],
                   nvlink: bool = False, *, device=None) -> List[SimResult]:
-    """Simulate one trace under many configs; results in input order, equal
-    to :func:`simulate` config by config.
+    """Simulate one trace under many configs, batching compatible configs;
+    results in input order, equal to :func:`simulate` config by config.
 
     Every UM paging point of the batch (``hbm`` configs and HMS footprint
-    overflows) runs first, in ONE ``simulate_um_many`` call (one
-    ``um_scan`` launch, one lane per distinct spec); each config then runs
-    through :func:`simulate`, whose paging lookups hit the memo.  (The
-    reference also runs compatible HMS configs as lanes of one scan; here
-    each HMS config is its own ``hms_scan`` launch.)"""
+    overflows) runs first, in ONE ``simulate_um_many`` call, deduped by
+    spec.  The HMS configs are grouped by (policy, CTC sectors): each
+    group's configs x shards x temporal segments are the lanes of one
+    ``hms_scan`` launch a stitch round, under the degradation ladder (an
+    OOM bisects the group).  With a sweep checkpoint active
+    (``repro_torch.resilience.sweepckpt``), journaled configs replay from
+    disk and each finished config is journaled."""
     dev = resolve_device(device, "simulate_many")
     configs = [c.validate() for c in configs]
     _rvalidate.validate_trace(trace)
+    results: List[SimResult | None] = [None] * len(configs)
+    ck = _sweepckpt.active()
+    tfp = _sweepckpt.trace_fingerprint(trace) if ck is not None else None
     um_specs = _um_specs(trace, configs, nvlink)
     if um_specs:
         _um.simulate_um_many(trace, um_specs, device=dev)
-    return [simulate(trace, cfg, nvlink, device=dev) for cfg in configs]
+
+    groups: Dict[tuple, List[int]] = {}
+    for i, cfg in enumerate(configs):
+        if cfg.organization in ("hms", "separate"):
+            groups.setdefault(
+                (cfg.policy, cfg.ctc_sectors_per_line), []).append(i)
+        else:
+            results[i] = _simulate(trace, cfg, nvlink, dev)
+
+    for idxs in groups.values():
+        if ck is not None:
+            pend = []
+            for i in idxs:
+                hit = ck.get_hms(tfp, configs[i], nvlink)
+                if hit is not None:
+                    results[i] = _finish_hms(trace, configs[i], hit, nvlink,
+                                             dev)
+                else:
+                    pend.append(i)
+            idxs = pend
+            if not idxs:
+                continue
+        cfgs = [configs[i] for i in idxs]
+        key = group_engine_key(trace, cfgs)
+        Cs = _run_hms_batch(trace, cfgs, key, dev,
+                            site="hms" if len(cfgs) == 1 else "hms_batch")
+        for i, C in zip(idxs, Cs):
+            if ck is not None:
+                # journal before finishing, so a kill mid-batch keeps
+                # every lane the engine already produced
+                ck.put_hms(tfp, configs[i], nvlink, C)
+            results[i] = _finish_hms(trace, configs[i], C, nvlink, dev)
+    return results
 
 
 def run_workload(name: str, cfg: HMSConfig, n: int | None = None,

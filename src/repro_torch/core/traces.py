@@ -553,6 +553,25 @@ def shard_depth(trace: Trace, cfg: HMSConfig, shards: int) -> int:
     return _lpt_cached(trace, cfg, shards)[3]
 
 
+def chain_depth(trace: Trace, cfg: HMSConfig, shards: int) -> int:
+    """The longest chain the port's scan kernel walks if ``trace`` runs in
+    ``shards`` shards: the kernel splits each shard lane's steps by domain
+    and walks each (lane, domain) chain on its own
+    (``kernels/hms_scan/ops.py``).  Under a CTC policy a domain is one CTC
+    set, kept whole by :func:`shard_plan`, so this is the heaviest set's
+    load at every S.  Without a CTC the shard's row groups spread over
+    ``ops.domain_count``'s residues, about evenly (row groups bin-pack
+    nearly perfectly), so it is the shard depth over their count."""
+    from .timing import POLICIES_WITH_CTC
+
+    if cfg.policy in POLICIES_WITH_CTC:
+        return max(1, int(_set_loads(trace, cfg).max(initial=1)))
+    from ..kernels.hms_scan.ops import TARGET_CHAINS   # kernels import core
+
+    doms = max(1, min(_partition_domain(cfg), -(-TARGET_CHAINS // shards)))
+    return -(-shard_depth(trace, cfg, shards) // doms)
+
+
 def shard_plan(trace: Trace, cfg: HMSConfig, shards: int) -> Dict[str, object]:
     """Stable-partition ``trace`` into ``shards`` state-disjoint shards.
 

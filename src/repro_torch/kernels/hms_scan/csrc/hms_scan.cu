@@ -14,12 +14,23 @@
 // residue without one; hms_step.cuh) touch disjoint state.  The bound is the
 // longest domain chain times the latency of one step.
 //
-// The design: one CTA per chain, a (lane, domain), grid (domains, lanes).
-// The wrapper (ops.py) checks that the domains split the lane's state and
-// sorts the steps stably by chain, so a chain's steps are one contiguous run
-// [offsets[c], offsets[c + 1]) of the sorted slot and meta streams, in stream
-// order; the kernel writes each step's decision word at its sorted position
-// and the wrapper scatters them back.  A CTA stages its run into shared
+// The design: one CTA per chain c = lane * n_domains + domain, grid
+// (n_domains, lanes).  A lane is one config x shard x temporal segment of a
+// sweep, with its own CTC ways (lane_ways[l]) and domain count (fig18's CTC
+// fractions give configs of one batch different set counts): n_domains is
+// the most of any lane, and a lane's chains past its own count are empty
+// runs, whose CTA exits at once.  The lane and domain are the CTA's
+// coordinates, so the compiler keeps them and everything derived from them
+// in uniform registers (a lane read from a per-chain table in device memory
+// cost 11% a step).  The wrapper (ops.py) checks that the domains split each lane's
+// state and sorts the steps stably by chain, so a chain's steps are one
+// contiguous run [offsets[c], offsets[c + 1]) of the sorted slot and meta
+// streams, in stream order; the kernel writes each step's decision word at
+// its sorted position and the wrapper scatters them back.  A lane starts
+// from the cache words and CTC rows the wrapper puts in its state buffers
+// (cold, or a temporal segment's boundary guess) and leaves its final state
+// there; a step whose meta lacks the live bit (padding, and the replay
+// prefix of a segment after the stitch's warm-up round) changes no state.  A CTA stages its run into shared
 // memory by bulk copies (TMA), TILE steps a tile, RING tiles ahead, each
 // tile's arrival counted on an mbarrier, so no chain waits on device memory
 // for its inputs.  A step's cache-word half and its CTC half are two chains:
@@ -274,18 +285,21 @@ __global__ void __launch_bounds__(64)
     hms_chain_kernel(const int32_t* __restrict__ slot,
                      const int64_t* __restrict__ meta,
                      const int64_t* __restrict__ offsets,
+                     const int32_t* __restrict__ lane_ways,
                      int32_t* __restrict__ cache, int64_t lines_alloc,
                      int64_t* __restrict__ ctc, int sets_alloc,
-                     int ways_alloc, int e_ways, int n_domains,
+                     int ways_alloc, int n_domains,
                      int32_t* __restrict__ y) {
   typedef HmsPolicyTraits<P> T;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   StreamRing& ring = *reinterpret_cast<StreamRing*>(smem_raw);
   const int lane = threadIdx.x & 31;
   const bool row_warp = T::use_ctc && threadIdx.x < 32;
-  const int d = blockIdx.x;
+  const int d = blockIdx.x;                // the domain, and its CTC row
   const int64_t l = blockIdx.y;
   const ChainRun run(offsets, l * n_domains + d);
+  if (run.n_tiles == 0) return;           // no steps: the state stands
+  const int e_ways = lane_ways[l];
   int32_t* words = cache + l * lines_alloc;
 
   if (threadIdx.x == 0) {
@@ -339,42 +353,42 @@ __global__ void __launch_bounds__(64)
   }
 }
 
+struct ChainArgs {
+  const int32_t* slot;
+  const int64_t* meta;
+  const int64_t* offsets;
+  const int32_t* lane_ways;
+  int lanes;
+  int32_t* cache;
+  int64_t lines_alloc;
+  int64_t* ctc;
+  int sets_alloc, ways_alloc, n_domains;
+  int32_t* y;
+};
+
 template <int P, int WPT>
-cudaError_t launch_chains(const int32_t* slot, const int64_t* meta,
-                          const int64_t* offsets, int lanes, int32_t* cache,
-                          int64_t lines_alloc, int64_t* ctc, int sets_alloc,
-                          int ways_alloc, int e_ways, int n_domains,
-                          int32_t* y, cudaStream_t stream) {
+cudaError_t launch_chains(const ChainArgs& a, cudaStream_t stream) {
   auto kernel = hms_chain_kernel<P, WPT>;
   const size_t smem = sizeof(StreamRing);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int threads = HmsPolicyTraits<P>::use_ctc ? 64 : 32;
-  kernel<<<dim3(n_domains, lanes), threads, smem, stream>>>(
-      slot, meta, offsets, cache, lines_alloc, ctc, sets_alloc, ways_alloc,
-      e_ways, n_domains, y);
+  kernel<<<dim3(a.n_domains, a.lanes), threads, smem, stream>>>(
+      a.slot, a.meta, a.offsets, a.lane_ways, a.cache, a.lines_alloc, a.ctc,
+      a.sets_alloc, a.ways_alloc, a.n_domains, a.y);
   return cudaGetLastError();
 }
 
 template <int P>
-cudaError_t launch_scan(const int32_t* slot, const int64_t* meta,
-                        const int64_t* offsets, int lanes, int32_t* cache,
-                        int64_t lines_alloc, int64_t* ctc, int sets_alloc,
-                        int ways_alloc, int e_ways, int n_domains, int32_t* y,
-                        cudaStream_t s) {
-  if (ways_alloc > 128) return cudaErrorInvalidValue;
-  if (HmsPolicyTraits<P>::use_ctc && ways_alloc > 64)
-    return launch_chains<P, 4>(slot, meta, offsets, lanes, cache,
-                               lines_alloc, ctc, sets_alloc, ways_alloc,
-                               e_ways, n_domains, y, s);
-  if (HmsPolicyTraits<P>::use_ctc && ways_alloc > 32)
-    return launch_chains<P, 2>(slot, meta, offsets, lanes, cache,
-                               lines_alloc, ctc, sets_alloc, ways_alloc,
-                               e_ways, n_domains, y, s);
-  return launch_chains<P, 1>(slot, meta, offsets, lanes, cache, lines_alloc,
-                             ctc, sets_alloc, ways_alloc, e_ways, n_domains,
-                             y, s);
+cudaError_t launch_scan(const ChainArgs& a, cudaStream_t s) {
+  if (a.ways_alloc > 128 || a.lanes > 65535) return cudaErrorInvalidValue;
+  if (a.lanes == 0 || a.n_domains == 0) return cudaSuccess;
+  if (HmsPolicyTraits<P>::use_ctc && a.ways_alloc > 64)
+    return launch_chains<P, 4>(a, s);
+  if (HmsPolicyTraits<P>::use_ctc && a.ways_alloc > 32)
+    return launch_chains<P, 2>(a, s);
+  return launch_chains<P, 1>(a, s);
 }
 
 // ---- ema_scan -----------------------------------------------------------
@@ -447,16 +461,17 @@ __global__ void __launch_bounds__(EMA_THREADS)
 
 extern "C" int hms_scan_launch(int policy, const int32_t* slot,
                                const int64_t* meta, const int64_t* offsets,
-                               int lanes, int32_t* cache, int64_t lines_alloc,
+                               const int32_t* lane_ways, int lanes,
+                               int32_t* cache, int64_t lines_alloc,
                                int64_t* ctc, int sets_alloc, int ways_alloc,
-                               int e_ways, int n_domains, int32_t* y,
-                               void* stream) {
+                               int n_domains, int32_t* y, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-#define HMS_CASE(p)                                                          \
-  case p:                                                                    \
-    return (int)launch_scan<p>(slot, meta, offsets, lanes, cache,            \
-                               lines_alloc, ctc, sets_alloc, ways_alloc,     \
-                               e_ways, n_domains, y, s);
+  const ChainArgs a{slot,        meta,       offsets,   lane_ways,
+                    lanes,       cache,      lines_alloc, ctc,
+                    sets_alloc,  ways_alloc, n_domains, y};
+#define HMS_CASE(p) \
+  case p:           \
+    return (int)launch_scan<p>(a, s);
   switch (policy) {
     HMS_CASE(P_HMS)
     HMS_CASE(P_NO_BYPASS)

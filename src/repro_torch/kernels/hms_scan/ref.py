@@ -16,12 +16,18 @@ from ...core import ctc as ctc_mod
 from ...core.timing import POLICIES_WITH_CTC
 
 
-def _decode(slot, meta, policy: str, e_ways: int, n_sets: int,
-            ways_alloc: int):
+def _lane_column(v, lanes: int, device):
+    """A lane parameter (one int, or one a lane) as int64[lanes, 1]."""
+    t = torch.as_tensor(v, dtype=torch.int64).reshape(-1)
+    return t.expand(lanes).reshape(lanes, 1).to(device)
+
+
+def _decode(slot, meta, policy: str, n_sets, ways_alloc: int):
     """Unpack every step's request word up front (it is per-request pure)
     into per-step fields shaped for :func:`hms_step_reference`: a list of
     dicts, one per step, of ``(lanes, 1)`` tensors (CTC fields
-    ``(lanes, 1, 1)`` / ``(lanes, 1, ways)``)."""
+    ``(lanes, 1, 1)`` / ``(lanes, 1, ways)``).  ``n_sets`` is one int or
+    one a lane."""
     lanes, depth = slot.shape
     tag = (meta >> 40).to(torch.int32)
     raff = ((meta >> 8) & 0xFF).to(torch.int32)
@@ -40,7 +46,8 @@ def _decode(slot, meta, policy: str, e_ways: int, n_sets: int,
     }
     if policy in POLICIES_WITH_CTC:
         rg = (meta >> 17) & 0x7FFFFF
-        f["ctc_idx"] = (rg % n_sets)[..., None, None].expand(
+        sets = _lane_column(n_sets, lanes, slot.device)
+        f["ctc_idx"] = (rg % sets)[..., None, None].expand(
             lanes, depth, 1, ways_alloc)
         f["want"] = (rg + 1)[..., None, None]
         f["secbit"] = (1 << ((meta >> 3) & 0x1F))[..., None, None]
@@ -52,7 +59,7 @@ def hms_step_reference(cache, ctc, x, policy: str, way_mask, y_shifts):
     """One scan step on every lane, in place on the state.
 
     cache int32[lanes, lines]; ctc int64[lanes, sets, ways]; ``x`` one
-    step's fields from :func:`_decode`; ``way_mask`` the enabled CTC ways;
+    step's fields from :func:`_decode`; ``way_mask`` the enabled CTC ways (bool[lanes, 1, ways]);
     ``y_shifts`` = arange(7), the bit of each decision in the output word.
     Returns the int32[lanes, 1] decision words.
     """
@@ -102,19 +109,24 @@ def initial_state(lanes: int, lines_alloc: int, sets_alloc: int,
     return cache, ctc.expand(lanes, -1, -1).contiguous()
 
 
-def hms_scan_reference(slot, meta, *, policy: str, e_ways: int, n_sets: int,
+def hms_scan_reference(slot, meta, *, policy: str, e_ways, n_sets,
                        lines_alloc: int, sets_alloc: int, ways_alloc: int,
-                       sectors: int):
+                       sectors: int, cache=None, ctc=None):
     """slot int32[lanes, depth], meta int64[lanes, depth] -> (y
     int32[lanes, depth], cache int32[lanes, lines_alloc], ctc
-    int64[lanes, sets_alloc, ways_alloc]), from the cold state."""
+    int64[lanes, sets_alloc, ways_alloc]).  ``e_ways`` and ``n_sets`` are
+    one int or one a lane; each lane starts from its row of ``cache`` and
+    ``ctc`` (cold where None; not written)."""
     lanes, depth = slot.shape
-    cache, ctc = initial_state(lanes, lines_alloc, sets_alloc, ways_alloc,
-                               sectors, slot.device)
-    way_mask = torch.arange(ways_alloc, device=slot.device) < e_ways
+    cold = initial_state(lanes, lines_alloc, sets_alloc, ways_alloc,
+                         sectors, slot.device)
+    cache = cold[0] if cache is None else cache.clone()
+    ctc = cold[1] if ctc is None else ctc.clone()
+    way_mask = (torch.arange(ways_alloc, device=slot.device)
+                < _lane_column(e_ways, lanes, slot.device))[:, None, :]
     y_shifts = torch.arange(7, dtype=torch.int32, device=slot.device)
     ys = [hms_step_reference(cache, ctc, x, policy, way_mask, y_shifts)
-          for x in _decode(slot, meta, policy, e_ways, n_sets, ways_alloc)]
+          for x in _decode(slot, meta, policy, n_sets, ways_alloc)]
     y = torch.cat(ys, dim=1) if ys else torch.zeros_like(slot)
     return y, cache, ctc
 

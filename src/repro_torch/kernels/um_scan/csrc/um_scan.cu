@@ -2,7 +2,7 @@
 //
 // um_scan replaces the reference's XLA scan over the paging step
 // (src/repro/um/engine.py, `step` in `_make_um_engine`, :226-294, vmapped
-// over UMSpec lanes, at one temporal segment).  There is no Pallas
+// over UMSpec lanes and temporal segments).  There is no Pallas
 // counterpart: XLA compiled it from lax.scan.
 //
 // What bounds it: each lane is one chain of dependent steps.  Chunked
@@ -19,10 +19,14 @@
 // write flag and phase is about 2.2 MB, under a microsecond at 3.35 TB/s.
 // Lanes are independent and run side by side on separate SMs.
 //
-// The design: one CTA of one warp per lane (grid = lanes).  The lane's
-// state (access counts and frames int32, resident and dirty flags) lives in
-// the wrapper's device buffers at every footprint, cold when the kernel
-// starts.  The request stream comes through a ring in shared memory that
+// The design: one CTA of one warp per lane (grid = lanes).  A lane is one
+// UMSpec x temporal segment: lane l walks row l % segs of the request
+// streams (rows row_stride apart; one row, the whole trace, at T = 1) from
+// the state in its buffers (access counts and frames int32, resident and
+// dirty flags, the hand: cold, or the segment's boundary guess with the
+// frame ring rotated so the hand is at 0), and leaves its final state
+// there.  Each step's flags byte carries its write and the segment's
+// `real` and `live` gates (um_step.cuh).  The request stream comes through a ring in shared memory that
 // cp.async fills ahead of the walk (3-17% faster than loading each pass's
 // requests from device memory, on an H100).  A pass (um_step.cuh, um_lane)
 // gives each thread one of the next 32 requests, reads its page's resident
@@ -61,13 +65,13 @@ namespace {
 __host__ __device__ inline UmLane lane_state(
     int l, const int32_t* params, int32_t n_pages, uint8_t* resident,
     uint8_t* dirty, int64_t pages_alloc, int32_t* frames,
-    int64_t frames_alloc, int32_t* hotness) {
+    int64_t frames_alloc, int32_t* hotness, const int32_t* ptr) {
   UmLane L;
   L.resident = resident + (int64_t)l * (pages_alloc + 1);
   L.dirty = dirty + (int64_t)l * (pages_alloc + 1);
   L.frames = frames + (int64_t)l * (frames_alloc + 1);
   L.hotness = hotness + (int64_t)l * pages_alloc;
-  L.ptr = 0;
+  L.ptr = ptr[l];
   L.n_pages = n_pages;
   L.n_frames = params[4 * l];
   L.chunk = params[4 * l + 1];
@@ -89,7 +93,7 @@ constexpr int RING = RING_CHUNK * RING_SLOTS;
 struct UmRing {
   int32_t page[RING];
   int32_t phase[RING];
-  uint8_t write[RING];
+  uint8_t flags[RING];
 };
 
 __device__ inline void copy16(void* dst, const void* src, int bytes) {
@@ -101,7 +105,7 @@ __device__ inline void copy16(void* dst, const void* src, int bytes) {
 struct RingStream {
   UmRing* ring;
   const int32_t* page_;
-  const uint8_t* write_;
+  const uint8_t* flags_;
   const int32_t* phase_;
   int64_t n;
   int64_t have;  // chunks [0, have] are in the ring
@@ -123,7 +127,7 @@ struct RingStream {
       if (lane < RING_CHUNK / 16) {
         const int64_t e = e0 + 16 * lane;
         const int bytes = e < n ? (n - e < 16 ? (int)(n - e) : 16) : 0;
-        copy16(&ring->write[slot + 16 * lane], bytes ? write_ + e : write_,
+        copy16(&ring->flags[slot + 16 * lane], bytes ? flags_ + e : flags_,
                bytes);
       }
     }
@@ -149,7 +153,7 @@ struct RingStream {
     }
   }
   __device__ int32_t page(int64_t i) const { return ring->page[i % RING]; }
-  __device__ bool write(int64_t i) const { return ring->write[i % RING]; }
+  __device__ uint8_t flags(int64_t i) const { return ring->flags[i % RING]; }
   __device__ int32_t phase(int64_t i) const {
     return phase_ ? ring->phase[i % RING] : 0;
   }
@@ -157,20 +161,22 @@ struct RingStream {
 
 __global__ void __launch_bounds__(32)
     um_scan_kernel(const int32_t* __restrict__ page,
-                   const uint8_t* __restrict__ is_write,
+                   const uint8_t* __restrict__ flags,
                    const int32_t* __restrict__ phase, int64_t n,
-                   int n_phases, const int32_t* __restrict__ params,
-                   int32_t n_pages, uint8_t* resident, uint8_t* dirty,
-                   int64_t pages_alloc, int32_t* frames,
-                   int64_t frames_alloc, int32_t* hotness, int32_t* ptr,
-                   int64_t* counts) {
+                   int64_t row_stride, int segs, int n_phases,
+                   const int32_t* __restrict__ params, int32_t n_pages,
+                   uint8_t* resident, uint8_t* dirty, int64_t pages_alloc,
+                   int32_t* frames, int64_t frames_alloc, int32_t* hotness,
+                   int32_t* ptr, int64_t* counts) {
   __shared__ UmWork wk;
   __shared__ __align__(16) UmRing ring;
   const int l = blockIdx.x;
   const int lane = threadIdx.x;
   UmLane L = lane_state(l, params, n_pages, resident, dirty, pages_alloc,
-                        frames, frames_alloc, hotness);
-  RingStream src{&ring, page, is_write, phase, n, 0, lane};
+                        frames, frames_alloc, hotness, ptr);
+  const int64_t row = (int64_t)(l % segs) * row_stride;
+  RingStream src{&ring, page + row, flags + row,
+                 phase ? phase + row : nullptr, n, 0, lane};
   src.start();
   um_walk<32>(src, n, n_phases, L, wk, counts + (int64_t)l * 4 * n_phases,
               lane);
@@ -179,8 +185,9 @@ __global__ void __launch_bounds__(32)
 
 }  // namespace
 
-extern "C" int um_scan_launch(const int32_t* page, const uint8_t* is_write,
-                              const int32_t* phase, int64_t n, int n_phases,
+extern "C" int um_scan_launch(const int32_t* page, const uint8_t* flags,
+                              const int32_t* phase, int64_t n,
+                              int64_t row_stride, int segs, int n_phases,
                               const int32_t* params, int lanes,
                               int32_t n_pages, uint8_t* resident,
                               uint8_t* dirty, int64_t pages_alloc,
@@ -188,9 +195,11 @@ extern "C" int um_scan_launch(const int32_t* page, const uint8_t* is_write,
                               int32_t* hotness, int32_t* ptr,
                               int64_t* counts, void* stream) {
   if (lanes <= 0) return 0;
+  if (segs < 1 || (segs > 1 && row_stride % 16)) return 1;
   um_scan_kernel<<<lanes, 32, 0, (cudaStream_t)stream>>>(
-      page, is_write, phase, n, n_phases, params, n_pages, resident, dirty,
-      pages_alloc, frames, frames_alloc, hotness, ptr, counts);
+      page, flags, phase, n, row_stride, segs, n_phases, params, n_pages,
+      resident, dirty, pages_alloc, frames, frames_alloc, hotness, ptr,
+      counts);
   return (int)cudaGetLastError();
 }
 
@@ -198,19 +207,23 @@ extern "C" int um_scan_launch(const int32_t* page, const uint8_t* is_write,
 // (left out of the device pass, which would otherwise build the one-thread
 // walk for the device too).
 #ifndef __CUDA_ARCH__
-extern "C" int um_scan_host(const int32_t* page, const uint8_t* is_write,
-                            const int32_t* phase, int64_t n, int n_phases,
+extern "C" int um_scan_host(const int32_t* page, const uint8_t* flags,
+                            const int32_t* phase, int64_t n,
+                            int64_t row_stride, int segs, int n_phases,
                             const int32_t* params, int lanes,
                             int32_t n_pages, uint8_t* resident,
                             uint8_t* dirty, int64_t pages_alloc,
                             int32_t* frames, int64_t frames_alloc,
                             int32_t* hotness, int32_t* ptr,
                             int64_t* counts) {
+  if (segs < 1) return 1;
   UmWork wk;
   for (int l = 0; l < lanes; ++l) {
     UmLane L = lane_state(l, params, n_pages, resident, dirty, pages_alloc,
-                          frames, frames_alloc, hotness);
-    UmStream src{page, is_write, phase};
+                          frames, frames_alloc, hotness, ptr);
+    const int64_t row = (int64_t)(l % segs) * row_stride;
+    UmStream src{page + row, flags + row, phase ? phase + row : nullptr,
+                 flags + row};
     um_walk<1>(src, n, n_phases, L, wk, counts + (int64_t)l * 4 * n_phases,
                0);
     ptr[l] = L.ptr;

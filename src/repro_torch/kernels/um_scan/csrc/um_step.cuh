@@ -2,7 +2,8 @@
 // requests, and the migrating step.
 //
 // Replaces the body of the reference's XLA scan (src/repro/um/engine.py,
-// `step` inside `_make_um_engine`, :226-294, at one temporal segment).
+// `step` inside `_make_um_engine`, :226-294, with its temporal-segment
+// gates: the `real` and `live` flags of :228-246 and :284-289).
 //
 // The functions are __host__ __device__: nvcc builds them into the kernel
 // (um_scan.cu) and into a host entry of the same library, and a plain C++
@@ -22,8 +23,13 @@
 //   frames           int32[frames_alloc + 1]  page held by each frame, -1
 //                                              empty; the clock hand `ptr`
 //   hotness          int32[pages_alloc]       accesses per page so far
-// Per step, one page and one write flag; per lane, four int64 counters per
-// phase (faults, migrated pages, writeback pages, remote accesses).
+// Per step, one page and one flags byte: bit 0 the write, bit 1 `real` (a
+// core step of the lane's temporal segment: it counts its events and adds
+// to its page's access count) and bit 2 `live` (its state updates take
+// effect: core steps, and a segment's replay prefix in the stitch's warm-up
+// round; padding is neither).  A lane that is the whole trace has every
+// step real and live.  Per lane, four int64 counters per phase (faults,
+// migrated pages, writeback pages, remote accesses).
 #pragma once
 
 #include <stdint.h>
@@ -391,21 +397,32 @@ UM_HD inline void um_add(V* c, int v) {
 #endif
 }
 
-// The request stream read straight from memory (the host's walk).
+// A step's flags byte.
+constexpr uint8_t UM_WRITE = 1, UM_REAL = 2, UM_LIVE = 4;
+
+// The request stream read straight from memory (the host's walk): pages,
+// write flags and phases, and optionally each step's whole flags byte
+// (`flags_`; null: every step real and live, its write from `write_`).
 struct UmStream {
   const int32_t* page_;
   const uint8_t* write_;
   const int32_t* phase_;  // null: one phase
+  const uint8_t* flags_ = nullptr;
   UM_HD void ready(int64_t) {}
   UM_HD int32_t page(int64_t i) const { return page_[i]; }
-  UM_HD bool write(int64_t i) const { return write_[i] != 0; }
+  UM_HD uint8_t flags(int64_t i) const {
+    return flags_ ? flags_[i]
+                  : (uint8_t)(UM_REAL | UM_LIVE | (write_[i] ? UM_WRITE : 0));
+  }
   UM_HD int32_t phase(int64_t i) const { return phase_ ? phase_[i] : 0; }
 };
 
-// Walk one lane over the stream from the cold state (the caller zeroes the
-// flags, counts and `counts`, and fills frames with -1), adding each step's
-// events into counts[k * n_phases + its phase], k = 0 faults, 1 migrated,
-// 2 writebacks, 3 remote.
+// Walk one lane over the stream from the state in its buffers (cold: the
+// caller zeroes the flags, counts and `counts`, fills frames with -1 and
+// starts the hand at 0; a temporal segment: its boundary guess, the frame
+// ring rotated so the hand is at 0), adding each real step's events into
+// counts[k * n_phases + its phase], k = 0 faults, 1 migrated, 2 writebacks,
+// 3 remote.
 //
 // A pass takes the next 32 requests (fewer at the stream's end) and reads
 // their pages' resident flags once.  Until a page migrates, a step only
@@ -419,10 +436,13 @@ struct UmStream {
 // ones whose counts decide anything).  The steps before it take effect
 // together (counts added, writes to resident pages set dirty flags, nvlink
 // steps to pages that are not resident count as remote), that step adds
-// its count and runs um_migrate, and the next pass starts after it.
+// its count and runs um_migrate, and the next pass starts after it.  Only
+// live steps migrate or set dirty flags, and only real ones add to counts
+// (a replay step's count is its page's count as it stands) or count
+// events; a step that is neither does nothing.
 //
 // `src` gives the requests: ready(t) before a pass that starts at t, then
-// page(i), write(i) and phase(i) for t <= i < t + 32.
+// page(i), flags(i) and phase(i) for t <= i < t + 32.
 template <int NL, int W, typename Src>
 UM_HD inline void um_lane(Src& src, int64_t n, int n_phases, UmLane& L,
                           UmWork& wk, int64_t* counts, int lane) {
@@ -432,32 +452,37 @@ UM_HD inline void um_lane(Src& src, int64_t n, int n_phases, UmLane& L,
   for (int64_t t = 0; t < n;) {
     const int nb = n - t < UM_BATCH ? (int)(n - t) : UM_BATCH;
     int32_t pp[PB], ph[PB];
-    bool w[PB], cold[PB];
+    bool w[PB], rl[PB], lv[PB], cold[PB], cand[PB];
     src.ready(t);
     UM_UNROLL
     for (int k = 0; k < PB; ++k) {
       const int i = k * NL + lane;
-      const bool live = i < nb;
-      pp[k] = live ? src.page(t + i) : 0;
-      w[k] = live && src.write(t + i);
-      ph[k] = live ? src.phase(t + i) : 0;
-      cold[k] = live && L.resident[pp[k]] == 0;
+      const bool in = i < nb;
+      const uint8_t f = in ? src.flags(t + i) : 0;
+      pp[k] = in ? src.page(t + i) : 0;
+      w[k] = (f & UM_WRITE) != 0;
+      rl[k] = (f & UM_REAL) != 0;
+      lv[k] = (f & UM_LIVE) != 0;
+      ph[k] = in ? src.phase(t + i) : 0;
+      cold[k] = in && L.resident[pp[k]] == 0;
+      cand[k] = cold[k] && lv[k];
     }
-    uint32_t migs = um_ballot(cold);
+    uint32_t migs = um_ballot(cand);
     if (L.nvlink && migs) {
       int32_t key[PB], hot[PB];
       uint32_t same[PB];
       bool mig[PB];
+      const uint32_t reals = um_ballot(rl);
       UM_UNROLL
       for (int k = 0; k < PB; ++k) {
         key[k] = cold[k] ? pp[k] : -1 - (k * NL + lane);  // no page's key
-        hot[k] = cold[k] ? L.hotness[pp[k]] + 1 : 0;
+        hot[k] = cold[k] ? L.hotness[pp[k]] + (int32_t)rl[k] : 0;
       }
       um_match(key, same);
       UM_UNROLL
       for (int k = 0; k < PB; ++k) {
-        hot[k] += um_popc(same[k] & um_below(k * NL + lane));
-        mig[k] = cold[k] && hot[k] >= L.hot_thresh;
+        hot[k] += um_popc(same[k] & um_below(k * NL + lane) & reals);
+        mig[k] = cand[k] && hot[k] >= L.hot_thresh;
       }
       migs = um_ballot(mig);
     }
@@ -465,22 +490,25 @@ UM_HD inline void um_lane(Src& src, int64_t n, int n_phases, UmLane& L,
     UM_UNROLL
     for (int k = 0; k < PB; ++k) {
       const int i = k * NL + lane;
-      if (i < nb && i <= js) um_add(&L.hotness[pp[k]], 1);
+      if (i < nb && i <= js && rl[k]) um_add(&L.hotness[pp[k]], 1);
       if (i < js) {
-        if (w[k] && !cold[k]) L.dirty[pp[k]] = 1;
-        if (L.nvlink && cold[k]) um_add(&counts[3 * n_phases + ph[k]], 1);
+        if (w[k] && lv[k] && !cold[k]) L.dirty[pp[k]] = 1;
+        if (L.nvlink && cold[k] && rl[k])
+          um_add(&counts[3 * n_phases + ph[k]], 1);
       }
     }
     if (js < nb) {
       um_sync<NL>();  // the window reads the counts and flags written above
       const int p = um_bcast(ph, js);
+      const bool real = um_bcast(rl, js);
       const UmMoved mv = um_migrate<NL, W>(L, wk, win, um_bcast(pp, js),
                                            um_bcast(w, js), lane);
-      if (lane == 0) {
+      if (lane == 0 && real) {
         um_add(&counts[p], 1);
         um_add(&counts[n_phases + p], mv.migrated);
       }
-      if (mv.writebacks) um_add(&counts[2 * n_phases + p], mv.writebacks);
+      if (mv.writebacks && real)
+        um_add(&counts[2 * n_phases + p], mv.writebacks);
       um_sync<NL>();  // the next window reads this migration's frames
       um_load_window<NL, W>(L, lane, win);
       t += js + 1;

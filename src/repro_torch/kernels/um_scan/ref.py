@@ -35,30 +35,49 @@ def initial_state(lanes: int, n_pages: int, n_frames_max: int, device):
             torch.zeros(lanes, pa, dtype=torch.int32, device=device))
 
 
+def lane_rows(x, lanes: int):
+    """(rows, L) stream (a 1-D stream is one row) -> (lanes, L): lane l
+    reads row l % rows."""
+    x2 = x.reshape(1, -1) if x.dim() == 1 else x
+    return x2[torch.arange(lanes, device=x.device) % x2.shape[0]]
+
+
 def um_scan_reference(page, is_write, phase, *, n_phases: int, n_pages: int,
                       n_frames: Sequence[int], chunk: Sequence[int],
-                      nvlink: Sequence[bool], hot_thresh: Sequence[int]):
-    """Run every lane's paging scan from the cold state.
+                      nvlink: Sequence[bool], hot_thresh: Sequence[int],
+                      real=None, live=None, state=None):
+    """Run every lane's paging scan.
 
-    page int32[n] (< n_pages), is_write bool[n], phase int32[n] or None;
-    one lane per entry of the four parameter sequences.  Returns (counts
-    float64[lanes, 4, n_phases] of faults, migrated pages, writeback pages
-    and remote accesses per phase; the final state as
-    :func:`initial_state` lays it out)."""
+    page int32[n] or int32[T, L] (< n_pages), is_write bool and phase
+    int32 (or None) of the same shape; ``real`` and ``live`` bool of that
+    shape (None: every step is both) gate a temporal segment's steps: a
+    real step counts its events and adds to its page's access count, a
+    live one updates the state.  One spec per entry of the four parameter
+    sequences; the lanes are specs x rows, lane l = spec l // T on row
+    l % T.  Each lane starts from its row of ``state`` (cold where None;
+    not written).  Returns (counts float64[lanes, 4, n_phases] of faults,
+    migrated pages, writeback pages and remote accesses per phase; the
+    final state as :func:`initial_state` lays it out)."""
     dev = page.device
-    lanes = len(n_frames)
+    rows = 1 if page.dim() == 1 else page.shape[0]
+    lanes = len(n_frames) * rows
     i64 = torch.int64
-    state = initial_state(lanes, n_pages, max(n_frames, default=1), dev)
+
+    def per_lane(v):
+        return torch.tensor(list(v), device=dev).repeat_interleave(rows)
+
+    if state is None:
+        state = initial_state(lanes, n_pages, max(n_frames, default=1), dev)
+    state = tuple(x.clone() for x in state)
     resident, dirty, frames, ptr, hotness = state
     pa, fa = resident.shape[1] - 1, frames.shape[1] - 1
     res_f, dirty_f, frames_f, hot_f = (resident.view(-1), dirty.view(-1),
                                        frames.view(-1), hotness.view(-1))
-    nf = torch.tensor(list(n_frames), dtype=i64, device=dev)
-    nv = torch.tensor([bool(v) for v in nvlink], device=dev)
-    thr = torch.tensor(list(hot_thresh), dtype=torch.int32, device=dev)
+    nf = per_lane(n_frames).to(i64)
+    nv = per_lane([bool(v) for v in nvlink])
+    thr = per_lane(hot_thresh).to(torch.int32)
     # fault mode migrates a chunk per fault, nvlink one page at a time
-    mch = torch.where(nv, 1, torch.tensor(list(chunk), dtype=i64,
-                                          device=dev))
+    mch = torch.where(nv, 1, per_lane(chunk).to(i64))
     ca = bucket(max(chunk, default=1))
     cl = torch.arange(ca, dtype=i64, device=dev)
     wl = torch.arange(4 * ca, dtype=i64, device=dev)
@@ -67,38 +86,58 @@ def um_scan_reference(page, is_write, phase, *, n_phases: int, n_pages: int,
     off_p = lane_ids * (pa + 1)
     off_h = lane_ids * pa
 
-    n = page.shape[0]
-    fault_log = torch.zeros(n, lanes, dtype=torch.bool, device=dev)
-    remote_log = torch.zeros(n, lanes, dtype=torch.bool, device=dev)
+    P = lane_rows(page, lanes).to(i64)
+    Wr = lane_rows(is_write, lanes)
+    ones = torch.ones_like(Wr)
+    RL = lane_rows(real, lanes) if real is not None else ones
+    LV = lane_rows(live, lanes) if live is not None else ones
+    n = P.shape[1]
+    # per step, one column of each lane's flat indices and gates (views of
+    # one transposed copy each), made up front
+    cols_h = (off_h[:, None] + P).t().contiguous().unbind(0)
+    cols_p = (off_p[:, None] + P).t().contiguous().unbind(0)
+    cols_rl = RL.t().contiguous().unbind(0)
+    cols_rl32 = RL.t().to(torch.int32).contiguous().unbind(0)
+    cols_lv = LV.t().contiguous().unbind(0)
+    WL = Wr & LV
+    cols_wl = WL.t().contiguous().unbind(0)
+    any_wl = WL.any(0).tolist()
+    # each lane's migration constants, gathered per migrating step
+    M, F_l = mch[:, None], nf[:, None]
+    ACT = cl < M
+    WIN = wl < 4 * M
+    cold_log = torch.zeros(n, lanes, dtype=torch.bool, device=dev)
+    hm_log = torch.zeros(n, lanes, dtype=torch.bool, device=dev)
+    move_log = torch.zeros(n, lanes, dtype=torch.bool, device=dev)
     mig_log = torch.zeros(n, lanes, dtype=i64, device=dev)
     wb_log = torch.zeros(n, lanes, dtype=i64, device=dev)
-    pages = page.tolist()
-    writes = is_write.tolist()
     for t in range(n):
-        pp, w = pages[t], writes[t]
-        hotness[:, pp] += 1
-        is_res = resident[:, pp]
-        hot_mig = ~is_res & (hotness[:, pp] >= thr)
-        migrate = torch.where(nv, hot_mig, ~is_res)
-        fault_log[t] = migrate
-        remote_log[t] = nv & ~is_res & ~hot_mig
-        rows = migrate.nonzero()[:, 0]
-        if rows.numel():
-            m = mch[rows][:, None]
-            F = nf[rows][:, None]
-            op = off_p[rows][:, None]
-            of = rows[:, None] * (fa + 1)
-            oh = off_h[rows][:, None]
-            active = cl < m
-            idx = ((pp // m) * m + cl).clamp(0, n_pages - 1)
+        ch, cp = cols_h[t], cols_p[t]
+        hot_f.index_add_(0, ch, cols_rl32[t])
+        cold = ~res_f[cp]
+        hot_mig = cold & (hot_f[ch] >= thr)
+        migrate = torch.where(nv, hot_mig, cold) & cols_lv[t]
+        cold_log[t] = cold
+        hm_log[t] = hot_mig
+        move_log[t] = migrate
+        rows_m = migrate.nonzero()[:, 0]
+        if rows_m.numel():
+            m = M[rows_m]
+            F = F_l[rows_m]
+            op = off_p[rows_m][:, None]
+            of = rows_m[:, None] * (fa + 1)
+            oh = off_h[rows_m][:, None]
+            active = ACT[rows_m]
+            idx = ((P[rows_m, t][:, None] // m) * m + cl).clamp(0,
+                                                                n_pages - 1)
             newly = active & ~res_f[op + idx]
             mig_n = newly.sum(1)
             # the eviction window from the hand, coldest first (stable)
-            cand_idx = (ptr[rows].to(i64)[:, None] + wl) % F
+            cand_idx = (ptr[rows_m].to(i64)[:, None] + wl) % F
             cand_pages = frames_f[of + cand_idx].to(i64)
             cand_hot = torch.where(cand_pages >= 0,
                                    hot_f[oh + cand_pages.clamp_min(0)], 0)
-            cand_hot = torch.where(wl < 4 * m, cand_hot, _HOT_PAD)
+            cand_hot = torch.where(WIN[rows_m], cand_hot, _HOT_PAD)
             order = torch.argsort(cand_hot, dim=1, stable=True)[:, :ca]
             ev_slot = cand_idx.gather(1, order)
             ev_pages = cand_pages.gather(1, order)
@@ -114,11 +153,16 @@ def um_scan_reference(page, is_write, phase, *, n_phases: int, n_pages: int,
             put = active & ~dup
             frames_f[of + torch.where(put, ev_slot, fa)] = torch.where(
                 newly, idx, ev_pages).to(torch.int32)
-            ptr[rows] = ((ptr[rows].to(i64) + mig_n) % F[:, 0]).to(
+            ptr[rows_m] = ((ptr[rows_m].to(i64) + mig_n) % F[:, 0]).to(
                 torch.int32)
-            mig_log[t, rows] = mig_n
-            wb_log[t, rows] = wb_n
-        dirty[:, pp] |= w & resident[:, pp]
+            real_m = cols_rl[t][rows_m]
+            mig_log[t, rows_m] = mig_n * real_m
+            wb_log[t, rows_m] = wb_n * real_m
+        if any_wl[t]:
+            dirty_f[cp] |= cols_wl[t] & res_f[cp]
+    RLt = RL.t()
+    fault_log = move_log & RLt
+    remote_log = nv & cold_log & ~hm_log & RLt
     # the dump slots took the gated writes; they hold nothing
     resident[:, pa] = False
     dirty[:, pa] = False
@@ -129,6 +173,7 @@ def um_scan_reference(page, is_write, phase, *, n_phases: int, n_pages: int,
     if phase is None:
         counts = logs.sum(0)[..., None]
     else:
-        counts = torch.stack([logs[phase == k].sum(0)
+        PH = lane_rows(phase, lanes).to(i64).t()[:, None, :]  # (n, 1, lanes)
+        counts = torch.stack([(logs * (PH == k)).sum(0)
                               for k in range(n_phases)], dim=-1)
     return counts.permute(1, 0, 2).to(torch.float64), state

@@ -18,9 +18,30 @@ reference (``repro.um.engine``):
     unphased traces are one phase); the whole-trace totals are *defined*
     as ``np.sum`` of the per-phase vector.
 
-Not ported yet (ROADMAP A7-A9): the temporal split (the reference's
-T > 1 is bit-identical to the T = 1 scan run here), the degradation
-ladder, sweep checkpoints, the cost model and the run ledger.
+Temporal splitting
+------------------
+The paging scan cannot shard, so its only depth lever is the temporal
+split (``repro_torch.core.tsplit``): T segments of the trace run as
+extra lanes of the same ``um_scan`` launch (lanes = specs x segments),
+each from a guessed boundary carry, relaunched with each guess replaced by
+its predecessor segment's final carry until the boundaries reach a fixed
+point.  T comes from ``costmodel.plan_um_split``.  As in the reference:
+
+  * the access counts need no speculation — every segment's boundary
+    counts are the exact prefix ``bincount`` of the pages before it, and
+    only real core steps add to them;
+  * the frame ring is compared in gauge-canonical form (rotated so the
+    hand is at 0, slack and dump slots blanked), which is also the form a
+    segment starts from;
+  * only real core steps count events, and only the converged round's
+    counts are kept, so all four counters equal the T = 1 scan's at every
+    T.
+
+The composition and the fixed-point test run on device tensors, one host
+sync a round.  The scan runs under the degradation ladder (T > 1 ->
+T = 1; an OOM bisects the batch), and an active sweep checkpoint replays
+journaled specs.  The reference's last rung, its frozen sequential scan,
+is not ported: it would run on the host, not on the card.
 """
 
 from __future__ import annotations
@@ -33,9 +54,13 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..core import costmodel, tsplit
 from ..core.timing import COLUMN_BYTES, UM_PAGE_BYTES, HMSConfig
 from ..core.traces import Trace
 from ..kernels.um_scan import ops as um_ops
+from ..kernels.um_scan import ref as um_ref
+from ..resilience import guard as _guard
+from ..resilience import sweepckpt as _sweepckpt
 from ..resilience import validate as _rvalidate
 
 
@@ -149,21 +174,159 @@ def scan_args(trace: Trace, specs: Sequence[UMSpec], dev) -> dict:
                 hot_thresh=[s.hot_thresh for s in specs])
 
 
+@dataclasses.dataclass(frozen=True)
+class _UMKey:
+    n: int                  # trace length
+    pages_alloc: int        # bucketed page-array allocation
+    frames_alloc: int       # bucketed frame-array allocation (batch max)
+    chunk_alloc: int        # bucketed migration-chunk lanes (batch max)
+    phases: int             # counter segments (1 for unphased traces)
+    t_segments: int = 1     # temporal segments (1 = plain sequential scan)
+    replay: int = 0         # replay-prefix steps per segment (T>1 only)
+
+
+def um_group_key(trace: Trace, specs: Sequence[UMSpec],
+                 t_segments: int = 1, replay: int = 0) -> _UMKey:
+    """The shape a batch of specs shares: allocations are bucketed
+    group-wide maxima, T at most the trace length."""
+    _, n_pages = _page_stream(trace)
+    t_segments = max(1, min(int(t_segments), trace.n))
+    return _UMKey(
+        n=trace.n,
+        pages_alloc=um_ref.bucket(n_pages),
+        frames_alloc=um_ref.bucket(max(s.n_frames for s in specs)),
+        chunk_alloc=um_ref.bucket(max(s.chunk for s in specs)),
+        phases=trace.n_phases,
+        t_segments=t_segments,
+        replay=replay if t_segments > 1 else 0,
+    )
+
+
+def _um_split_inputs(trace: Trace, key: _UMKey, dev) -> dict:
+    """Gathered ``(T, L)`` segment streams for a split run: core steps
+    execute their own trace records in order; replay-prefix steps
+    re-gather the window just before each boundary; pads clamp to the last
+    record and are neither ``real`` nor live.  ``live_warm`` is the
+    warm-up round's live mask (replay steps live too)."""
+    page, _ = _page_stream(trace)
+    pos = np.arange(trace.n, dtype=np.int32).reshape(1, -1)
+    sp = tsplit.split_positions(pos, trace.n, key.t_segments, key.replay)
+    spos, gpos = sp["spos"][0], sp["gpos"][0]
+
+    def to(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    real = to(spos < trace.n)
+    xs = {"page": to(page[gpos]),
+          "is_write": to(trace.is_write.astype(bool)[gpos]),
+          "phase": to(trace.phase_id[gpos].astype(np.int32))
+          if trace.n_phases > 1 else None,
+          "real": real, "live_warm": real | to(sp["replay"][0])}
+    return xs
+
+
+def _run_um_split(trace: Trace, key: _UMKey, specs: Sequence[UMSpec], dev):
+    """Drive the fixed-point stitch for a split UM run (see the module
+    docstring): the access counts at each boundary are exact prefix
+    bincounts, the residency/dirty/frame carries are chained in
+    gauge-canonical form (frame ring rotated to ptr = 0, slack and dump
+    slots blanked), one ``um_scan`` launch and one host sync a round, and
+    only the converged round's counts are returned.  Returns ``(counts
+    float64[specs, 4, phases], rounds)`` with rounds including the replay
+    warm-up, or raises ``tsplit.StitchError`` past the round bound."""
+    page, n_pages = _page_stream(trace)
+    T = key.t_segments
+    W = len(specs)
+    xs = _um_split_inputs(trace, key, dev)
+    core = -(-trace.n // T)
+    # every lane's cold state, laid out as the kernel's wrapper wants it
+    resident, dirty, frames, ptr, hot = um_ref.initial_state(
+        W * T, n_pages, max(s.n_frames for s in specs), dev)
+    pa, fa = resident.shape[1] - 1, frames.shape[1] - 1
+    hot_seg = np.zeros((T, pa), np.int32)
+    for t in range(1, T):
+        hot_seg[t, :n_pages] = np.bincount(page[:t * core],
+                                           minlength=n_pages)
+    hot = torch.from_numpy(hot_seg).to(dev).repeat(W, 1)
+    nf = torch.tensor([s.n_frames for s in specs], dtype=torch.int64,
+                      device=dev).repeat_interleave(T)[:, None]
+    ring = torch.arange(fa, dtype=torch.int64, device=dev)[None, :]
+    args = dict(n_phases=trace.n_phases, n_pages=n_pages,
+                n_frames=[s.n_frames for s in specs],
+                chunk=[s.chunk for s in specs],
+                nvlink=[s.nvlink for s in specs],
+                hot_thresh=[s.hot_thresh for s in specs])
+
+    def run(g, live):
+        counts, st = um_ops.um_scan(xs["page"], xs["is_write"], xs["phase"],
+                                    real=xs["real"], live=live,
+                                    state=g + (hot,), **args)
+        return st, counts
+
+    def advance(g, out):
+        res_o, dir_o, fr_o, ptr_o, _ = out
+        res_c = res_o.clone()
+        res_c[:, n_pages:] = False
+        dir_c = dir_o.clone()
+        dir_c[:, n_pages:] = False
+        # the ring rotated so the hand is at 0 (frames past a spec's own
+        # count blanked)
+        idx = (ptr_o.to(torch.int64)[:, None] + ring) % nf
+        fr_c = torch.full_like(fr_o, -1)
+        fr_c[:, :fa] = torch.where(ring < nf, fr_o.gather(1, idx), -1)
+
+        def shift(x, cold):
+            # segment t starts from segment t - 1's canonical end state
+            x = x.view(W, T, -1)
+            return torch.cat([torch.full_like(x[:, :1], cold), x[:, :-1]],
+                             dim=1).view(W * T, -1)
+        return (shift(res_c, False), shift(dir_c, False), shift(fr_c, -1),
+                torch.zeros_like(ptr))
+
+    def equal(a, b):
+        # the hand is canonical and the counts pinned exact; the fixed
+        # point lives in (resident, dirty, frames)
+        return not bool(torch.stack([(a[i] != b[i]).any()
+                                     for i in range(3)]).any())
+
+    g, extra = (resident, dirty, frames, ptr), 0
+    if key.replay > 0:
+        # warm-up round: replay prefixes live purely to improve the first
+        # boundary guesses; its counts are never accepted
+        out, _ = run(g, xs["live_warm"])
+        g = advance(g, out)
+        extra = 1
+    counts, rounds = tsplit.stitch(lambda gg, _r: run(gg, xs["real"]), g,
+                                   advance, equal, max_rounds=T + 1)
+    return counts.view(W, T, 4, -1).sum(1), rounds + extra
+
+
+# What each guarded paging call did (newest last, at most _RUNS_KEPT):
+# segments, stitch rounds, the ladder's rung and its events.
+_RUNS: List[Dict[str, object]] = []
+_RUNS_KEPT = 4096
+
+
 def simulate_um_many(trace: Trace, specs: Sequence[UMSpec], *,
                      device=None) -> List[UMResult]:
-    """Run a batch of UM specs over one trace: one ``um_scan`` call for
-    every spec not already memoized, duplicate specs deduped to one lane.
+    """Run a batch of UM specs over one trace: one ``um_scan`` launch (a
+    stitch round) for every spec not already memoized, duplicate specs
+    deduped to one lane, T temporal segments a spec from the cost model.
     Specs whose frames cover the whole footprint early-out to zero
-    counters without touching the device.  ``device=None`` runs on the
-    CUDA card (raises if there is none), ``device="cpu"`` runs the
-    kernel's plain version.  Results come back in input order; the memo
-    is kept per device, so a card run never returns a host result."""
+    counters without touching the device.  The scan runs under the
+    degradation ladder (T > 1 -> T = 1; an OOM on a batch bisects it), and
+    an active sweep checkpoint replays journaled specs.  ``device=None``
+    runs on the CUDA card (raises if there is none), ``device="cpu"`` runs
+    the kernel's plain version.  Results come back in input order; the
+    memo is kept per device, so a card run never returns a host result."""
     dev = resolve_device(device, "simulate_um_many")
     specs = list(specs)
     for s in specs:
         _rvalidate.validate_um_spec(s)
     cache = _RESULT_CACHE.setdefault(trace, {})
     _, n_pages = _page_stream(trace)
+    ck = _sweepckpt.active()
+    tfp = _sweepckpt.trace_fingerprint(trace) if ck is not None else None
 
     run: List[UMSpec] = []
     for s in specs:
@@ -174,15 +337,72 @@ def simulate_um_many(trace: Trace, specs: Sequence[UMSpec], *,
             cache[(dev.type, s)] = UMResult(s, z, z.copy(), z.copy(),
                                             z.copy())
             continue
-        run.append(s)
+        hit = ck.get_um(tfp, s) if ck is not None else None
+        if hit is not None:
+            cache[(dev.type, s)] = UMResult(
+                s, hit["um_faults"], hit["um_migrated"],
+                hit["um_writebacks"], hit["um_remote_cols"])
+        else:
+            run.append(s)
 
     if run:
-        counts, _ = um_ops.um_scan(**scan_args(trace, run, dev))
-        C = counts.cpu().numpy()
+        import time
+
+        plan = costmodel.plan_um_split(trace.n, len(run))
+        replay = tsplit.replay_prefix() if plan.t_segments > 1 else 0
+        key = um_group_key(trace, run, plan.t_segments, replay)
+
+        def attempt(k: _UMKey):
+            def thunk():
+                if k.t_segments > 1:
+                    counts, rounds = _run_um_split(trace, k, run, dev)
+                else:
+                    counts, _ = um_ops.um_scan(**scan_args(trace, run, dev))
+                    rounds = 1
+                return counts.cpu().numpy(), rounds, k
+            return thunk
+
+        def bisect():
+            # OOM relief: the halves run as their own guarded batches and
+            # land in the result cache; restack the lanes from there
+            h = len(run) // 2
+            simulate_um_many(trace, run[:h], device=dev)
+            simulate_um_many(trace, run[h:], device=dev)
+            C = np.stack([np.stack([getattr(cache[(dev.type, s)], f)
+                                    for f in _FIELDS]) for s in run])
+            return C, 0, key
+
+        rungs = [(f"T{key.t_segments}", attempt(key))]
+        if key.t_segments > 1:
+            rungs.append(("T1", attempt(dataclasses.replace(
+                key, t_segments=1, replay=0))))
+        t0 = time.perf_counter()
+        (C, rounds, used), outcome = _guard.run_ladder(
+            "um", rungs, bisect=bisect if len(run) > 1 else None)
+        wall = time.perf_counter() - t0
+        # (a bisected batch's halves are runs of their own; its own entry
+        # carries the OOM event and no rounds)
+        _RUNS.append({"trace": trace.name, "lanes": len(run),
+                      "t_segments": used.t_segments, "replay": used.replay,
+                      "rounds": rounds, "rung": outcome.rung,
+                      "events": outcome.events, "wall_s": wall})
+        del _RUNS[:-_RUNS_KEPT]
+        if outcome.rung != "bisect":
+            if used.t_segments == plan.t_segments:
+                costmodel.check_plan_drift(
+                    f"um:n{key.n}:P{key.pages_alloc}:F{key.frames_alloc}"
+                    f":c{key.chunk_alloc}:p{key.phases}:T{key.t_segments}"
+                    f"r{key.replay}:w{len(run)}", plan.predicted_us, wall)
         for j, s in enumerate(run):
             cache[(dev.type, s)] = UMResult(s, *(C[j, k].copy()
                                                  for k in range(4)))
+            if ck is not None:
+                ck.put_um(tfp, s, cache[(dev.type, s)])
     return [cache[(dev.type, s)] for s in specs]
+
+
+_FIELDS = ("phase_faults", "phase_migrated", "phase_writebacks",
+           "phase_remote_cols")
 
 
 def simulate_um(trace: Trace, cfg: HMSConfig, nvlink: bool = False, *,
