@@ -113,6 +113,20 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                grid under injected faults (LANE_FAULTS, two passes at a
                forced (4, 4)) equal to the baseline, with the ladder's
                events.
+  5d. obs    - the run ledger, span tracer, sentinel and design-space
+               store (``repro_torch.obs``) on the main path, collection on
+               into ``build/obs_smoke/`` (``obs_phase``): pathfnd's
+               ``simulate``, fig18's grid as one ``simulate_many`` batch and
+               a UM batch on llm_dec emit their records; digests bit-equal at
+               (1, 1) and a forced (4, 4) and across batch widths; each
+               ``scan`` span covers its ``hms_scan`` launch's device time
+               (and ``um_scan``'s its); a warm repeat passes
+               ``assert_no_retrace``; ``host`` names the card and its power
+               limit; the ledger and the three committed baselines ingest
+               into a ``SilverStore`` (re-ingest adds nothing) whose
+               markdown renders.  Prints pathfnd's median wall over
+               OBS_REPS interleaved runs with collection off and on, and
+               the per-span split of a call.
   6. serving kernels against their plain versions: flash_attention at the
                serving slice's shape (B 4, S = T = 1024, 16 heads over 2 KV
                heads, hd 128; ragged, non-causal, softcap 30, S = T = 1000,
@@ -179,7 +193,8 @@ Phases, each printed as one JSON line; any failure exits non-zero:
 
 ``--out DIR`` also writes every JSON line to DIR/chip_smoke.jsonl;
 ``--only um`` runs phases 1-2 and the UM phases (4b, 5b and
-um_step_costs), ``--only lanes`` phases 1-2, 4c and 5c,
+um_step_costs), ``--only lanes`` phases 1-2, 4c and 5c, ``--only obs``
+phases 1-2 and 5d,
 ``--only um_step_costs`` that phase alone, ``--only
 amil_probe`` the amil_probe rows and the out-of-range check (the one-launch
 rule not judged), ``--only ssd`` the ssd_scan rows and ``--only flash``
@@ -247,6 +262,8 @@ LANE_SHAPES = ((1, 1), (4, 1), (1, 4), (4, 4), (1, 16))
 LANE_REPLAY = 64
 UM_SEGMENTS = (1, 4, 16)
 LANE_FAULTS = "oom@1,stitch@4,nan@7"
+# pathfnd's simulate with collection off and on: interleaved runs of each
+OBS_REPS = 5
 # the planner's shape against (1, 1): timed runs of each (after a warm-up),
 # interleaved; the planner's median may exceed (1, 1)'s by this factor
 PLANNED_REPS = 7
@@ -625,35 +642,56 @@ def plain_scan(scan_ref, s):
     return scan_ref.hms_scan_reference(s["slot"], s["meta"], **kw)
 
 
+def entry_events(torch, entries):
+    """Wrap the kernels' library entries ``entries`` with CUDA events while
+    the returned context is open; ``times`` then maps each entry to the
+    device ms of each launch (the kernel with its launch latency, on the
+    stream), read after a synchronize."""
+    import contextlib
+    from repro_torch import _build
+    lib = _build.library()
+    pairs = {e: [] for e in entries}
+    inner = {e: getattr(lib, e) for e in entries}
+
+    def wrap(e):
+        def timed(*args):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            err = inner[e](*args)
+            b.record()
+            pairs[e].append((a, b))
+            return err
+        return timed
+
+    times = {}
+
+    @contextlib.contextmanager
+    def ctx():
+        for e in entries:
+            setattr(lib, e, wrap(e))
+        try:
+            yield times
+        finally:
+            for e in entries:
+                setattr(lib, e, inner[e])
+            torch.cuda.synchronize()
+            for e in entries:
+                times[e] = [a.elapsed_time(b) for a, b in pairs[e]]
+    return ctx()
+
+
 def launch_ms(torch, fn, entry: str, reps: int = 3) -> float:
     """Median time, on the stream, between CUDA events recorded just before
     and just after the kernels' library entry ``entry`` in each of ``reps``
     calls of ``fn``: the kernel with its launch latency, without the
     wrapper's checks and copies around it."""
-    from repro_torch import _build
-    lib = _build.library()
-    inner = getattr(lib, entry)
-    pairs = []
-
-    def timed(*args):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        err = inner(*args)
-        b.record()
-        pairs.append((a, b))
-        return err
-
-    setattr(lib, entry, timed)
-    try:
+    with entry_events(torch, (entry,)) as ev:
         for _ in range(reps):
             fn()
-    finally:
-        setattr(lib, entry, inner)
-    torch.cuda.synchronize()
-    need(len(pairs) == reps, f"{entry}: {len(pairs)} launches in {reps} "
-         "calls")
-    return statistics.median(a.elapsed_time(b) for a, b in pairs)
+    need(len(ev[entry]) == reps, f"{entry}: {len(ev[entry])} launches in "
+         f"{reps} calls")
+    return statistics.median(ev[entry])
 
 
 def device_ms(torch, fn, needle: str, entry: str, reps: int = 3,
@@ -2529,20 +2567,240 @@ def lanes_phase(torch, T, dev, traces, cycle_ms) -> None:
          f"{pending}")
 
 
+def obs_phase(torch, T, dev) -> None:
+    """The run ledger, span tracer, sentinel and design-space store on the
+    main path (``--only obs``), collection on into ``build/obs_smoke/``:
+    pathfnd's ``simulate``, fig18's grid on pathfnd as one ``simulate_many``
+    batch and a UM batch on llm_dec (4 specs and a duplicate, then the same
+    batch memoized) each emit their records; digests bit-equal at (1, 1)
+    and a forced (4, 4), and across batch widths (fig18's lanes against
+    their ``simulate`` calls and a batch of two); every ``scan`` span's wall
+    at least the device time of the ``hms_scan`` launches inside it (CUDA
+    events around the library entry, and the profiler's kernel time), and
+    the ``um_scan`` span's at least its launch's; a warm repeat passes
+    ``assert_no_retrace``; ``host`` names the card and its power limit; the
+    ledger and the three committed baselines ingest into a port
+    ``SilverStore`` (a re-ingest adds nothing) and its markdown renders.
+    Prints pathfnd's wall over OBS_REPS interleaved runs with collection
+    off and on, and the median per-span split of a call."""
+    import shutil
+
+    from repro_torch import _build, obs
+    from repro_torch.core import costmodel
+    from repro_torch.obs.store import SilverStore, render_markdown
+    from repro_torch.um import engine as um_engine
+
+    out = ROOT / "build" / "obs_smoke"
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    path = T.make_trace("pathfnd")
+    llm = T.make_trace("llm_dec")
+    cfg = T.HMSConfig(footprint=path.footprint)
+    fig18 = [T.HMSConfig(footprint=path.footprint, **kw) for kw in FIG18_GRID]
+    obs.disable()
+    obs.clear_records()
+    obs.clear_events()
+    T.simulate(path, cfg)                  # warms the host caches
+    T.simulate_many(path, fig18)
+    card = smi("name,power.limit")
+
+    def wall():
+        torch.cuda.synchronize()
+        a = time.perf_counter()
+        T.simulate(path, cfg)
+        torch.cuda.synchronize()
+        return time.perf_counter() - a
+
+    # pathfnd with collection off and on, interleaved; the span split of
+    # each run with collection on
+    _build.reset_counts()
+    off, on, splits = [], [], []
+    for _ in range(OBS_REPS):
+        off.append(wall())
+        obs.clear_events()
+        obs.enable(str(out))
+        on.append(wall())
+        obs.disable()
+        splits.append({k: v["total_ms"] for k, v in obs.totals().items()})
+    recs = obs.records()
+    need(len(recs) == OBS_REPS and all(
+        (r.entry, r.engine, r.batch, r.host.get("device"))
+        == ("simulate", "hms", 1, "cuda") for r in recs),
+         f"pathfnd: {len(recs)} records for {OBS_REPS} simulate calls with "
+         "collection on, or not one hms record on the card each")
+    need(len({r.counter_digest for r in recs}) == 1,
+         "pathfnd: digests differ between runs")
+    need(not any(r.compiled for r in recs),
+         "pathfnd: a warm call built or loaded the kernel library")
+    host = recs[0].host
+    need(host.get("gpu") == torch.cuda.get_device_name(0)
+         and host.get("gpu_power_limit") == card.split(",")[1].strip(),
+         f"host names {host.get('gpu')!r}, {host.get('gpu_power_limit')!r}; "
+         f"nvidia-smi says {card!r}")
+    names = ("preprocess", "shard_plan", "scan", "postprocess")
+    need(all(set(names) <= set(sp) for sp in splits),
+         f"pathfnd: spans {sorted(splits[0])}, expected {names}")
+    split = {k: statistics.median(sp[k] for sp in splits)
+             for k in splits[0]}
+    off_ms = statistics.median(off) * 1e3
+    on_ms = statistics.median(on) * 1e3
+    emit({"phase": "obs_pathfnd", "nvidia_smi": card, "n": path.n,
+          "reps": OBS_REPS, "wall_off_ms": off_ms, "wall_on_ms": on_ms,
+          "walls_off_ms": [w * 1e3 for w in off],
+          "walls_on_ms": [w * 1e3 for w in on],
+          "overhead": on_ms / off_ms - 1.0, "span_ms": split,
+          "outside_spans_ms": on_ms - sum(split[k] for k in names),
+          "engine_key": recs[0].engine_key, "shards": recs[0].shards,
+          "t_segments": recs[0].t_segments,
+          "launches": dict(_build.launches)})
+
+    # the scan span against its kernel's device time, in one call
+    obs.clear_events()
+    obs.enable(str(out))
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        with entry_events(torch, ("hms_scan_launch", "ema_scan_launch")) \
+                as ev:
+            T.simulate(path, cfg)
+        torch.cuda.synchronize()
+    obs.disable()
+    scans = [e for e in obs.events() if e[0] == "scan"]
+    need(len(scans) == 1, f"{len(scans)} scan spans in one simulate")
+    scan_ms = scans[0][2] / 1e6
+    kernel = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and "hms_chain_kernel" in e.name]
+    entry_ms = sum(ev["hms_scan_launch"])
+    need(len(ev["hms_scan_launch"]) >= 1, "hms_scan: no launch in a "
+         "simulate")
+    need(scan_ms >= entry_ms and scan_ms >= sum(kernel),
+         f"scan span {scan_ms} ms shorter than its kernel: events "
+         f"{entry_ms} ms, profiler {sum(kernel)} ms")
+    emit({"phase": "obs_scan_span", "workload": "pathfnd",
+          "scan_span_ms": scan_ms, "hms_scan_entry_ms": entry_ms,
+          "hms_scan_kernel_ms": sum(kernel) if kernel else None,
+          "ema_scan_entry_ms": sum(ev["ema_scan_launch"])})
+
+    # digests: (1, 1) against a forced (4, 4); batch widths
+    one = recs[0]
+    obs.clear_records()
+    obs.enable(str(out))
+    old = (costmodel.set_forced_shards(4), costmodel.set_forced_tsplit(4))
+    try:
+        T.simulate(path, cfg)
+    finally:
+        costmodel.set_forced_shards(old[0])
+        costmodel.set_forced_tsplit(old[1])
+    (four,) = obs.records()
+    need((four.shards, four.t_segments) == (4, 4),
+         f"forced (4, 4) ran at ({four.shards}, {four.t_segments})")
+    need(four.counter_digest == one.counter_digest
+         and four.counters == one.counters,
+         "pathfnd: digest at (4, 4) differs from (1, 1)")
+    obs.clear_records()
+    T.simulate_many(path, fig18)
+    T.simulate_many(path, fig18[:2])
+    for c in fig18:
+        T.simulate(path, c)
+    recs = obs.records()
+    need([r.batch for r in recs] == [6, 2, 1, 1, 1, 1, 1, 1],
+         f"fig18: record widths {[r.batch for r in recs]}")
+    wide, two = recs[0], recs[1]
+    lane = [obs.counter_digest(c) for c in wide.counters]
+    need(lane == [r.counter_digest for r in recs[2:]]
+         and [obs.counter_digest(c) for c in two.counters] == lane[:2],
+         "fig18: a lane's digest depends on the batch width")
+
+    # the UM leg: a batch with a duplicate, then the same batch memoized
+    specs = [um_engine.um_spec(T.HMSConfig(footprint=llm.footprint,
+                                           organization="hbm", r_hbm=r), nv)
+             for r in (0.5, 0.25) for nv in (False, True)]
+    specs.append(specs[0])
+    obs.reset(hms=False, keep_compiled=True)       # drop memoized results
+    obs.clear_records()
+    obs.clear_events()
+    with entry_events(torch, ("um_scan_launch",)) as ev:
+        um_engine.simulate_um_many(llm, specs)
+    um_engine.simulate_um_many(llm, specs)
+    obs.disable()
+    ran, memo = obs.records()
+    need((ran.um_lanes_requested, ran.um_lanes_run, ran.um_lanes_deduped)
+         == (5, 4, 1) and ran.engine_key.startswith("um:")
+         and (memo.engine_key, memo.um_lanes_run) == ("um:memoized", 0)
+         and memo.counter_digest == ran.counter_digest,
+         f"llm_dec UM records: {ran.engine_key} "
+         f"{(ran.um_lanes_requested, ran.um_lanes_run)}, {memo.engine_key}")
+    um_spans = [e for e in obs.events() if e[0] == "um_scan"]
+    um_ms = sum(e[2] for e in um_spans) / 1e6
+    um_entry = sum(ev["um_scan_launch"])
+    need(len(um_spans) == 1 and um_ms >= um_entry,
+         f"um_scan span {um_ms} ms against its launches' {um_entry} ms")
+    emit({"phase": "obs_records", "fig18_widths": [r.batch for r in recs],
+          "digest_1x1_equals_4x4": True, "lane_digests_equal": True,
+          "um_engine_key": ran.engine_key, "um_lanes": [
+              ran.um_lanes_requested, ran.um_lanes_run,
+              ran.um_lanes_deduped], "um_span_ms": um_ms,
+          "um_scan_entry_ms": um_entry, "um_wall_s": ran.wall_s})
+
+    # the sentinel: a warm repeat loads nothing
+    obs.enable(str(out))
+    with obs.assert_no_retrace() as guard:
+        T.simulate(path, cfg)
+        T.simulate_many(path, fig18)
+    obs.disable()
+    stats = obs.cache_stats()
+    need(guard.compiles_during() == 0 and stats["kernel_loads"] == 1,
+         f"sentinel: {guard.compiles_during()} compiles, {stats}")
+    trace_path = obs.export_trace(str(out / "trace.json"))
+
+    # the design-space store: this ledger and the committed baselines
+    store = SilverStore(str(out / "store"))
+    ledger = out / "ledger.jsonl"
+    stats_in = [store.ingest(str(ledger))] + [
+        store.ingest(str(ROOT / "benchmarks" / "baselines" /
+                         f"BENCH_{name}.json"))
+        for name in ("sweep", "um", "scenarios")]
+    again = [store.ingest(str(ledger))] + [
+        store.ingest(str(ROOT / "benchmarks" / "baselines" /
+                         f"BENCH_{name}.json"))
+        for name in ("sweep", "um", "scenarios")]
+    md = render_markdown(store)
+    store.close()
+    need(all(st.conflicts == 0 for st in stats_in)
+         and [st.added for st in stats_in][1:] == [36, 16, 20]
+         and stats_in[0].added > 0
+         and all(st.added == st.merged == 0 for st in again)
+         and "# Design-space report" in md,
+         f"store: {[str(st) for st in stats_in]}; again "
+         f"{[str(st) for st in again]}")
+    (out / "report.md").write_text(md)
+    emit({"phase": "obs_store", "ingested": [str(st) for st in stats_in],
+          "reingested": [str(st) for st in again],
+          "rows": len(store), "plan_rows": len(store.plan_rows()),
+          "ledger_records": len(obs.load_ledger(str(ledger))),
+          "trace_events": len(obs.events()), "trace": str(trace_path),
+          "cache_stats": stats, "wall_s": time.perf_counter() - t0})
+    obs.clear_records()
+    obs.clear_events()
+
+
 def main(argv=None) -> int:
     global _OUT
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None)
     ap.add_argument("--write-traces", action="store_true")
     ap.add_argument("--only", choices=["um", "um_step_costs", "amil_probe",
-                                       "ssd", "flash", "lanes", "hms_scan"],
+                                       "ssd", "flash", "lanes", "hms_scan",
+                                       "obs"],
                     default=None,
                     help="run the device and build phases, then only the "
                     "UM phases (4b, 5b and um_step_costs), um_step_costs, "
                     "the amil_probe rows (with the out-of-range check), "
                     "the ssd_scan rows, the flash_attention rows, the "
-                    "scenario baseline and the lanes phase (4c, 5c), or "
-                    "hms_scan's timing on pathfnd at (1, 1)")
+                    "scenario baseline and the lanes phase (4c, 5c), "
+                    "hms_scan's timing on pathfnd at (1, 1), or the obs "
+                    "phase (5d)")
     args = ap.parse_args(argv)
     if args.write_traces:
         return write_traces()
@@ -2604,6 +2862,8 @@ def main(argv=None) -> int:
             flash_checks(torch, dev, flush)
         elif args.only == "hms_scan":
             hms_scan_timing(torch, T, dev, flush)
+        elif args.only == "obs":
+            obs_phase(torch, T, dev)
         elif args.only == "lanes":
             scenario_baseline_checks(torch, T)
             runs = [(name, None) for name in sorted(T.WORKLOADS)] + [
@@ -2866,6 +3126,9 @@ def main(argv=None) -> int:
 
     # ---- 5c. the sweep engine's lanes ------------------------------------
     lanes_phase(torch, T, dev, traces, cycle_ms)
+
+    # ---- 5d. the run ledger, spans, sentinel and store on the main path --
+    obs_phase(torch, T, dev)
 
     # the AMIL probe's own path: its wrapper at the table sizes it names
     _build.reset_counts()

@@ -13,6 +13,11 @@ and the stream travel as integers (``tensor.data_ptr()``,
 Each C entry returns ``cudaGetLastError()`` after its launch; :func:`check`
 raises on anything but 0.  Each wrapper calls :func:`count` once per
 launch, so a run can show that it went through its kernels.
+
+The build and the load are the port's "compile": ``library_counts`` counts
+each, and the engines mark a call ``compiled`` in their run records when
+either happened during it (``repro_torch.obs``); the ``compile`` span
+times them.
 """
 
 from __future__ import annotations
@@ -72,6 +77,7 @@ _SIGNATURES = {
 
 launches: Dict[str, int] = {}
 build_info: Dict[str, object] = {}
+library_counts: Dict[str, int] = {"builds": 0, "loads": 0}
 _LIB: Optional[ctypes.CDLL] = None
 _LOCK = threading.Lock()
 
@@ -137,19 +143,39 @@ def library() -> ctypes.CDLL:
     global _LIB
     with _LOCK:
         if _LIB is None:
+            from . import obs
+
             tag = _digest()
             so = BUILD_DIR / f"librepro_torch_{tag}.so"
-            if not so.exists():
-                _compile(so, tag)
-            lib = ctypes.CDLL(str(so))
-            for name, args in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = list(args)
-                fn.restype = ctypes.c_int
+            build = not so.exists()
+            with obs.span("compile", library=so.name, build=build):
+                if build:
+                    _compile(so, tag)
+                    library_counts["builds"] += 1
+                lib = ctypes.CDLL(str(so))
+                for name, args in _SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = list(args)
+                    fn.restype = ctypes.c_int
+            library_counts["loads"] += 1
             build_info.setdefault("seconds", 0.0)
             build_info["path"] = str(so)
             _LIB = lib
     return _LIB
+
+
+def library_epoch() -> int:
+    """Builds plus loads of the library so far: an engine call that sees it
+    move built or loaded the library (its "compile")."""
+    return library_counts["builds"] + library_counts["loads"]
+
+
+def unload() -> None:
+    """Drop the loaded library, so the next launch loads it again
+    (``obs.reset``'s deliberate invalidation)."""
+    global _LIB
+    with _LOCK:
+        _LIB = None
 
 
 def check(err: int, name: str) -> None:

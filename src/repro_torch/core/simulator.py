@@ -44,18 +44,27 @@ call first.
 
 On the CPU (``device="cpu"``) the kernels' plain PyTorch versions run
 instead.
+
+Every guarded scan call is accounted with ``repro_torch.obs``: the
+sentinel counts it under its fingerprint (:func:`_fingerprint`, the
+reference's format), and with collection on it emits one schema-4
+``RunRecord`` (single-tier organizations one each too) inside the
+reference's spans (``shard_plan``, ``preprocess``, ``scan``, ``stitch``,
+``single_tier``, ``postprocess``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import time
 import types
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .. import _build, obs
 from .._device import resolve_device
 from ..resilience import guard as _guard
 from ..resilience import sweepckpt as _sweepckpt
@@ -201,7 +210,7 @@ def _engine_key(trace: Trace, cfg: HMSConfig) -> _EngineKey:
 
 
 # The planner's decision behind each engine key (prediction + rejected
-# alternatives), for the drift sentinel.
+# alternatives), for the drift sentinel and the ledger's plan telemetry.
 _PLAN_BY_KEY: Dict[_EngineKey, costmodel.SplitPlan] = {}
 
 
@@ -219,9 +228,11 @@ def group_engine_key(trace: Trace,
                          "static-structure group (one policy, one sector "
                          "count)")
     replay = tsplit.replay_prefix()
-    split = costmodel.plan_hms_split(plan_depth(trace, cfgs), len(cfgs),
-                                     replay)
-    key = _shape_key(trace, cfgs, split.shards, split.t_segments, replay)
+    with obs.span("shard_plan", policy=cfgs[0].policy, configs=len(cfgs)):
+        split = costmodel.plan_hms_split(plan_depth(trace, cfgs),
+                                         len(cfgs), replay)
+        key = _shape_key(trace, cfgs, split.shards, split.t_segments,
+                         replay)
     _PLAN_BY_KEY[key] = split
     return key
 
@@ -708,17 +719,19 @@ def _scan_attempt(trace: Trace, cfgs: Sequence[HMSConfig], key: _EngineKey,
         y, _, _ = scan_ops.hms_scan(slot, meta, **kw)
         rounds = 1
     else:
-        prep = scan_ops.prepare(slot, meta, **kw)
-        warm = (torch.cat([s["derived"]["meta_warm"] for s in per])
-                if key.replay > 0 else None)
-        pairs = [_stitch_masks(key, s, dev) for s in per]
-        masks = (torch.stack([a for a, _ in pairs]),
-                 torch.stack([b for _, b in pairs]))
-        y, rounds = _run_split(
-            key, len(cfgs),
-            lambda cache, ctc, m: scan_ops.hms_scan(
-                slot, m, **kw, cache=cache, ctc=ctc, prepared=prep),
-            meta, warm, masks, dev)
+        with obs.span("stitch", sync=dev, engine="hms",
+                      segments=key.t_segments, replay=key.replay):
+            prep = scan_ops.prepare(slot, meta, **kw)
+            warm = (torch.cat([s["derived"]["meta_warm"] for s in per])
+                    if key.replay > 0 else None)
+            pairs = [_stitch_masks(key, s, dev) for s in per]
+            masks = (torch.stack([a for a, _ in pairs]),
+                     torch.stack([b for _, b in pairs]))
+            y, rounds = _run_split(
+                key, len(cfgs),
+                lambda cache, ctc, m: scan_ops.hms_scan(
+                    slot, m, **kw, cache=cache, ctc=ctc, prepared=prep),
+                meta, warm, masks, dev)
     out = []
     for j, s in enumerate(per):
         # scatter the decision words back to trace order; padding and
@@ -749,59 +762,131 @@ def _hms_ladder_keys(trace: Trace, cfgs: Sequence[HMSConfig],
     return out
 
 
+def _fingerprint(key: _EngineKey, width: int) -> str:
+    """Sentinel/ledger fingerprint of one engine unit, in the reference's
+    format: the static engine key plus the batch width.  The drift check,
+    the sentinel and the ledger all use it."""
+    return (f"hms:{key.policy}:n{key.n}:s{key.shards}x{key.depth}"
+            f":T{key.t_segments}r{key.replay}"
+            f":L{key.lines_alloc}:C{key.ctc_sets_alloc}x{key.ctc_ways_alloc}"
+            f"x{key.ctc_sectors}:p{key.phases}:w{width}")
+
+
 # What each guarded scan call did (newest last, at most _RUNS_KEPT): the
 # shape that produced the counters, the stitch rounds, the ladder's rung
-# and its events.  The reference records the same in its run ledger.
+# and its events.  Always on; with ``repro_torch.obs`` enabled the same
+# values also make the call's ledger record.
 _RUNS: List[Dict[str, object]] = []
 _RUNS_KEPT = 4096
 
 
-def _run_hms_batch(trace: Trace, cfgs: Sequence[HMSConfig], key: _EngineKey,
-                   dev, site: str = "hms_batch") -> List[Dict[str, object]]:
+def _obs_hms_record(entry: str, trace: Trace, key: _EngineKey, width: int,
+                    compiled: bool, wall_s: float, rounds: int, outcome,
+                    cfgs: Sequence[HMSConfig],
+                    lanes: Sequence[Dict[str, np.ndarray]], plan,
+                    dev: torch.device) -> None:
+    """Build + emit one HMS ledger record (caller gates on obs.enabled()),
+    as the reference's: ``key`` is the engine key that produced the
+    counters (the ladder may have descended from the planned one),
+    ``outcome`` the guard's ``LadderOutcome``, ``cfgs``/``lanes`` the
+    per-lane configs and raw counter dicts (recorded in full), ``plan``
+    the ``SplitPlan`` behind the *planned* shape."""
+    obs.record(obs.RunRecord(
+        entry=entry, engine="hms", trace=trace.name, n=trace.n,
+        phases=key.phases, engine_key=_fingerprint(key, width),
+        compiled=compiled, wall_s=wall_s, batch=width,
+        counter_digest=obs.counter_digest(lanes), shards=key.shards,
+        depth=key.depth,
+        load_imbalance=key.shards * key.depth / max(1, key.n),
+        t_segments=key.t_segments, stitch_rounds=rounds,
+        replay_prefix=key.replay, ladder_rung=outcome.rung,
+        retries=outcome.retries, degradations=outcome.events or None,
+        trace_fp=_sweepckpt.trace_fingerprint(trace),
+        config_digests=[_sweepckpt.config_digest(c) for c in cfgs] or None,
+        counters=[_sweepckpt.encode_counters(C) for C in lanes] or None,
+        plan_predicted_us=plan.predicted_us if plan is not None else None,
+        plan_alternatives=list(plan.alternatives) or None
+        if plan is not None else None,
+        calib_fingerprint=costmodel.active_profile().fingerprint,
+        host={**obs.host_metadata(), "device": dev.type},
+        **obs.git_info()))
+
+
+def _run_hms_ladder(trace: Trace, cfgs: Sequence[HMSConfig],
+                    key: _EngineKey, dev, entry: str,
+                    site: str) -> List[Dict[str, object]]:
     """Run one compatible config group under the degradation ladder: the
     planned (S, T), then (S, 1), then (1, 1); an OOM on a batch of several
     configs bisects it into guarded halves (the allocations in ``key`` are
-    group maxima, so the halves reuse it).  Returns one counter dict per
-    config."""
-    import time
-
+    group maxima, so the halves reuse it).  Accounts the call with the
+    sentinel, the drift check, ``_RUNS`` and (when enabled) the ledger.
+    Returns one counter dict per config."""
     def attempt(k: _EngineKey):
-        return lambda: _scan_attempt(trace, cfgs, k, dev)
+        def thunk():
+            # the whole rung is the scan span, as the reference's compiled
+            # engine holds the precompute, the scan and the reduction; its
+            # exit waits for the stream, so its wall covers the kernels
+            with obs.span("scan", sync=dev, engine="hms", policy=k.policy,
+                          shards=k.shards, batch=len(cfgs)):
+                return _scan_attempt(trace, cfgs, k, dev)
+        return thunk
 
     def bisect():
         h = len(cfgs) // 2
-        return (_run_hms_batch(trace, cfgs[:h], key, dev, site)
-                + _run_hms_batch(trace, cfgs[h:], key, dev, site)), 0, key
+        return (_run_hms_batch(trace, cfgs[:h], key, dev, entry)
+                + _run_hms_batch(trace, cfgs[h:], key, dev, entry)), 0, key
 
     rungs = [(f"S{k.shards}T{k.t_segments}", attempt(k))
              for k in _hms_ladder_keys(trace, cfgs, key)]
+    epoch = _build.library_epoch()
     t0 = time.perf_counter()
     (Cs, rounds, used), outcome = _guard.run_ladder(
         site, rungs, bisect=bisect if len(cfgs) > 1 else None)
     wall = time.perf_counter() - t0
+    # the library built or loaded during this call is its "compile" (a
+    # bisected batch's halves account their own)
+    compiled = (outcome.rung != "bisect"
+                and _build.library_epoch() != epoch)
+    fp = _fingerprint(used, len(cfgs))
     plan = _PLAN_BY_KEY.get(key)
     # (a bisected batch's halves are runs of their own; its own entry
     # carries the OOM event and no rounds)
-    _RUNS.append({"site": site, "trace": trace.name, "batch": len(cfgs),
+    _RUNS.append({"site": site, "trace": trace.name,
+                  "batch": len(cfgs), "engine_key": fp,
                   "shards": used.shards, "t_segments": used.t_segments,
                   "replay": used.replay, "rounds": rounds,
                   "rung": outcome.rung, "events": outcome.events,
-                  "wall_s": wall})
+                  "compiled": compiled, "wall_s": wall})
     del _RUNS[:-_RUNS_KEPT]
     if outcome.rung != "bisect":
+        obs.engine_run(fp, compiled)
         if plan is not None and used == key:
-            costmodel.check_plan_drift(
-                f"hms:{key.policy}:n{key.n}:s{key.shards}x{key.depth}"
-                f":T{key.t_segments}r{key.replay}:w{len(cfgs)}",
-                plan.predicted_us, wall)
+            costmodel.check_plan_drift(fp, plan.predicted_us, wall,
+                                       compiled)
+    if obs.enabled():
+        _obs_hms_record(entry, trace, used, len(cfgs), compiled, wall,
+                        rounds, outcome, cfgs, Cs, plan, dev)
     return Cs
 
 
+def _run_hms_batch(trace: Trace, cfgs: Sequence[HMSConfig], key: _EngineKey,
+                   dev, entry: str = "simulate_many"
+                   ) -> List[Dict[str, object]]:
+    """One config group of ``simulate_many`` as one batch of lanes under
+    the ladder (see :func:`_run_hms_ladder`), its host preprocessing in a
+    ``preprocess`` span first.  Returns one counter dict per config."""
+    with obs.span("preprocess", trace=trace.name, batch=len(cfgs)):
+        for c in cfgs:
+            preprocess(trace, c)
+    return _run_hms_ladder(trace, cfgs, key, dev, entry, "hms_batch")
+
+
 def _run_hms_scan(trace: Trace, cfg: HMSConfig, dev,
-                  key: _EngineKey | None = None) -> Dict[str, np.ndarray]:
+                  key: _EngineKey | None = None,
+                  entry: str = "simulate") -> Dict[str, np.ndarray]:
     if key is None:
         key = _engine_key(trace, cfg)
-    return _run_hms_batch(trace, [cfg], key, dev, site="hms")[0]
+    return _run_hms_ladder(trace, [cfg], key, dev, entry, "hms")[0]
 
 
 # ---------------------------------------------------------------------------
@@ -1032,27 +1117,56 @@ def simulate(trace: Trace, cfg: HMSConfig, nvlink: bool = False, *,
     dev = resolve_device(device, "simulate")
     cfg = cfg.validate()
     _rvalidate.validate_trace(trace)
-    return _simulate(trace, cfg, nvlink, dev)
+    return _simulate(trace, cfg, nvlink, dev, "simulate")
+
+
+def _single_tier_record(entry: str, trace: Trace, cfg: HMSConfig, C,
+                        wall_s: float, dev: torch.device) -> None:
+    obs.record(obs.RunRecord(
+        entry=entry, engine="single_tier", trace=trace.name, n=trace.n,
+        phases=trace.n_phases,
+        engine_key=f"single_tier:{cfg.organization}:n{trace.n}",
+        compiled=False, wall_s=wall_s, batch=1,
+        counter_digest=obs.counter_digest(C),
+        trace_fp=_sweepckpt.trace_fingerprint(trace),
+        config_digests=[_sweepckpt.config_digest(cfg)],
+        counters=[_sweepckpt.encode_counters(C)],
+        calib_fingerprint=costmodel.active_profile().fingerprint,
+        host={**obs.host_metadata(), "device": dev.type},
+        **obs.git_info()))
 
 
 def _simulate(trace: Trace, cfg: HMSConfig, nvlink: bool,
-              dev: torch.device) -> SimResult:
+              dev: torch.device, entry: str) -> SimResult:
     org = cfg.organization
     if org in ("inf_hbm", "scm", "hbm"):
+        t0 = time.perf_counter()
         timing = cfg.scm_timing if org == "scm" else cfg.dram_timing
-        C = _single_tier_counters(trace, cfg, timing, dev)
+        with obs.span("single_tier", sync=dev, organization=org,
+                      trace=trace.name):
+            C = _single_tier_counters(trace, cfg, timing, dev)
         if org == "hbm":
-            # oversubscribed HBM + UM paging over the host link
+            # oversubscribed HBM + UM paging over the host link (the paging
+            # engine emits its own "um" ledger record)
             um = _um.simulate_um(trace, cfg, nvlink=nvlink, device=dev)
+            if obs.enabled():
+                _single_tier_record(entry, trace, cfg, C,
+                                    time.perf_counter() - t0, dev)
             return _finish(trace.name, cfg, C, link_bytes=um.link_bytes,
                            fault_cycles=_um_fault_cycles(um, cfg, nvlink),
                            n_requests=trace.n,
                            phase_names=trace.phase_names, um=um)
+        if obs.enabled():
+            _single_tier_record(entry, trace, cfg, C,
+                                time.perf_counter() - t0, dev)
         return _finish(trace.name, cfg, C, n_requests=trace.n,
                        phase_names=trace.phase_names)
     # hms / separate
-    C = _run_hms_scan(trace, cfg, dev)
-    return _finish_hms(trace, cfg, C, nvlink, dev)
+    with obs.span("preprocess", trace=trace.name):
+        preprocess(trace, cfg)
+    C = _run_hms_scan(trace, cfg, dev, entry=entry)
+    with obs.span("postprocess", trace=trace.name):
+        return _finish_hms(trace, cfg, C, nvlink, dev)
 
 
 def simulate_many(trace: Trace, configs: Sequence[HMSConfig],
@@ -1084,7 +1198,7 @@ def simulate_many(trace: Trace, configs: Sequence[HMSConfig],
             groups.setdefault(
                 (cfg.policy, cfg.ctc_sectors_per_line), []).append(i)
         else:
-            results[i] = _simulate(trace, cfg, nvlink, dev)
+            results[i] = _simulate(trace, cfg, nvlink, dev, "simulate_many")
 
     for idxs in groups.values():
         if ck is not None:
@@ -1101,14 +1215,22 @@ def simulate_many(trace: Trace, configs: Sequence[HMSConfig],
                 continue
         cfgs = [configs[i] for i in idxs]
         key = group_engine_key(trace, cfgs)
-        Cs = _run_hms_batch(trace, cfgs, key, dev,
-                            site="hms" if len(cfgs) == 1 else "hms_batch")
-        for i, C in zip(idxs, Cs):
+        if len(idxs) == 1:
+            i = idxs[0]
+            C = _run_hms_scan(trace, configs[i], dev, key,
+                              entry="simulate_many")
             if ck is not None:
-                # journal before finishing, so a kill mid-batch keeps
-                # every lane the engine already produced
                 ck.put_hms(tfp, configs[i], nvlink, C)
             results[i] = _finish_hms(trace, configs[i], C, nvlink, dev)
+            continue
+        Cs = _run_hms_batch(trace, cfgs, key, dev)
+        with obs.span("postprocess", trace=trace.name, batch=len(idxs)):
+            for i, C in zip(idxs, Cs):
+                if ck is not None:
+                    # journal before finishing, so a kill mid-batch keeps
+                    # every lane the engine already produced
+                    ck.put_hms(tfp, configs[i], nvlink, C)
+                results[i] = _finish_hms(trace, configs[i], C, nvlink, dev)
     return results
 
 

@@ -42,17 +42,23 @@ sync a round.  The scan runs under the degradation ladder (T > 1 ->
 T = 1; an OOM bisects the batch), and an active sweep checkpoint replays
 journaled specs.  The reference's last rung, its frozen sequential scan,
 is not ported: it would run on the host, not on the card.
+
+With ``repro_torch.obs`` on, each :func:`simulate_um_many` call emits one
+``RunRecord`` with its dedupe accounting (lanes requested, run and
+deduped; a fully memoized call too) inside ``um_scan`` / ``stitch`` spans.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 import weakref
 from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
 
+from .. import _build, obs
 from .._device import resolve_device
 from ..core import costmodel, tsplit
 from ..core.timing import COLUMN_BYTES, UM_PAGE_BYTES, HMSConfig
@@ -143,6 +149,8 @@ class UMResult:
 
 _RESULT_CACHE: "weakref.WeakKeyDictionary[Trace, dict]" = \
     weakref.WeakKeyDictionary()
+# cumulative spec lanes the scan ran (``obs.cache_stats()["um_lanes_run"]``)
+_LANES_RUN = 0
 _PAGE_CACHE: "weakref.WeakKeyDictionary[Trace, tuple]" = \
     weakref.WeakKeyDictionary()
 
@@ -200,6 +208,15 @@ def um_group_key(trace: Trace, specs: Sequence[UMSpec],
         t_segments=t_segments,
         replay=replay if t_segments > 1 else 0,
     )
+
+
+def _fingerprint(key: _UMKey, width: int) -> str:
+    """Sentinel/ledger fingerprint of one paging run, in the reference's
+    format: the shape plus the batch width.  The drift check, the sentinel
+    and the ledger all use it."""
+    return (f"um:n{key.n}:P{key.pages_alloc}:F{key.frames_alloc}"
+            f":c{key.chunk_alloc}:p{key.phases}"
+            f":T{key.t_segments}r{key.replay}:w{width}")
 
 
 def _um_split_inputs(trace: Trace, key: _UMKey, dev) -> dict:
@@ -302,9 +319,17 @@ def _run_um_split(trace: Trace, key: _UMKey, specs: Sequence[UMSpec], dev):
 
 
 # What each guarded paging call did (newest last, at most _RUNS_KEPT):
-# segments, stitch rounds, the ladder's rung and its events.
+# segments, stitch rounds, the ladder's rung and its events.  Always on;
+# with ``repro_torch.obs`` enabled the same values also make the call's
+# ledger record.
 _RUNS: List[Dict[str, object]] = []
 _RUNS_KEPT = 4096
+
+
+def _lane_counters(r: UMResult) -> Dict[str, np.ndarray]:
+    return {"um_faults": r.phase_faults, "um_migrated": r.phase_migrated,
+            "um_writebacks": r.phase_writebacks,
+            "um_remote_cols": r.phase_remote_cols}
 
 
 def simulate_um_many(trace: Trace, specs: Sequence[UMSpec], *,
@@ -318,7 +343,11 @@ def simulate_um_many(trace: Trace, specs: Sequence[UMSpec], *,
     an active sweep checkpoint replays journaled specs.  ``device=None``
     runs on the CUDA card (raises if there is none), ``device="cpu"`` runs
     the kernel's plain version.  Results come back in input order; the
-    memo is kept per device, so a card run never returns a host result."""
+    memo is kept per device, so a card run never returns a host result.
+    With ``repro_torch.obs`` enabled every call emits one ledger record,
+    a fully memoized one too (engine key ``"um:memoized"``)."""
+    global _LANES_RUN
+    t_start = time.perf_counter()
     dev = resolve_device(device, "simulate_um_many")
     specs = list(specs)
     for s in specs:
@@ -345,21 +374,30 @@ def simulate_um_many(trace: Trace, specs: Sequence[UMSpec], *,
         else:
             run.append(s)
 
+    used = outcome = plan = rounds = None
+    compiled = False
     if run:
-        import time
-
         plan = costmodel.plan_um_split(trace.n, len(run))
         replay = tsplit.replay_prefix() if plan.t_segments > 1 else 0
         key = um_group_key(trace, run, plan.t_segments, replay)
 
         def attempt(k: _UMKey):
             def thunk():
-                if k.t_segments > 1:
-                    counts, rounds = _run_um_split(trace, k, run, dev)
-                else:
-                    counts, _ = um_ops.um_scan(**scan_args(trace, run, dev))
-                    rounds = 1
-                return counts.cpu().numpy(), rounds, k
+                # the span's exit waits for the stream (sync=dev), so its
+                # wall covers the kernel whatever the body ends in
+                with obs.span("um_scan", sync=dev, engine="um",
+                              lanes=len(run), trace=trace.name):
+                    if k.t_segments > 1:
+                        with obs.span("stitch", sync=dev, engine="um",
+                                      segments=k.t_segments,
+                                      replay=k.replay):
+                            counts, rounds = _run_um_split(trace, k, run,
+                                                           dev)
+                    else:
+                        counts, _ = um_ops.um_scan(
+                            **scan_args(trace, run, dev))
+                        rounds = 1
+                    return counts.cpu().numpy(), rounds, k
             return thunk
 
         def bisect():
@@ -376,29 +414,63 @@ def simulate_um_many(trace: Trace, specs: Sequence[UMSpec], *,
         if key.t_segments > 1:
             rungs.append(("T1", attempt(dataclasses.replace(
                 key, t_segments=1, replay=0))))
+        epoch = _build.library_epoch()
         t0 = time.perf_counter()
         (C, rounds, used), outcome = _guard.run_ladder(
             "um", rungs, bisect=bisect if len(run) > 1 else None)
         wall = time.perf_counter() - t0
+        compiled = (outcome.rung != "bisect"
+                    and _build.library_epoch() != epoch)
+        fp = _fingerprint(used, len(run))
         # (a bisected batch's halves are runs of their own; its own entry
         # carries the OOM event and no rounds)
         _RUNS.append({"trace": trace.name, "lanes": len(run),
-                      "t_segments": used.t_segments, "replay": used.replay,
-                      "rounds": rounds, "rung": outcome.rung,
-                      "events": outcome.events, "wall_s": wall})
+                      "engine_key": fp, "t_segments": used.t_segments,
+                      "replay": used.replay, "rounds": rounds,
+                      "rung": outcome.rung, "events": outcome.events,
+                      "compiled": compiled, "wall_s": wall})
         del _RUNS[:-_RUNS_KEPT]
         if outcome.rung != "bisect":
+            obs.engine_run(fp, compiled)
             if used.t_segments == plan.t_segments:
-                costmodel.check_plan_drift(
-                    f"um:n{key.n}:P{key.pages_alloc}:F{key.frames_alloc}"
-                    f":c{key.chunk_alloc}:p{key.phases}:T{key.t_segments}"
-                    f"r{key.replay}:w{len(run)}", plan.predicted_us, wall)
+                costmodel.check_plan_drift(fp, plan.predicted_us, wall,
+                                           compiled)
+        _LANES_RUN += len(run)
         for j, s in enumerate(run):
             cache[(dev.type, s)] = UMResult(s, *(C[j, k].copy()
                                                  for k in range(4)))
             if ck is not None:
                 ck.put_um(tfp, s, cache[(dev.type, s)])
-    return [cache[(dev.type, s)] for s in specs]
+    out = [cache[(dev.type, s)] for s in specs]
+    if obs.enabled():
+        lanes = [_lane_counters(r) for r in out]
+        obs.record(obs.RunRecord(
+            entry="simulate_um_many", engine="um", trace=trace.name,
+            n=trace.n, phases=trace.n_phases,
+            engine_key=(_fingerprint(used, len(run)) if used is not None
+                        else "um:memoized"),
+            compiled=compiled, wall_s=time.perf_counter() - t_start,
+            batch=len(run), counter_digest=obs.counter_digest(lanes),
+            t_segments=used.t_segments if used is not None else None,
+            stitch_rounds=rounds,
+            replay_prefix=used.replay if used is not None else None,
+            um_lanes_requested=len(specs), um_lanes_run=len(run),
+            um_lanes_deduped=len(specs) - len(run),
+            trace_fp=_sweepckpt.trace_fingerprint(trace),
+            config_digests=[_sweepckpt.um_spec_key(r.spec) for r in out],
+            counters=[_sweepckpt.encode_counters(c) for c in lanes],
+            ladder_rung=outcome.rung if outcome is not None else None,
+            retries=outcome.retries if outcome is not None else None,
+            degradations=(outcome.events or None)
+            if outcome is not None else None,
+            plan_predicted_us=plan.predicted_us
+            if plan is not None else None,
+            plan_alternatives=list(plan.alternatives) or None
+            if plan is not None else None,
+            calib_fingerprint=costmodel.active_profile().fingerprint,
+            host={**obs.host_metadata(), "device": dev.type},
+            **obs.git_info()))
+    return out
 
 
 _FIELDS = ("phase_faults", "phase_migrated", "phase_writebacks",
