@@ -1,10 +1,16 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port (HMS simulator with UM paging, dense and SSM
-serving) on one card.
+"""Drive the PyTorch/CUDA port (HMS simulator with UM paging, serving of
+every model family) on one card.
 
     python3 chip_smoke.py [--out DIR]
 
-Phases, each printed as one JSON line; any failure exits non-zero:
+Phases, each printed as one JSON line; any failure exits non-zero.  They
+run in the order 1, 2, 6, 7, 7b, 8, then 3-5d and 9: the serving phases
+come first because late in a long process (from ~610 s on, on the
+H100 machines) the torch profiler's window now and then records one
+device kernel fewer than ran, which ``decode_profile``'s device kernel
+counts would read as a missing launch; its retry line then gives the
+window's kernel count and where the kernel kind sits among them.
 
   1. device  - the card (nvidia-smi name and power limit), torch and CUDA.
   2. build   - nvcc builds every kernel of ``src/repro_torch`` for sm_90a.
@@ -178,6 +184,26 @@ Phases, each printed as one JSON line; any failure exits non-zero:
                and 9 flash_attention launches per prefill, 9
                paged_attention per decode step), each freed before the
                next.
+  7b. families - the moe, vlm and encdec families (``families_phase``) at
+               published widths, bf16, seed-0 weights, each freed before
+               the next: phi3.5-moe-42b at 24 of its 32 layers (its 32
+               hold 83.7 GB, more than the card), pixtral-12b whole (40
+               decoder and 24 vision layers; max_len 4096, since a slot
+               holds the 1024 image positions of every batch) and
+               whisper-tiny whole (4 + 4 layers, 1500 frames), each on the
+               two mixes above (``serve``: launches against
+               ``path_launches``; ``decode_profile``, which also counts the
+               encdec's decode cross-attention on the wgmma kernel).  Then
+               flash_attention at the new shapes, non-causal (whisper's
+               encoder, B 4, S = T = 1500, 6 heads, hd 64; pixtral's
+               vision tower, S = T = 1024, 16 heads, hd 64; cross-attention
+               S 11 and S 1 over T 1500) in bf16 and float32, and
+               paged_attention on phi's long-mix cache (32 over 8 heads, hd
+               128), each against its plain version; then float32 and bf16
+               cuts on card and CPU as in phase 8: phi3.5-moe at 2 layers,
+               pixtral at 2 decoder and 2 vision layers, whisper-tiny
+               whole, their logit runs on seeded random frames and patches
+               (the engine's zeros leave the encoders' output zero).
   8. serve_card_vs_cpu - cuts at full width, TF32 off for matmuls and
                cuDNN: qwen2.5-3b and mamba2-1.3b at 2 layers, zamba2-2.7b
                at one super-block (6 Mamba2 layers + the shared block).  In
@@ -194,7 +220,8 @@ Phases, each printed as one JSON line; any failure exits non-zero:
 ``--out DIR`` also writes every JSON line to DIR/chip_smoke.jsonl;
 ``--only um`` runs phases 1-2 and the UM phases (4b, 5b and
 um_step_costs), ``--only lanes`` phases 1-2, 4c and 5c, ``--only obs``
-phases 1-2 and 5d,
+phases 1-2 and 5d, ``--only families`` phases 1-2 and 7b, ``--only
+bf16_spread`` the bf16 cuts' distances over 8 weight seeds,
 ``--only um_step_costs`` that phase alone, ``--only
 amil_probe`` the amil_probe rows and the out-of-range check (the one-launch
 rule not judged), ``--only ssd`` the ssd_scan rows and ``--only flash``
@@ -1182,6 +1209,80 @@ def bound(flops: float, nbytes: float, dt):
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def flash_row(torch, dev, g, case, B, S, T, causal, cap, H, KV, hd, dt,
+              flush) -> dict:
+    """flash_attention against its plain version on one random input set:
+    emits and returns its ``kernel_vs_plain`` row (see ``flash_checks``)."""
+    from repro_torch import _build
+    from repro_torch.kernels.flash_attention import ops, ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q, k, v = (torch.randn(B, n, h, hd, generator=g, device=dev).to(dt)
+               for n, h in ((S, H), (T, KV), (T, KV)))
+    run_k = lambda: ops.flash_attention(q, k, v, causal=causal, softcap=cap)
+    run_p = lambda: ref.flash_attention_reference(q, k, v, causal=causal,
+                                                  softcap=cap)
+    _build.reset_counts()
+    got = run_k()
+    designs = [n.split(".")[1] for n, c in _build.launches.items()
+               if n.startswith("flash_attention.") and c]
+    want = run_p()
+    torch.cuda.synchronize()
+    err = close(torch, got, want, f"flash_attention {case}")
+    need(designs == [ops.DESIGNS[dt]], f"flash_attention {case}: ran "
+         f"{designs}, expected the {ops.DESIGNS[dt]} kernel for {dt}")
+    # (query, key) pairs this run's masks keep
+    pairs = sum(min(T, s + T - S + 1) for s in range(S)) if causal \
+        else S * T
+    flops = 4 * B * H * hd * pairs
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    bound_ms, bound_by = bound(flops, nbytes, dt)
+    extra = {}
+    if dt == torch.float32:
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = F32_PIECE_PRODUCTS * flops / PEAK_FLOPS["bfloat16"] * 1e3
+        extra = {"fma_bound_ms": flops / PEAK_FLOPS["float32"] * 1e3,
+                 "tensor_bound_ms": t_ops, "bytes_bound_ms": t_bytes,
+                 "blocks_per_sm": None}
+        if designs == ["mma3"]:        # else an older checkout's FMA kernel
+            extra["blocks_per_sm"] = ops.blocks_per_sm(hd)
+            bound_ms = max(t_ops, t_bytes)
+            bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    event_ms(torch, run_k, reps=3, flush=flush)             # warm-up
+    library_ms = None
+    if cap == 0.0:
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        if S == T or not causal:
+            run_l = lambda: sdpa(qt, kt, vt, is_causal=causal,
+                                 enable_gqa=True)
+        else:                            # SDPA aligns is_causal top-left
+            mask = torch.arange(T, device=dev)[None, :] \
+                <= torch.arange(S, device=dev)[:, None] + (T - S)
+            run_l = lambda: sdpa(qt, kt, vt, attn_mask=mask,
+                                 enable_gqa=True)
+        # float32: SDPA with TF32 off for matmuls and cuDNN, as the kernel
+        # keeps float32's accuracy
+        tf32 = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            event_ms(torch, run_l, reps=3, flush=flush)
+            library_ms = event_ms(torch, run_l, reps=20, flush=flush)
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = tf32
+    row = {"name": "flash_attention", "case": case, "design": designs[0],
+           "shape": {"B": B, "S": S, "T": T, "H": H, "KV": KV, "hd": hd},
+           "dtype": dtype_name(dt), "causal": causal, "softcap": cap,
+           "max_abs_err": err,
+           "ms": event_ms(torch, run_k, reps=20, flush=flush),
+           "plain_ms": event_ms(torch, run_p, reps=3, flush=flush),
+           "bound_ms": bound_ms, "bound_by": bound_by, **extra,
+           "library_ms": library_ms}
+    emit({"phase": "kernel_vs_plain", **row})
+    return row
+
+
 def flash_checks(torch, dev, flush):
     """flash_attention against its plain version, every case in bf16 and in
     float32; returns the bf16 slice row.  Each row names the design that
@@ -1195,9 +1296,6 @@ def flash_checks(torch, dev, flush):
     float32) is timed beside every case without a softcap.  A copy of this
     script beside another checkout's ``src/`` measures that checkout's
     kernels (``--only flash``)."""
-    from repro_torch import _build
-    from repro_torch.kernels.flash_attention import ops, ref
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     g = torch.Generator(device=dev).manual_seed(12)
     bf16, f32 = torch.bfloat16, torch.float32
     rows = {}
@@ -1219,73 +1317,8 @@ def flash_checks(torch, dev, flush):
     for (base, B, S, T, causal, cap, (H, KV, hd)), dt in (
             (c, dt) for c in cases for dt in (bf16, f32)):
         case = base if dt == bf16 else base + "_float32"
-        q, k, v = (torch.randn(B, n, h, hd, generator=g, device=dev).to(dt)
-                   for n, h in ((S, H), (T, KV), (T, KV)))
-        run_k = lambda: ops.flash_attention(q, k, v, causal=causal,
-                                            softcap=cap)
-        run_p = lambda: ref.flash_attention_reference(q, k, v, causal=causal,
-                                                      softcap=cap)
-        _build.reset_counts()
-        got = run_k()
-        designs = [n.split(".")[1] for n, c in _build.launches.items()
-                   if n.startswith("flash_attention.") and c]
-        want = run_p()
-        torch.cuda.synchronize()
-        err = close(torch, got, want, f"flash_attention {case}")
-        need(designs == [ops.DESIGNS[dt]], f"flash_attention {case}: ran "
-             f"{designs}, expected the {ops.DESIGNS[dt]} kernel for {dt}")
-        # (query, key) pairs this run's masks keep
-        pairs = sum(min(T, s + T - S + 1) for s in range(S)) if causal \
-            else S * T
-        flops = 4 * B * H * hd * pairs
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-        bound_ms, bound_by = bound(flops, nbytes, dt)
-        extra = {}
-        if dt == f32:
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = F32_PIECE_PRODUCTS * flops / PEAK_FLOPS["bfloat16"] * 1e3
-            extra = {"fma_bound_ms": flops / PEAK_FLOPS["float32"] * 1e3,
-                     "tensor_bound_ms": t_ops, "bytes_bound_ms": t_bytes,
-                     "blocks_per_sm": None}
-            if designs == ["mma3"]:    # else an older checkout's FMA kernel
-                extra["blocks_per_sm"] = ops.blocks_per_sm(hd)
-                bound_ms = max(t_ops, t_bytes)
-                bound_by = "operations" if t_ops >= t_bytes else "bytes"
-        event_ms(torch, run_k, reps=3, flush=flush)         # warm-up
-        library_ms = None
-        if cap == 0.0:
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            if S == T or not causal:
-                run_l = lambda: sdpa(qt, kt, vt, is_causal=causal,
-                                     enable_gqa=True)
-            else:                        # SDPA aligns is_causal top-left
-                mask = torch.arange(T, device=dev)[None, :] \
-                    <= torch.arange(S, device=dev)[:, None] + (T - S)
-                run_l = lambda: sdpa(qt, kt, vt, attn_mask=mask,
-                                     enable_gqa=True)
-            # float32: SDPA with TF32 off for matmuls and cuDNN, as the
-            # kernel keeps float32's accuracy
-            tf32 = (torch.backends.cuda.matmul.allow_tf32,
-                    torch.backends.cudnn.allow_tf32)
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
-            try:
-                event_ms(torch, run_l, reps=3, flush=flush)
-                library_ms = event_ms(torch, run_l, reps=20, flush=flush)
-            finally:
-                (torch.backends.cuda.matmul.allow_tf32,
-                 torch.backends.cudnn.allow_tf32) = tf32
-        row = {"name": "flash_attention", "case": case,
-               "design": designs[0],
-               "shape": {"B": B, "S": S, "T": T, "H": H, "KV": KV, "hd": hd},
-               "dtype": dtype_name(dt), "causal": causal, "softcap": cap,
-               "max_abs_err": err,
-               "ms": event_ms(torch, run_k, reps=20, flush=flush),
-               "plain_ms": event_ms(torch, run_p, reps=3, flush=flush),
-               "bound_ms": bound_ms, "bound_by": bound_by, **extra,
-               "library_ms": library_ms}
-        emit({"phase": "kernel_vs_plain", **row})
-        rows[case] = row
+        rows[case] = flash_row(torch, dev, g, case, B, S, T, causal, cap, H,
+                               KV, hd, dt, flush)
     return rows["slice"]
 
 
@@ -1539,24 +1572,53 @@ def path_launches(cfg):
     design of the model's type, ``flash_ops.DESIGNS``: bf16 the wgmma
     kernel, float32 the three-piece mma kernel; the
     ``flash_attention.<design>`` counts) and paged_attention, one launch,
-    in decode; every Mamba2 layer runs ssd_scan in prefill (only through
-    the design of the model's type, ``ssd_ops.DESIGNS``: the
-    ``ssd_scan.<design>`` counts; its decode step is plain torch ops); the
-    hybrid applies its shared attention block after every ``attn_every``
-    Mamba2 layers."""
+    in decode; the moe's blocks likewise (the experts are batched
+    products); the vlm's vision layers add one flash_attention each to
+    prefill; the encdec's encoder layers and its decoder's cross-attention
+    add one each to prefill, and its cross-attention one flash_attention a
+    layer to every decode step (one query over the cached encoder K/V);
+    every Mamba2 layer runs ssd_scan in prefill (only through the design of
+    the model's type, ``ssd_ops.DESIGNS``: the ``ssd_scan.<design>``
+    counts; its decode step is plain torch ops); the hybrid applies its
+    shared attention block after every ``attn_every`` Mamba2 layers."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     L = cfg.n_layers
     design = "flash_attention." + flash_ops.DESIGNS[cfg.torch_dtype]
+
+    def flash(n):
+        return {"flash_attention": n, design: n}
     ssd = {"ssd_scan": L,
            "ssd_scan." + ssd_ops.DESIGNS[cfg.torch_dtype]: L}
-    if cfg.family == "dense":
-        return {"flash_attention": L, design: L}, {"paged_attention": L}
+    if cfg.family in ("dense", "moe"):
+        return flash(L), {"paged_attention": L}
+    if cfg.family == "vlm":
+        return flash(cfg.n_vision_layers + L), {"paged_attention": L}
+    if cfg.family == "encdec":
+        return flash(cfg.n_enc_layers + 2 * L), \
+            {"paged_attention": L, **flash(L)}
     if cfg.family == "ssm":
         return ssd, {}
     n_attn = L // cfg.attn_every
-    return {**ssd, "flash_attention": n_attn, design: n_attn}, \
-        {"paged_attention": n_attn}
+    return {**ssd, **flash(n_attn)}, {"paged_attention": n_attn}
+
+
+def image_positions(cfg) -> int:
+    """Positions ahead of each prompt: the vlm's image patches."""
+    return cfg.n_patches if cfg.family == "vlm" else 0
+
+
+def stub_inputs(torch, cfg, B: int, seed=None) -> dict:
+    """The encdec's audio frames and the vlm's image patches for a batch of
+    B, float32 on the CPU: the engine's zeros (``engine.stub_inputs``), or
+    (``seed``) standard normal draws of the same shapes, which drive the
+    encoders."""
+    from repro_torch.serving import engine
+    zeros = engine.stub_inputs(cfg, B, "cpu")
+    if seed is None:
+        return zeros
+    g = torch.Generator().manual_seed(seed)
+    return {k: torch.randn(v.shape, generator=g) for k, v in zeros.items()}
 
 
 def launcher_traffic(Request, vocab):
@@ -1648,10 +1710,22 @@ def kernel_count(torch, prof, needle: str) -> int:
                and needle in e.name)
 
 
+def window_records(torch, prof, needle: str) -> dict:
+    """The device kernels a profiler window recorded and the positions of
+    ``needle``'s among them in start order: where a record went missing."""
+    kern = sorted((e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda e: e.time_range.start)
+    return {"kernels": len(kern),
+            "needle_positions": [i for i, e in enumerate(kern)
+                                 if needle in e.name]}
+
+
 def decode_profile(torch, dev, model, cfg, scfg, traffic, name, steps=3,
                    retries=2):
     """torch.profiler over one prefill and then ``steps`` decode steps of
-    the traffic's first batch: wall time, device (kernel) time, the
+    the traffic's first batch (zero frames or patches, as the engine
+    passes them): wall time, device (kernel) time, the
     device's busy share, and the kernels that take the most of it.  Device
     time is None when the profiler records no kernel on this machine.
     Where the kernel counts miss their expected values, both windows are
@@ -1665,7 +1739,10 @@ def decode_profile(torch, dev, model, cfg, scfg, traffic, name, steps=3,
     toks = np.zeros((len(reqs), S), np.int32)
     for i, r in enumerate(reqs):
         toks[i, S - r.prompt.shape[0]:] = r.prompt
-    batch = {"tokens": torch.from_numpy(toks).to(dev)}
+    batch = {"tokens": torch.from_numpy(toks).to(dev),
+             **{k: v.to(dev) for k, v in stub_inputs(
+                 torch, cfg, len(reqs)).items()}}
+    S += image_positions(cfg)
     prefill(model, batch, cfg, max_len=scfg.max_len)            # warm-up
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -1703,21 +1780,29 @@ def decode_profile(torch, dev, model, cfg, scfg, traffic, name, steps=3,
               "prefill_ssd_mma": kernel_count(torch, pprof, "ssd_mma_kernel"),
               "prefill_ssd_mma3": kernel_count(torch, pprof,
                                                "ssd_mma3_kernel"),
-              "decode_paged": kernel_count(torch, prof, "paged_kernel")}
+              "decode_paged": kernel_count(torch, prof, "paged_kernel"),
+              "decode_flash_wgmma": kernel_count(torch, prof,
+                                                 "flash_wgmma_kernel")}
     want = {"prefill_flash_wgmma": per_prefill.get("flash_attention.wgmma",
                                                    0),
             "prefill_flash_mma3": per_prefill.get("flash_attention.mma3",
                                                   0),
             "prefill_ssd_mma": per_prefill.get("ssd_scan.mma", 0),
             "prefill_ssd_mma3": per_prefill.get("ssd_scan.mma3", 0),
-            "decode_paged": per_decode.get("paged_attention", 0) * steps}
+            "decode_paged": per_decode.get("paged_attention", 0) * steps,
+            "decode_flash_wgmma": per_decode.get("flash_attention.wgmma", 0)
+            * steps}
     off = [k for k in counts
            if (pkern if k.startswith("prefill") else kernels)
            and counts[k] != want[k]]
     if off and retries:
         emit({"phase": "decode_profile_retry", "model": cfg.name,
               "traffic": name, "device_kernel_counts": counts,
-              "expected": want})
+              "expected": want,
+              "prefill_records": window_records(torch, pprof,
+                                                "flash_wgmma_kernel"),
+              "decode_records": window_records(torch, prof,
+                                               "paged_kernel")})
         return decode_profile(torch, dev, model, cfg, scfg, traffic, name,
                               steps, retries - 1)
     for k in counts:
@@ -1773,15 +1858,55 @@ class plain_kernels:
             setattr(m, n, f)
 
 
-def logit_run(torch, model, cfg, where, toks, feed=None):
-    """Logits of one prefill of ``toks`` and three decode steps, each fed
-    the given tokens (or the run's own argmax); returns (logits on the
-    CPU in float32, the tokens fed)."""
+class routing:
+    """Within it, the MoE layers' expert choices (``moe._top_k``) are
+    recorded in ``routes``, one (tokens, k) tensor a layer call, or, given
+    ``replay`` (another run's ``routes``), taken from it, the weights
+    gathered from this run's own router probabilities.  With the float32
+    run's choices replayed, a bf16 run's logits differ from the float32
+    ones by rounding alone, not by a near tie that bf16 resolves to
+    another expert (a flip moves a token's output by a whole expert's)."""
+
+    def __init__(self, replay=None):
+        self.replay, self.routes = replay, []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.mod, self.orig = moe, moe._top_k
+
+        def top_k(probs, k):
+            if self.replay is None:
+                w, e = self.orig(probs, k)
+            else:
+                e = self.replay[len(self.routes)].to(probs.device)
+                w = probs.gather(-1, e)
+            self.routes.append(e.cpu())
+            return w, e
+        moe._top_k = top_k
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._top_k = self.orig
+
+
+def route_flips(a, b) -> int:
+    """(token, choice) pairs routed to another expert in run a than in b."""
+    return int(sum(int((x != y).sum()) for x, y in zip(a.routes, b.routes)))
+
+
+def logit_run(torch, model, cfg, where, toks, feed=None, inputs=None):
+    """Logits of one prefill of ``toks`` (with ``inputs``, the stub frames
+    or patches) and three decode steps at the positions after the prompt
+    and any image positions, each fed the given tokens (or the run's own
+    argmax); returns (logits on the CPU in float32, the tokens fed)."""
     from repro_torch.models import decode_step, prefill
-    logits, cache = prefill(model, {"tokens": toks.to(where)}, cfg,
-                            max_len=32)
+    start = toks.shape[1] + image_positions(cfg)
+    batch = {"tokens": toks.to(where),
+             **{k: v.to(where) for k, v in (inputs or {}).items()}}
+    logits, cache = prefill(model, batch, cfg,
+                            max_len=max(32, -(-(start + 3) // 16) * 16))
     outs, fed = [logits.float().cpu()], []
-    for i, pos in enumerate(range(12, 15)):
+    for i, pos in enumerate(range(start, start + 3)):
         tok = feed[i] if feed is not None else \
             outs[-1].argmax(-1, keepdim=True).to(torch.int32)
         fed.append(tok)
@@ -1794,20 +1919,83 @@ def max_diff(a, b) -> float:
     return max(float((x - y).abs().max()) for x, y in zip(a, b))
 
 
+def rms_diff(a, b) -> float:
+    """Root mean square of the differences over every logit of the runs."""
+    sq = sum(float(((x - y) ** 2).sum()) for x, y in zip(a, b))
+    return (sq / sum(x.numel() for x in a)) ** 0.5
+
+
+def bf16_distances(torch, card, host, cfg, dev, toks, inputs) -> dict:
+    """The bf16 model ``card`` (on the card) and its copy ``host`` (on the
+    CPU) against a float32 copy of the same weights on the CPU, over
+    ``logit_run``s fed the CPU bf16 run's tokens: ``max_logit_diff`` (card
+    against CPU), ``logit_scale``, each path's distance from float32 by
+    the max norm and by RMS (``*_rms``), and the card with the plain
+    versions of its kernels against the CPU.  For the moe the same are
+    taken again on runs that replay the float32 run's expert choices
+    (``routing``), and the free runs' values keep a ``free_`` prefix
+    beside their routing flips."""
+    import copy
+    import dataclasses
+
+    def runs(replay=None):
+        with routing(replay) as rh:
+            lh, feed = logit_run(torch, host, cfg, "cpu", toks,
+                                 inputs=inputs)
+        with routing(replay) as rc:
+            lc, _ = logit_run(torch, card, cfg, dev, toks, feed, inputs)
+        with routing(replay), plain_kernels(torch):
+            lp, _ = logit_run(torch, card, cfg, dev, toks, feed, inputs)
+        return lh, lc, lp, feed, rh, rc
+
+    def distances(lh, lc, lp, l32):
+        return {"max_logit_diff": max_diff(lc, lh),
+                "logit_scale": float(lh[-1].abs().max()),
+                "card_vs_float32": max_diff(lc, l32),
+                "cpu_vs_float32": max_diff(lh, l32),
+                "card_vs_float32_rms": rms_diff(lc, l32),
+                "cpu_vs_float32_rms": rms_diff(lh, l32),
+                "card_plain_vs_cpu": max_diff(lp, lh)}
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    host32 = copy.deepcopy(host).float()
+    lh, lc, lp, feed, rh, rc = runs()
+    with routing() as r32:
+        l32, _ = logit_run(torch, host32, cfg32, "cpu", toks, feed, inputs)
+    out = distances(lh, lc, lp, l32)
+    if cfg.family == "moe":
+        out = {"free_" + k: v for k, v in out.items()}
+        out["route_flips"] = {"card_vs_cpu": route_flips(rc, rh),
+                              "card_vs_float32": route_flips(rc, r32),
+                              "cpu_vs_float32": route_flips(rh, r32)}
+        lh, lc, lp, _, _, _ = runs(r32.routes)
+        out.update(distances(lh, lc, lp, l32), routing="float32 run's")
+    return out
+
+
 def serve_card_vs_cpu(torch, dev, arch: str, n_layers: int,
-                      dtype: str = "float32") -> dict:
-    """``arch`` at full width cut to ``n_layers``, TF32 off for matmuls and
-    cuDNN: the card against the port's CPU path on the same weights, the
-    logits of a prefill and 3 decode steps fed the same tokens.  float32:
-    the launcher's requests served on both give the same tokens and KV
-    stats.  bf16 (the
+                      dtype: str = "float32", scfg=None, **cuts) -> dict:
+    """``arch`` at full width cut to ``n_layers`` (and ``cuts``, e.g. the
+    vision tower's depth), TF32 off for matmuls and cuDNN: the card against
+    the port's CPU path on the same weights, the logits of a prefill (with
+    seeded random frames or patches, which drive the encoders; the
+    engine's zeros do not) and 3 decode steps fed the same tokens.
+    float32: the launcher's requests served on both (``scfg``, default
+    ``ServeConfig()``) give the same tokens and KV stats.  bf16 (the
     card's prefill attention is the wgmma kernel): the largest logit
     difference within BF16_LOGIT_TOL of the logit scale wherever bf16
     itself allows it, i.e. wherever the CPU path's bf16 logits stay that
     close to its float32 logits of the same weights; and always the card's
     bf16 logits no further than BF16_VS_CPU times the CPU path's from those
-    float32 logits.  The card with the plain versions in place of its
-    kernels is shown beside it."""
+    float32 logits (``bf16_distances``).  For the moe, both rules judge
+    runs that replay the float32 run's expert choices (``routing``), since
+    a near tie that two paths round apart sends a token to another expert
+    (``--only bf16_spread``: seeds whose bf16 runs land 1.77 and 7.75 from
+    each other that way), and the second rule reads RMS distances: the
+    moe's large residual stream (experts drawn at 1 / sqrt(E)) makes the
+    max norm's ratio swing by +-35% between seeds even without a flip, the
+    RMS ratio by under 10%.  The free runs' differences and their routing
+    flips are shown beside them, and the card with the plain versions in
+    place of its kernels."""
     import copy
     import dataclasses
     from repro_torch import _build
@@ -1817,7 +2005,7 @@ def serve_card_vs_cpu(torch, dev, arch: str, n_layers: int,
     from repro_torch.models import Transformer
     from repro_torch.serving import Engine, Request, ServeConfig
     cfg = dataclasses.replace(get_config(arch), n_layers=n_layers,
-                              dtype=dtype)
+                              dtype=dtype, **cuts)
     old = (torch.backends.cuda.matmul.allow_tf32,
            torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1830,7 +2018,7 @@ def serve_card_vs_cpu(torch, dev, arch: str, n_layers: int,
         for model, where in ((card, dev), (host, "cpu")):
             if dtype != "float32":
                 break                   # bf16 tokens may differ: not served
-            eng = Engine(cfg, model, ServeConfig(), device=where)
+            eng = Engine(cfg, model, scfg or ServeConfig(), device=where)
             for r in launcher_traffic(Request, cfg.vocab):
                 eng.submit(r)
             _build.reset_counts()
@@ -1841,25 +2029,23 @@ def serve_card_vs_cpu(torch, dev, arch: str, n_layers: int,
             stats.append(eng.kv_stats)
         toks = torch.randint(1, cfg.vocab, (4, 12), generator=torch.Generator(
         ).manual_seed(2), dtype=torch.int32)
-        lh, feed = logit_run(torch, host, cfg, "cpu", toks)
-        lc, _ = logit_run(torch, card, cfg, dev, toks, feed)
-        diff, scale = max_diff(lc, lh), float(lh[-1].abs().max())
+        inputs = stub_inputs(torch, cfg, toks.shape[0], seed=3)
         extra = {}
-        if dtype != "float32":
-            cfg32 = dataclasses.replace(cfg, dtype="float32")
-            l32, _ = logit_run(torch, copy.deepcopy(host).float(), cfg32,
-                               "cpu", toks, feed)
-            with plain_kernels(torch):
-                lp, _ = logit_run(torch, card, cfg, dev, toks, feed)
-            extra = {"card_vs_float32": max_diff(lc, l32),
-                     "cpu_vs_float32": max_diff(lh, l32),
-                     "card_plain_vs_cpu": max_diff(lp, lh)}
+        if dtype == "float32":
+            lh, feed = logit_run(torch, host, cfg, "cpu", toks,
+                                 inputs=inputs)
+            lc, _ = logit_run(torch, card, cfg, dev, toks, feed, inputs)
+            diff, scale = max_diff(lc, lh), float(lh[-1].abs().max())
+        else:
+            extra = bf16_distances(torch, card, host, cfg, dev, toks, inputs)
+            diff, scale = extra.pop("max_logit_diff"), \
+                extra.pop("logit_scale")
         del card, host
     finally:
         torch.backends.cuda.matmul.allow_tf32, \
             torch.backends.cudnn.allow_tf32 = old
     row = {"phase": "serve_card_vs_cpu", "model": cfg.name,
-           "family": cfg.family, "n_layers": n_layers,
+           "family": cfg.family, "n_layers": n_layers, "cuts": cuts,
            "dtype": dtype, "allow_tf32": False,
            "max_logit_diff": diff, "logit_scale": scale, **extra}
     if dtype == "float32":
@@ -1870,7 +2056,7 @@ def serve_card_vs_cpu(torch, dev, arch: str, n_layers: int,
                    launches=launches)
         emit(row)
         ssd = launches.get("ssd_scan", 0)
-        need(cfg.family == "dense" or (
+        need(cfg.family not in ("ssm", "hybrid") or (
             ssd > 0 and launches.get(
                 "ssd_scan." + ssd_ops.DESIGNS[torch.float32], 0) == ssd),
              f"{cfg.name}: float32 ssd_scan launches {launches}")
@@ -1886,17 +2072,61 @@ def serve_card_vs_cpu(torch, dev, arch: str, n_layers: int,
         need(stats[0] == stats[1], f"{cfg.name}: KV stats differ: {stats}")
         return row
     tol = BF16_LOGIT_TOL * scale
-    row["logit_tol"] = tol
-    row["logit_tol_applies"] = extra["cpu_vs_float32"] <= tol
+    norm = "_rms" if cfg.family == "moe" else ""
+    row.update(logit_tol=tol,
+               logit_tol_applies=extra["cpu_vs_float32"] <= tol,
+               vs_cpu_norm="rms" if norm else "max")
     emit(row)
     need(not row["logit_tol_applies"] or diff <= tol,
          f"{cfg.name} bf16: max logit difference {diff} beyond "
          f"{BF16_LOGIT_TOL} of the logit scale {scale}")
-    need(extra["card_vs_float32"] <= BF16_VS_CPU * extra["cpu_vs_float32"],
-         f"{cfg.name} bf16: the card's logits are {extra['card_vs_float32']}"
-         f" from the float32 run, the CPU path's "
-         f"{extra['cpu_vs_float32']}")
+    card_d, cpu_d = (extra[k + "_vs_float32" + norm] for k in ("card", "cpu"))
+    need(card_d <= BF16_VS_CPU * cpu_d,
+         f"{cfg.name} bf16: the card's logits are {card_d} from the float32 "
+         f"run ({row['vs_cpu_norm']}), the CPU path's {cpu_d}")
     return row
+
+
+def bf16_spread(torch, dev, seeds=range(1, 9)) -> None:
+    """``--only bf16_spread``: ``bf16_distances`` of the 2-layer bf16 cuts
+    of phi3.5-moe-42b and qwen2.5-3b over weight seeds (the serving check
+    uses seed 1), one line a seed: how far the ratio of the card's to the
+    CPU path's distance from float32 swings by the max norm and by RMS,
+    with free and (moe) replayed routing."""
+    import copy
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import Transformer
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for arch in ("phi3.5-moe-42b", "qwen2.5-3b"):
+            cfg = dataclasses.replace(get_config(arch), n_layers=2,
+                                      dtype="bfloat16")
+            for seed in seeds:
+                card = Transformer(cfg, generator=torch.Generator(
+                    device=dev).manual_seed(seed), device=dev)
+                host = copy.deepcopy(card).to("cpu")
+                toks = torch.randint(1, cfg.vocab, (4, 12),
+                                     generator=torch.Generator(
+                                     ).manual_seed(2), dtype=torch.int32)
+                d = bf16_distances(torch, card, host, cfg, dev, toks, {})
+                row = {"phase": "bf16_spread", "model": cfg.name,
+                       "seed": seed, **d}
+                for pre in ("", "free_"):
+                    if pre + "cpu_vs_float32" in d:
+                        for norm in ("", "_rms"):
+                            row[f"{pre}ratio{norm or '_max'}"] = \
+                                d[f"{pre}card_vs_float32{norm}"] / \
+                                d[f"{pre}cpu_vs_float32{norm}"]
+                emit(row)
+                del card, host
+                torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = old
 
 
 def smoke_serve(torch) -> dict:
@@ -2032,6 +2262,102 @@ def ssm_serving_phases(torch, dev):
     serve_card_vs_cpu(torch, dev, "zamba2-2.7b", super_block)
     serve_card_vs_cpu(torch, dev, "zamba2-2.7b", super_block, "bfloat16")
     return total
+
+
+# the families phase: (arch, decoder layers served, the launcher mix's and
+# the long mix's max_len).  phi3.5-moe-42b's 32 layers hold 83.7 GB of bf16
+# weights, more than the card's 80 GB: its depth is cut to 24 (62.9 GB) at
+# published widths.  A vlm slot holds n_patches + prompt + new tokens of
+# every batch (the engine never releases a slot): pixtral's ~2,100 of the
+# launcher mix's two batches and 2,080 of the long mix's one.
+FAMILY_MODELS = (("phi3.5-moe-42b", 24, 256, 2048),
+                 ("pixtral-12b", 40, 4096, 4096),
+                 ("whisper-tiny", 4, 256, 2048))
+# flash_attention at the families' new shapes (B, S, T, (H, KV, hd)), all
+# non-causal: whisper-tiny's encoder over its 1500 frames, pixtral-12b's
+# vision tower over its 1024 patches, and whisper's cross-attention in
+# prefill (the launcher's 11 tokens) and in decode (one query)
+FAMILY_FLASH = (("whisper_encoder", 4, 1500, 1500, (6, 6, 64)),
+                ("pixtral_vision", 4, 1024, 1024, (16, 16, 64)),
+                ("whisper_cross_prefill_11", 4, 11, 1500, (6, 6, 64)),
+                ("whisper_cross_decode_1", 4, 1, 1500, (6, 6, 64)))
+
+
+def families_phase(torch, dev, flush):
+    """The moe, vlm and encdec families at published widths, bf16, random
+    weights from seed 0: phi3.5-moe-42b (24 of its 32 layers), pixtral-12b
+    (40 decoder and 24 vision layers) and whisper-tiny (4 + 4 layers,
+    1500 frames), each on the launcher's mix and the long mix (``serve``:
+    launches against ``path_launches``; ``decode_profile``), each freed
+    before the next is made.  Then flash_attention at the new shapes
+    (FAMILY_FLASH, bf16 and float32) and paged_attention on the identity
+    table of phi's long-mix cache (32 over 8 heads, hd 128), each against
+    its plain version; then the cuts on card and CPU: phi3.5-moe at 2
+    layers, pixtral at 2 decoder and 2 vision layers, whisper-tiny whole,
+    float32 and bf16.  Returns (the launches of the serving runs summed,
+    the flash and paged rows)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import Transformer, layers
+    from repro_torch.serving import ServeConfig
+    total, paged = {}, None
+    for arch, n_layers, len_a, len_b in FAMILY_MODELS:
+        published = get_config(arch)
+        cfg = dataclasses.replace(published, n_layers=n_layers)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = Transformer(cfg, generator=torch.Generator(
+            device=dev).manual_seed(0), device=dev)
+        torch.cuda.synchronize()
+        emit({"phase": "serve_model", "model": cfg.name,
+              "family": cfg.family, "n_layers": n_layers,
+              "published_n_layers": published.n_layers,
+              "params": sum(p.numel() for p in model.parameters()),
+              "param_bytes": sum(p.numel() * p.element_size()
+                                 for p in model.parameters()),
+              "init_s": time.perf_counter() - t0})
+        for scfg, traffic, name in (
+                (ServeConfig(max_len=len_a), launcher_traffic, "launcher"),
+                (ServeConfig(max_batch=4, max_len=len_b), long_traffic,
+                 "long_1024")):
+            row, clock, _ = serve(torch, dev, model, cfg, scfg, traffic,
+                                  name)
+            for k, n in row["launches"].items():
+                total[k] = total.get(k, 0) + n
+            if cfg.family == "moe" and name == "long_1024":
+                # layer 0 of the long mix's cache, every row at its last
+                # decode position
+                kc, vc = clock.cache["kv"]["k"][0], clock.cache["kv"]["v"][0]
+                B, max_len, KV, hd = kc.shape
+                table, lengths = layers.decode_pages(B, max_len, 1024 + 30,
+                                                     dev)
+                pool = (B * max_len // layers.DECODE_PAGE,
+                        layers.DECODE_PAGE, KV, hd)
+                q = torch.randn(B, 1, cfg.n_heads, hd,
+                                generator=torch.Generator(
+                                    device=dev).manual_seed(15),
+                                device=dev).to(kc.dtype)
+                paged = paged_row(torch, "identity_table_phi_long_cache", q,
+                                  kc.view(pool), vc.view(pool), table,
+                                  lengths, (kc, vc), flush)
+                del kc, vc, q
+            del clock
+            decode_profile(torch, dev, model, cfg, scfg, traffic, name)
+        del model
+        torch.cuda.empty_cache()
+    g = torch.Generator(device=dev).manual_seed(16)
+    flash = [flash_row(torch, dev, g, case + suffix, B, S, T, False, 0.0, H,
+                       KV, hd, dt, flush)
+             for case, B, S, T, (H, KV, hd) in FAMILY_FLASH
+             for dt, suffix in ((torch.bfloat16, ""),
+                                (torch.float32, "_float32"))]
+    for dtype in ("float32", "bfloat16"):
+        serve_card_vs_cpu(torch, dev, "phi3.5-moe-42b", 2, dtype)
+        serve_card_vs_cpu(torch, dev, "pixtral-12b", 2, dtype,
+                          ServeConfig(max_len=4096), n_vision_layers=2)
+        serve_card_vs_cpu(torch, dev, "whisper-tiny",
+                          get_config("whisper-tiny").n_layers, dtype)
+    return total, flash + [paged]
 
 
 def scenario_baseline_checks(torch, T) -> None:
@@ -2792,15 +3118,16 @@ def main(argv=None) -> int:
     ap.add_argument("--write-traces", action="store_true")
     ap.add_argument("--only", choices=["um", "um_step_costs", "amil_probe",
                                        "ssd", "flash", "lanes", "hms_scan",
-                                       "obs"],
+                                       "obs", "families", "bf16_spread"],
                     default=None,
                     help="run the device and build phases, then only the "
                     "UM phases (4b, 5b and um_step_costs), um_step_costs, "
                     "the amil_probe rows (with the out-of-range check), "
                     "the ssd_scan rows, the flash_attention rows, the "
                     "scenario baseline and the lanes phase (4c, 5c), "
-                    "hms_scan's timing on pathfnd at (1, 1), or the obs "
-                    "phase (5d)")
+                    "hms_scan's timing on pathfnd at (1, 1), the obs "
+                    "phase (5d), the families phase (7b), or the bf16 "
+                    "cuts' spread over weight seeds")
     args = ap.parse_args(argv)
     if args.write_traces:
         return write_traces()
@@ -2864,6 +3191,10 @@ def main(argv=None) -> int:
             hms_scan_timing(torch, T, dev, flush)
         elif args.only == "obs":
             obs_phase(torch, T, dev)
+        elif args.only == "families":
+            families_phase(torch, dev, flush)
+        elif args.only == "bf16_spread":
+            bf16_spread(torch, dev)
         elif args.only == "lanes":
             scenario_baseline_checks(torch, T)
             runs = [(name, None) for name in sorted(T.WORKLOADS)] + [
@@ -2875,6 +3206,22 @@ def main(argv=None) -> int:
         emit({"phase": "done", "wall_s": time.perf_counter() - t_start})
         return 0
     summary = {}
+
+    # ---- 6-8. attention kernels and the serving path, run first: the
+    # profiler's device kernel counts (decode_profile) come up one record
+    # short in a window late in a long process (seen from ~610 s on)
+    summary["flash_attention"] = flash_checks(torch, dev, flush)
+    paged_checks(torch, dev, flush)
+    summary["ssd_scan"] = ssd_checks(torch, dev, flush)
+    smoke_serve(torch)
+    summary["paged_attention"], serve_launches = serving_phases(
+        torch, dev, flush)
+    for k, n in ssm_serving_phases(torch, dev).items():
+        serve_launches[k] = serve_launches.get(k, 0) + n
+    family_launches, _ = families_phase(torch, dev, flush)
+    for k, n in family_launches.items():
+        serve_launches[k] = serve_launches.get(k, 0) + n
+    torch.cuda.empty_cache()
 
     # ---- 3. kernels against their plain versions --------------------------
     summary["amil_probe"] = amil_checks(torch, dev, flush, judge=True)
@@ -3143,16 +3490,6 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     probe_launches = _build.launches.get("amil_probe", 0)
     need(probe_launches > 0, "amil_probe was never launched on its path")
-
-    # ---- 6-8. attention kernels and the serving path ----------------------
-    summary["flash_attention"] = flash_checks(torch, dev, flush)
-    paged_checks(torch, dev, flush)
-    summary["ssd_scan"] = ssd_checks(torch, dev, flush)
-    smoke_serve(torch)
-    summary["paged_attention"], serve_launches = serving_phases(
-        torch, dev, flush)
-    for k, n in ssm_serving_phases(torch, dev).items():
-        serve_launches[k] = serve_launches.get(k, 0) + n
 
     need(not deferred, "; ".join(deferred))
 

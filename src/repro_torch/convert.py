@@ -49,22 +49,26 @@ def config_from_dict(d: Mapping[str, object]) -> HMSConfig:
     return HMSConfig(**kw)
 
 
-_FLOAT32_LEAVES = ("scale", "A_log", "D", "dt_bias")
+_FLOAT32_LEAVES = ("scale", "A_log", "D", "dt_bias", "wg")
+_STACKS = {"blocks": "n_layers", "enc_blocks": "n_enc_layers",
+           "vision_blocks": "n_vision_layers"}      # stack -> its depth
 
 
 def model_params_from_jax(params: Mapping, cfg) -> Dict[str, torch.Tensor]:
     """A :class:`~repro_torch.models.Transformer` state dict (CPU tensors)
-    from the JAX parameter tree of the same config (dense, ssm or hybrid),
-    given as nested dicts of numpy arrays
-    (``jax.tree.map(np.asarray, params)``).
+    from the JAX parameter tree of the same config (any family), given as
+    nested dicts of numpy arrays (``jax.tree.map(np.asarray, params)``).
 
-    The stacked ``params["blocks"]`` leaves are split along their leading
-    layer axis into ``blocks.{i}.*``, or for the hybrid along its two axes
-    (super-block, Mamba2 layer) into ``blocks.{s}.{j}.*``; ``shared.*`` and
-    the other top-level leaves are carried as they are.  Norm scales and
-    the SSM's ``A_log``, ``D`` and ``dt_bias`` stay float32, every other
-    leaf takes ``cfg.torch_dtype``; bf16 values handed over as float32 come
-    back exactly.  Load with ``model.load_state_dict(...)``."""
+    The stacked ``params["blocks"]``, ``params["enc_blocks"]`` and
+    ``params["vision_blocks"]`` leaves are split along their leading layer
+    axis into ``blocks.{i}.*`` (likewise ``enc_blocks.{i}.*``,
+    ``vision_blocks.{i}.*``), or for the hybrid's ``blocks`` along its two
+    axes (super-block, Mamba2 layer) into ``blocks.{s}.{j}.*``;
+    ``shared.*`` and the other top-level leaves are carried as they are.
+    Norm scales, the MoE router ``wg`` and the SSM's ``A_log``, ``D`` and
+    ``dt_bias`` stay float32, every other leaf takes ``cfg.torch_dtype``;
+    bf16 values handed over as float32 come back exactly.  Load with
+    ``model.load_state_dict(...)``."""
     out: Dict[str, torch.Tensor] = {}
 
     def put(name: str, leaf) -> None:
@@ -81,12 +85,15 @@ def model_params_from_jax(params: Mapping, cfg) -> Dict[str, torch.Tensor]:
             else:
                 put(name, np.asarray(val)[index])
 
-    walk("", {k: v for k, v in params.items() if k != "blocks"}, ())
-    if cfg.family == "hybrid":
-        for s in range(cfg.n_layers // cfg.attn_every):
-            for j in range(cfg.attn_every):
-                walk(f"blocks.{s}.{j}", params["blocks"], (s, j))
-    else:
-        for i in range(cfg.n_layers):
-            walk(f"blocks.{i}", params["blocks"], (i,))
+    walk("", {k: v for k, v in params.items() if k not in _STACKS}, ())
+    for stack, depth in _STACKS.items():
+        if stack not in params:
+            continue
+        if stack == "blocks" and cfg.family == "hybrid":
+            for s in range(cfg.n_layers // cfg.attn_every):
+                for j in range(cfg.attn_every):
+                    walk(f"blocks.{s}.{j}", params[stack], (s, j))
+            continue
+        for i in range(getattr(cfg, depth)):
+            walk(f"{stack}.{i}", params[stack], (i,))
     return out

@@ -1,5 +1,6 @@
-"""Model definitions of the port: the dense, ssm (Mamba2) and hybrid
-(zamba2) families."""
+"""Model definitions of the port, for every family: dense, moe (``moe.py``),
+ssm (Mamba2), hybrid (zamba2), encdec (whisper: an encoder and
+cross-attention) and vlm (pixtral: a vision tower and projector)."""
 
 from .config import ModelConfig
 from .transformer import (

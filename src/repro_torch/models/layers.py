@@ -141,40 +141,51 @@ def attention(p: Attention, x, cfg: ModelConfig, *,
               pos: Optional[int] = None,
               causal: bool = True,
               rope=None,
-              pages: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
-    """Self-attention with rope.
+              pages: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              x_kv=None,
+              use_rope: bool = True,
+              hd: Optional[int] = None):
+    """General attention (GQA, optional bias and softcap).
 
     * training / prefill (``pos`` None): the flash attention kernel over the
-      S fresh keys; with ``kv_cache`` given (any dict) the fresh,
+      fresh keys; with ``kv_cache`` given (any dict) the fresh,
       unexpanded K/V come back as the new cache.
+    * cross-attention: K/V come from ``x_kv`` (the encoder's states), with
+      no rope; pass ``causal=False``.
     * decode (``kv_cache`` and ``pos``): ``x`` is (B, 1, D); its K/V are
       written at ``pos`` into the cache in place, and the token attends over
       positions ``<= pos`` through the paged attention kernel.
 
-    ``rope`` (:func:`rope_tables` of the positions) and ``pages``
-    (:func:`decode_pages`' table and lengths) are built here when not
-    given; a forward pass builds them once for all its layers.
+    Rope applies unless ``use_rope`` is false or ``x_kv`` is given.
+    ``hd`` overrides ``cfg.hd`` (an encoder's or the vision tower's head
+    dim).  ``rope`` (:func:`rope_tables` of the positions, at this head
+    dim) and ``pages`` (:func:`decode_pages`' table and lengths) are built
+    here when not given; a forward pass builds them once for all its
+    layers.
     """
     B, S, _ = x.shape
+    src = x if x_kv is None else x_kv
     q = x @ p.wq
-    k = x @ p.wk
-    v = x @ p.wv
+    k = src @ p.wk
+    v = src @ p.wv
     if p.bq is not None:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
-    hd = cfg.hd
+    hd = hd or cfg.hd
     H = q.shape[-1] // hd
     KV = k.shape[-1] // hd
     q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, KV, hd)
-    v = v.reshape(B, S, KV, hd)
+    k = k.reshape(B, src.shape[1], KV, hd)
+    v = v.reshape(B, src.shape[1], KV, hd)
 
-    if rope is None:
-        if positions is None:
-            base = pos if pos is not None else 0
-            positions = (base + torch.arange(S, device=x.device)).expand(B, S)
-        rope = rope_tables(positions, hd, cfg.rope_theta)
-    q = _rotate(q, rope)
-    k = _rotate(k, rope)
+    if use_rope and x_kv is None:
+        if rope is None:
+            if positions is None:
+                base = pos if pos is not None else 0
+                positions = (base + torch.arange(S, device=x.device)).expand(
+                    B, S)
+            rope = rope_tables(positions, hd, cfg.rope_theta)
+        q = _rotate(q, rope)
+        k = _rotate(k, rope)
 
     if kv_cache is not None and pos is not None:
         if S != 1:

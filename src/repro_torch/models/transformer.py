@@ -1,5 +1,5 @@
 """Model assembly (the port of the JAX package's ``models/transformer.py``)
-for the dense, ssm and hybrid families.
+for every family: dense, moe, ssm, hybrid, encdec and vlm.
 
 Public API, as in the reference, with a :class:`Transformer` module in the
 place of the parameter tree:
@@ -9,8 +9,18 @@ place of the parameter tree:
     decode_step(model, tokens, cache, pos, cfg)      -> (logits, cache)
     init_cache(cfg, batch, max_len, device=None)     -> cache
 
+``batch`` holds ``tokens`` (B, S), and for encdec ``enc_frames`` (B, T_enc,
+``frontend_dim or d_model``), for vlm ``patches`` (B, n_patches,
+``vision_d_model``).  The vlm's sequence is ``[image, text]``: rope
+positions run 0 ... n_patches + S - 1 and decode continues at
+``n_patches + S``.  ``aux`` is the sum of the MoE layers' load-balance
+terms (0 for the other families).
+
 Caches keep the reference's layout:
-  * dense: ``{"kv": {"k": (L, B, max_len, KV, hd), "v": ...}}``;
+  * dense, moe, vlm: ``{"kv": {"k": (L, B, max_len, KV, hd), "v": ...}}``;
+  * encdec: that, and ``"cross": {"k": (L, B, enc_seq, KV, hd), "v": ...}``,
+    the decoder's cross-attention K/V over the encoder's states, written by
+    prefill and read by every decode step (not padded to ``max_len``);
   * ssm: ``{"state": (L, B, h, hp, n) float32, "conv_x": (L, B, K-1, di),
     "conv_bc": (L, B, K-1, 2gn)}``;
   * hybrid: ``(mstack, {"kv": {"k", "v"}})`` with the ssm leaves stacked
@@ -18,12 +28,17 @@ Caches keep the reference's layout:
     the shared attention block, ``(n_super, B, max_len, KV, hd)``.
 ``prefill`` allocates the cache (KV at its padded length) and fills it
 (the reference pads each layer's K/V and stacks them; the values are the
-same); ``decode_step`` updates it in place and returns it.  Entry points
-run on the CUDA card unless given ``device="cpu"``.
+same); ``decode_step`` updates it in place and returns it.  Every
+attention, the encoders' and the cross-attention's included, runs the
+``flash_attention`` kernel in prefill; decode self-attention runs
+``paged_attention`` and decode cross-attention ``flash_attention`` (one
+query over the encoder's keys).  Entry points run on the CUDA card unless
+given ``device="cpu"``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Union
 
 import torch
@@ -33,22 +48,20 @@ from .._device import resolve_device
 from . import layers as L
 from .config import ModelConfig
 from .mamba2 import MambaBlock, init_mamba_cache, mamba_block
-
-_TODO = {
-    "moe": "ROADMAP A10 (moe.py)",
-    "encdec": "ROADMAP A10 (encoder and cross-attention)",
-    "vlm": "ROADMAP A10 (vision tower)",
-}
+from .moe import MoE, moe_ffn
 
 
-def require_ported(cfg: ModelConfig) -> ModelConfig:
-    """``cfg``, validated; raises for the families the port lacks."""
-    cfg = cfg.validate()
-    if cfg.family in _TODO:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet: "
-            f"{_TODO[cfg.family]}")
-    return cfg
+def encoder_config(cfg: ModelConfig, vision: bool = False) -> ModelConfig:
+    """The geometry of an encoder layer (``vision``: the vlm's vision
+    tower), as the reference's ``_init_enc_layer`` builds it: its width,
+    heads (as many KV heads), d_ff, head dim ``d // h`` and no QKV bias;
+    the rest (mlp kind, softcap, rope theta) is the model's."""
+    if vision:
+        d, h, f = cfg.vision_d_model, cfg.vision_heads, cfg.vision_d_ff
+    else:
+        d, h, f = cfg.d_model, cfg.n_heads, cfg.d_ff
+    return dataclasses.replace(cfg, d_model=d, n_heads=h, n_kv_heads=h,
+                               d_ff=f, head_dim=d // h, qkv_bias=False)
 
 
 # ---------------------------------------------------------------------------
@@ -56,13 +69,35 @@ def require_ported(cfg: ModelConfig) -> ModelConfig:
 # ---------------------------------------------------------------------------
 
 class DenseBlock(nn.Module):
+    """Attention and MLP; the moe family's block has ``moe`` in the place
+    of ``mlp``, the encdec decoder's adds ``norm_x`` and ``cross``."""
+
     def __init__(self, cfg: ModelConfig, gen: torch.Generator, *,
                  device=None):
         super().__init__()
         self.norm1 = L.RMSNorm(cfg.d_model, device=device)
         self.attn = L.Attention(cfg, gen, device=device)
         self.norm2 = L.RMSNorm(cfg.d_model, device=device)
-        self.mlp = L.MLP(cfg, gen, device=device)
+        if cfg.family == "moe":
+            self.moe = MoE(cfg, gen, device=device)
+        else:
+            self.mlp = L.MLP(cfg, gen, device=device)
+        if cfg.family == "encdec":
+            self.norm_x = L.RMSNorm(cfg.d_model, device=device)
+            self.cross = L.Attention(cfg, gen, device=device)
+
+
+class EncoderBlock(nn.Module):
+    """An encoder (or vision tower) layer at ``encoder_config``'s
+    geometry."""
+
+    def __init__(self, sub: ModelConfig, gen: torch.Generator, *,
+                 device=None):
+        super().__init__()
+        self.norm1 = L.RMSNorm(sub.d_model, device=device)
+        self.attn = L.Attention(sub, gen, device=device)
+        self.norm2 = L.RMSNorm(sub.d_model, device=device)
+        self.mlp = L.MLP(sub, gen, device=device)
 
 
 class SSMBlock(nn.Module):
@@ -74,38 +109,57 @@ class SSMBlock(nn.Module):
 
 
 class Transformer(nn.Module):
-    """Embedding, the blocks and the final norm, with random weights drawn
-    from ``generator`` (default: seed 0 on the model's device).  The
-    parameter names follow the JAX tree with the stacked layer axes split:
+    """Embedding, the blocks and the final norm (and the encdec's encoder,
+    the vlm's vision tower and projector), with random weights drawn from
+    ``generator`` (default: seed 0 on the model's device).  The parameter
+    names follow the JAX tree with the stacked layer axes split:
     ``blocks.{i}.attn.wq`` is ``params["blocks"]["attn"]["wq"][i]``
-    (dense), ``blocks.{i}.mamba.x_proj`` likewise (ssm); the hybrid's
-    ``blocks.{s}.{j}.mamba.x_proj`` is ``params["blocks"]["mamba"]
-    ["x_proj"][s, j]`` for super-block ``s`` and its ``j``-th Mamba2 layer,
-    and its one shared attention block is ``shared.*``."""
+    (dense, moe, encdec, vlm), ``blocks.{i}.mamba.x_proj`` likewise (ssm),
+    and ``enc_blocks.{i}.*`` and ``vision_blocks.{i}.*`` as ``blocks``;
+    the hybrid's ``blocks.{s}.{j}.mamba.x_proj`` is ``params["blocks"]
+    ["mamba"]["x_proj"][s, j]`` for super-block ``s`` and its ``j``-th
+    Mamba2 layer, and its one shared attention block is ``shared.*``."""
 
     def __init__(self, cfg: ModelConfig, *,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
-        cfg = require_ported(cfg)
+        cfg = cfg.validate()
         dev = resolve_device(device, "Transformer")
         gen = generator if generator is not None else \
             torch.Generator(device=dev).manual_seed(0)
         self.cfg = cfg
         self.embed = L.Embed(cfg, gen, device=dev)
         self.final_norm = L.RMSNorm(cfg.d_model, device=dev)
-        if cfg.family == "dense":
-            self.blocks = nn.ModuleList(
-                DenseBlock(cfg, gen, device=dev)
-                for _ in range(cfg.n_layers))
-        elif cfg.family == "ssm":
+        if cfg.family == "ssm":
             self.blocks = nn.ModuleList(
                 SSMBlock(cfg, gen, device=dev) for _ in range(cfg.n_layers))
-        else:
+        elif cfg.family == "hybrid":
             self.blocks = nn.ModuleList(
                 nn.ModuleList(SSMBlock(cfg, gen, device=dev)
                               for _ in range(cfg.attn_every))
                 for _ in range(cfg.n_layers // cfg.attn_every))
             self.shared = DenseBlock(cfg, gen, device=dev)
+        else:
+            self.blocks = nn.ModuleList(
+                DenseBlock(cfg, gen, device=dev)
+                for _ in range(cfg.n_layers))
+        if cfg.family == "encdec":
+            self.enc_in = L._dense_init(
+                gen, (cfg.frontend_dim or cfg.d_model, cfg.d_model),
+                cfg.torch_dtype, dev)
+            sub = encoder_config(cfg)
+            self.enc_blocks = nn.ModuleList(
+                EncoderBlock(sub, gen, device=dev)
+                for _ in range(cfg.n_enc_layers))
+            self.enc_norm = L.RMSNorm(cfg.d_model, device=dev)
+        if cfg.family == "vlm":
+            sub = encoder_config(cfg, vision=True)
+            self.vision_blocks = nn.ModuleList(
+                EncoderBlock(sub, gen, device=dev)
+                for _ in range(cfg.n_vision_layers))
+            self.vision_norm = L.RMSNorm(cfg.vision_d_model, device=dev)
+            self.projector = L._dense_init(
+                gen, (cfg.vision_d_model, cfg.d_model), cfg.torch_dtype, dev)
 
 
 def init_params(generator: Union[int, torch.Generator], cfg: ModelConfig, *,
@@ -124,14 +178,42 @@ def init_params(generator: Union[int, torch.Generator], cfg: ModelConfig, *,
 # ---------------------------------------------------------------------------
 
 def _dense_block(p: DenseBlock, x, cfg: ModelConfig, *, cache=None,
-                 pos=None, rope=None, pages=None):
-    """Attention + MLP block.  Returns (x, new_kv) as ``L.attention``."""
+                 pos=None, rope=None, pages=None, enc_out=None, cross=None):
+    """Attention (+ cross-attention) + MLP/MoE block.  Returns (x, kv,
+    cross_kv, aux): ``kv`` as ``L.attention`` returns it; ``cross_kv`` the
+    cross-attention's K/V over ``enc_out`` (prefill with a cache), else
+    None; ``aux`` the MoE's load-balance term, else None.  In decode the
+    cross-attention reads ``cross``, the layer's cached K/V."""
     h, kv_new = L.attention(p.attn, L.rms_norm(x, p.norm1, cfg.norm_eps),
                             cfg, kv_cache=cache, pos=pos, rope=rope,
                             pages=pages)
     x = x + h
-    return x + L.mlp(p.mlp, L.rms_norm(x, p.norm2, cfg.norm_eps), cfg), \
-        kv_new
+    cross_kv = None
+    if enc_out is not None:
+        h, cross_kv = L.attention(
+            p.cross, L.rms_norm(x, p.norm_x, cfg.norm_eps), cfg,
+            kv_cache=cache, causal=False, x_kv=enc_out, use_rope=False)
+        x = x + h
+    elif cross is not None:
+        x = x + _cross_decode(p.cross, L.rms_norm(x, p.norm_x, cfg.norm_eps),
+                              cross, cfg)
+    xin = L.rms_norm(x, p.norm2, cfg.norm_eps)
+    if hasattr(p, "moe"):
+        h, aux = moe_ffn(p.moe, xin, cfg)
+    else:
+        h, aux = L.mlp(p.mlp, xin, cfg), None
+    return x + h, kv_new, cross_kv, aux
+
+
+def _cross_decode(p: L.Attention, x, cross, cfg: ModelConfig):
+    """Decode cross-attention over the cached encoder K/V, as the
+    reference computes it (its ``_sdpa`` with no mask and no softcap): the
+    query without bias or rope, through the flash attention kernel (one
+    query a row over the ``enc_seq`` keys, not causal)."""
+    B, S, _ = x.shape
+    q = (x @ p.wq).reshape(B, S, -1, cfg.hd)
+    out = L.flash_attention(q, cross["k"], cross["v"], causal=False)
+    return out.reshape(B, S, -1) @ p.wo
 
 
 def _ssm_block(p: SSMBlock, x, cfg: ModelConfig, *, cache=None, pos=None):
@@ -141,53 +223,99 @@ def _ssm_block(p: SSMBlock, x, cfg: ModelConfig, *, cache=None, pos=None):
 
 
 def _layer(tree, *index):
-    """The views of one layer's leaves in a stacked ssm cache."""
+    """The views of one layer's leaves in a stacked cache."""
     return {k: v[index] for k, v in tree.items()}
+
+
+def _encoder(blocks: nn.ModuleList, x, cfg: ModelConfig, heads: int):
+    """The encoder (or vision tower) stack: non-causal attention with rope
+    at the stack's head dim, the model's softcap and mlp kind."""
+    hd = x.shape[-1] // heads
+    rope = L.rope_tables(torch.arange(x.shape[1], device=x.device), hd,
+                         cfg.rope_theta)
+    for blk in blocks:
+        a, _ = L.attention(blk.attn, L.rms_norm(x, blk.norm1, cfg.norm_eps),
+                           cfg, causal=False, rope=rope, hd=hd)
+        x = x + a
+        x = x + L.mlp(blk.mlp, L.rms_norm(x, blk.norm2, cfg.norm_eps), cfg)
+    return x
+
+
+def _input_embeds(model: Transformer, batch, cfg: ModelConfig):
+    """The token embeddings; for the vlm ``[image, text]``, the image
+    through the vision tower, its norm and the projector."""
+    txt = L.embed(model.embed, batch["tokens"])
+    if cfg.family != "vlm":
+        return txt
+    v = _encoder(model.vision_blocks,
+                 batch["patches"].to(cfg.torch_dtype), cfg, cfg.vision_heads)
+    v = L.rms_norm(v, model.vision_norm, cfg.norm_eps)
+    img = (v @ model.projector).to(cfg.torch_dtype)
+    return torch.cat([img, txt], dim=1)
+
+
+def _encode(model: Transformer, batch, cfg: ModelConfig):
+    """The encdec's encoder states (B, T_enc, D)."""
+    x = batch["enc_frames"].to(cfg.torch_dtype) @ model.enc_in
+    x = _encoder(model.enc_blocks, x, cfg, cfg.n_heads)
+    return L.rms_norm(x, model.enc_norm, cfg.norm_eps)
 
 
 def _forward(model: Transformer, batch, cfg: ModelConfig, make_cache: bool,
              max_len: Optional[int] = None, last_only: bool = False):
-    x = L.embed(model.embed, batch["tokens"])
+    """(logits, aux, cache)."""
+    x = _input_embeds(model, batch, cfg)
     B, S, _ = x.shape
-    cache = init_cache(cfg, B, max(S, max_len or S), device=x.device) \
+    enc_out = _encode(model, batch, cfg) if cfg.family == "encdec" else None
+    cache = _alloc_cache(cfg, B, max(S, max_len or S), x.device,
+                         None if enc_out is None else enc_out.shape[1]) \
         if make_cache else None
     rope = None if cfg.family == "ssm" else L.rope_tables(
         torch.arange(S, device=x.device), cfg.hd, cfg.rope_theta)
-    if cfg.family == "dense":
-        for i, blk in enumerate(model.blocks):
-            x, kv = _dense_block(blk, x, cfg,
-                                 cache={} if make_cache else None, rope=rope)
-            if make_cache:
-                cache["kv"]["k"][i, :, :S] = kv["k"]
-                cache["kv"]["v"][i, :, :S] = kv["v"]
-    elif cfg.family == "ssm":
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "ssm":
         for i, blk in enumerate(model.blocks):
             x = _ssm_block(blk, x, cfg,
                            cache=_layer(cache, i) if make_cache else None)
-    else:
+    elif cfg.family == "hybrid":
         mstack, kvs = cache if make_cache else (None, None)
         for s, sup in enumerate(model.blocks):
             for j, blk in enumerate(sup):
                 x = _ssm_block(blk, x, cfg, cache=_layer(mstack, s, j)
                                if make_cache else None)
-            x, kv = _dense_block(model.shared, x, cfg,
-                                 cache={} if make_cache else None, rope=rope)
+            x, kv, _, _ = _dense_block(model.shared, x, cfg,
+                                       cache={} if make_cache else None,
+                                       rope=rope)
             if make_cache:
                 kvs["kv"]["k"][s, :, :S] = kv["k"]
                 kvs["kv"]["v"][s, :, :S] = kv["v"]
+    else:
+        for i, blk in enumerate(model.blocks):
+            x, kv, cross, a = _dense_block(
+                blk, x, cfg, cache={} if make_cache else None, rope=rope,
+                enc_out=enc_out)
+            if a is not None:
+                aux = aux + a
+            if make_cache:
+                cache["kv"]["k"][i, :, :S] = kv["k"]
+                cache["kv"]["v"][i, :, :S] = kv["v"]
+                if cross is not None:
+                    cache["cross"]["k"][i] = cross["k"]
+                    cache["cross"]["v"][i] = cross["v"]
     if last_only:
         x = x[:, -1:]
     x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
-    return L.unembed(model.embed, x), cache
+    return L.unembed(model.embed, x), aux, cache
 
 
 @torch.no_grad()
 def train_logits(model: Transformer, batch, cfg: ModelConfig):
-    """Full-sequence logits (float32) and the auxiliary loss (0 for the
-    ported families).  Forward only: training is not ported yet."""
-    logits, _ = _forward(model, batch, require_ported(cfg),
-                         make_cache=False)
-    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+    """Full-sequence logits (float32) and the auxiliary loss: the sum of
+    the MoE layers' load-balance terms, 0 for the other families.
+    Forward only: training is not ported yet."""
+    logits, aux, _ = _forward(model, batch, cfg.validate(),
+                              make_cache=False)
+    return logits, aux
 
 
 @torch.no_grad()
@@ -196,9 +324,9 @@ def prefill(model: Transformer, batch, cfg: ModelConfig,
     """Last-position logits (B, vocab) and the cache padded to
     ``max_len``.  Only the last position is unembedded; the reference
     unembeds every position and keeps the last."""
-    logits, cache = _forward(model, batch, require_ported(cfg),
-                             make_cache=True, max_len=max_len,
-                             last_only=True)
+    logits, _, cache = _forward(model, batch, cfg.validate(),
+                                make_cache=True, max_len=max_len,
+                                last_only=True)
     return logits[:, -1], cache
 
 
@@ -213,46 +341,57 @@ def decode_step(model: Transformer, tokens, cache, pos: int,
         for i, blk in enumerate(model.blocks):
             x = _ssm_block(blk, x, cfg, cache=_layer(cache, i), pos=pos)
     else:
-        kv = cache["kv"] if cfg.family == "dense" else cache[1]["kv"]
+        kv = cache[1]["kv"] if cfg.family == "hybrid" else cache["kv"]
         kc, vc = kv["k"], kv["v"]
         rope = L.rope_tables(torch.full((1,), pos, device=x.device), cfg.hd,
                              cfg.rope_theta)
         pages = L.decode_pages(B, kc.shape[2], pos, x.device)
-        if cfg.family == "dense":
-            for i, blk in enumerate(model.blocks):
-                x, _ = _dense_block(blk, x, cfg,
-                                    cache={"k": kc[i], "v": vc[i]}, pos=pos,
-                                    rope=rope, pages=pages)
-        else:
+        if cfg.family == "hybrid":
             for s, sup in enumerate(model.blocks):
                 for j, blk in enumerate(sup):
                     x = _ssm_block(blk, x, cfg, cache=_layer(cache[0], s, j),
                                    pos=pos)
-                x, _ = _dense_block(model.shared, x, cfg,
-                                    cache={"k": kc[s], "v": vc[s]}, pos=pos,
-                                    rope=rope, pages=pages)
+                x, _, _, _ = _dense_block(
+                    model.shared, x, cfg, cache={"k": kc[s], "v": vc[s]},
+                    pos=pos, rope=rope, pages=pages)
+        else:
+            cross = cache.get("cross")
+            for i, blk in enumerate(model.blocks):
+                x, _, _, _ = _dense_block(
+                    blk, x, cfg, cache={"k": kc[i], "v": vc[i]}, pos=pos,
+                    rope=rope, pages=pages,
+                    cross=None if cross is None else _layer(cross, i))
     x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
     return L.unembed(model.embed, x)[:, 0], cache
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None):
-    cfg = require_ported(cfg)
-    dev = resolve_device(device, "init_cache")
+def _alloc_cache(cfg: ModelConfig, batch: int, max_len: int, dev,
+                 enc_len: Optional[int] = None):
+    """Zeros of the family's cache layout; the encdec's cross K/V at
+    ``enc_len`` encoder positions (default ``cfg.enc_seq``)."""
     dt = cfg.torch_dtype
 
-    def kv(n: int):
-        shape = (n, batch, max_len, cfg.n_kv_heads, cfg.hd)
-        return {"kv": {"k": torch.zeros(shape, dtype=dt, device=dev),
-                       "v": torch.zeros(shape, dtype=dt, device=dev)}}
+    def kv(n: int, length: int):
+        shape = (n, batch, length, cfg.n_kv_heads, cfg.hd)
+        return {"k": torch.zeros(shape, dtype=dt, device=dev),
+                "v": torch.zeros(shape, dtype=dt, device=dev)}
 
     def stacked(*lead):
         return {k: torch.zeros(lead + v.shape, dtype=v.dtype, device=dev)
                 for k, v in init_mamba_cache(cfg, batch,
                                              device="meta").items()}
 
-    if cfg.family == "dense":
-        return kv(cfg.n_layers)
     if cfg.family == "ssm":
         return stacked(cfg.n_layers)
-    n_super = cfg.n_layers // cfg.attn_every
-    return stacked(n_super, cfg.attn_every), kv(n_super)
+    if cfg.family == "hybrid":
+        n_super = cfg.n_layers // cfg.attn_every
+        return stacked(n_super, cfg.attn_every), {"kv": kv(n_super, max_len)}
+    cache = {"kv": kv(cfg.n_layers, max_len)}
+    if cfg.family == "encdec":
+        cache["cross"] = kv(cfg.n_layers, enc_len or cfg.enc_seq)
+    return cache
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None):
+    return _alloc_cache(cfg.validate(), batch, max_len,
+                        resolve_device(device, "init_cache"))

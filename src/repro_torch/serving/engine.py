@@ -4,9 +4,14 @@ JAX package's ``serving/engine.py``).
 Continuous-batching-lite: a fixed pool of sequence slots; each batch of
 queued requests is prefilled together (left-padded with token 0, the pad
 tokens attended like any other, as in the reference) and decoded greedily
-in lockstep.  Prefill attention runs the ``flash_attention`` kernel and
-decode attention the ``paged_attention`` kernel over the per-slot cache;
-Mamba2 prefill runs the ``ssd_scan`` kernel.  The memtier
+in lockstep.  Every family serves: dense, moe, ssm, hybrid, encdec and
+vlm.  Prefill attention runs the ``flash_attention`` kernel and decode
+self-attention the ``paged_attention`` kernel over the per-slot cache
+(decode cross-attention, the encdec's, ``flash_attention`` over the cached
+encoder K/V); Mamba2 prefill runs the ``ssd_scan`` kernel.  As in the
+reference, the encdec's audio frames and the vlm's image patches are
+zeros of their stub shapes, and a vlm sequence holds ``n_patches`` image
+positions ahead of its prompt.  The memtier
 ``PagedKVManager`` keeps the two-tier page plan beside it, so the paper's
 write-filtering and bypass behaviour shows in the engine stats.  It is
 sized from the config as the reference sizes it, for every family (an
@@ -26,7 +31,24 @@ from .._device import resolve_device
 from ..memtier.paged_kv import PagedKVConfig, PagedKVManager
 from ..models import decode_step, prefill
 from ..models.config import ModelConfig
-from ..models.transformer import Transformer, require_ported
+from ..models.transformer import Transformer
+
+
+def stub_inputs(cfg: ModelConfig, batch: int,
+                device) -> Dict[str, torch.Tensor]:
+    """The encdec's audio frames (B, ``enc_seq``, ``frontend_dim or
+    d_model``) and the vlm's image patches (B, ``n_patches``,
+    ``vision_d_model``) for a batch, as float32 zeros: the frontends are
+    stubs, and the reference engine passes zeros too.  Empty for the other
+    families."""
+    shapes = {}
+    if cfg.family == "encdec":
+        shapes["enc_frames"] = (batch, cfg.enc_seq,
+                                cfg.frontend_dim or cfg.d_model)
+    if cfg.family == "vlm":
+        shapes["patches"] = (batch, cfg.n_patches, cfg.vision_d_model)
+    return {k: torch.zeros(v, dtype=torch.float32, device=device)
+            for k, v in shapes.items()}
 
 
 @dataclasses.dataclass
@@ -53,11 +75,13 @@ class Engine:
     the model must already lie on the engine's device.  As in the
     reference, the manager's slots are the batch indices and are never
     released, so a slot's length grows across batches until it reaches
-    ``max_len`` (the manager then asserts "sequence too long")."""
+    ``max_len`` (the manager then asserts "sequence too long"): for the
+    vlm, ``max_len`` must hold ``n_patches`` + prompt + new tokens of every
+    batch."""
 
     def __init__(self, cfg: ModelConfig, model: Transformer,
                  scfg: ServeConfig, *, device=None):
-        cfg = require_ported(cfg)
+        cfg = cfg.validate()
         self.device = resolve_device(device, "Engine")
         wdev = model.embed.tok.device
         if (wdev.type, wdev.index or 0) != (self.device.type,
@@ -81,17 +105,25 @@ class Engine:
         self.queue.append(req)
 
     def _prefill_batch(self, reqs: List[Request]):
+        cfg = self.cfg
         S = max(r.prompt.shape[0] for r in reqs)
-        toks = np.zeros((len(reqs), S), np.int32)
+        B = len(reqs)
+        toks = np.zeros((B, S), np.int32)
         for i, r in enumerate(reqs):
             toks[i, S - r.prompt.shape[0]:] = r.prompt   # left-pad
-        batch = {"tokens": torch.from_numpy(toks).to(self.device)}
-        logits, cache = prefill(self.model, batch, self.cfg,
+        batch = {"tokens": torch.from_numpy(toks).to(self.device),
+                 **stub_inputs(cfg, B, self.device)}
+        logits, cache = prefill(self.model, batch, cfg,
                                 max_len=self.scfg.max_len)
-        for i in range(len(reqs)):
-            for _ in range(S):
+        for i in range(B):
+            for _ in range(S + self.n_image):
                 self.kv_mgr.append_token(i)
         return logits, cache, S
+
+    @property
+    def n_image(self) -> int:
+        """Image positions ahead of each prompt (the vlm's patches)."""
+        return self.cfg.n_patches if self.cfg.family == "vlm" else 0
 
     def run(self) -> Dict[int, np.ndarray]:
         """Drain the queue; returns rid -> generated tokens."""
@@ -102,7 +134,7 @@ class Engine:
             logits, cache, S = self._prefill_batch(reqs)
             tok = logits.argmax(dim=-1, keepdim=True).to(torch.int32)
             outs = [[int(t)] for t in tok[:, 0].tolist()]
-            pos = S
+            pos = S + self.n_image
             max_new = max(r.max_new for r in reqs)
             for stepi in range(max_new - 1):
                 # two-tier page plan for this step: resolves residency,

@@ -190,16 +190,6 @@ def test_config_registry_matches(arch, smoke):
                              "float32": torch.float32}[t.dtype]
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCH_IDS if jax_config(
-    a, smoke=True).family in ("moe", "encdec", "vlm")])
-def test_unported_families_raise(arch):
-    cfg = get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="A10"):
-        Transformer(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        Engine(cfg, None, ServeConfig(), device="cpu")
-
-
 # ---------------------------------------------------------------------------
 # paged KV manager
 # ---------------------------------------------------------------------------
