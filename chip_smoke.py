@@ -5,7 +5,8 @@ every model family) on one card.
     python3 chip_smoke.py [--out DIR]
 
 Phases, each printed as one JSON line; any failure exits non-zero.  They
-run in the order 1, 2, 6, 7, 7b, 8, then 3-5d and 9: the serving phases
+run in the order 1, 2, 6 (its flash rows, then 6b), 7, 7b, 8, then 3-5d and
+9: the serving and training phases
 come first because late in a long process (from ~610 s on, on the
 H100 machines) the torch profiler's window now and then records one
 device kernel fewer than ran, which ``decode_profile``'s device kernel
@@ -163,6 +164,33 @@ window's kernel count and where the kernel kind sits among them.
                bounds.  Then
                ``repro_torch.launch.serve --arch mamba2-1.3b --smoke`` on
                the card (``smoke_serve``).
+  6b. train  - (``train_phase``, right after the flash rows) the flash
+               attention backward (``csrc/flash_attention_bwd.cu``, three
+               launches, no atomics) against its plain version
+               (``flash_attention_backward_reference``) on the forward
+               kernel's output and log-sum-exp (the log-sum-exp itself
+               against the plain forward's), BWD_CASES in bf16 (2e-2 of
+               each gradient's largest magnitude) and float32 (1e-4): the
+               training slice (B 8, S = T = 128, 16 over 2 heads, hd 128,
+               causal), B 4 at S = T = 1024, non-causal, softcap 30, S 512
+               under T 1024, ragged 130 / 200, hd 64, hd 80 and whisper's
+               cross shape (11 over 1500); each row timed beside its bound
+               (5 products, at the type's peak, against the bytes) and the
+               backward of scaled_dot_product_attention through autograd,
+               and profiled: one launch each of the three kernels a call
+               and nothing else.  Then ``Trainer`` on qwen2.5-3b at full
+               width (36 layers, bf16, seed-0 weights, ``for_model(cfg,
+               128, 8)``, 5 steps at lr 3e-4): finite losses, launches
+               against ``train_launches`` (36 forwards with log-sum-exp and
+               36 backwards a step), peak memory, step time (median of
+               steps 2-5), tokens/s, the forward/backward/optimizer split,
+               a profiled step's busy share and top kernels, and one step
+               with remat; the 2-layer cut in float32 (TF32 off) on card and
+               CPU from the same weights (first-step gradients leaf by leaf
+               and 3 steps' losses and grad norms to 1e-4) and in bf16
+               (2 steps' losses to 2e-2); and a restart on the card: 4
+               steps, a checkpoint, a new Trainer resuming to 6, bit-equal
+               to an uninterrupted run (losses and whole state).
   7. serve   - qwen2.5-3b at full width (36 layers, bf16, random weights
                from seed 0) through ``repro_torch.serving.Engine``: (a) the
                launcher's traffic (8 requests of 4-12 tokens, 16 new
@@ -220,7 +248,8 @@ window's kernel count and where the kernel kind sits among them.
 ``--out DIR`` also writes every JSON line to DIR/chip_smoke.jsonl;
 ``--only um`` runs phases 1-2 and the UM phases (4b, 5b and
 um_step_costs), ``--only lanes`` phases 1-2, 4c and 5c, ``--only obs``
-phases 1-2 and 5d, ``--only families`` phases 1-2 and 7b, ``--only
+phases 1-2 and 5d, ``--only families`` phases 1-2 and 7b, ``--only train``
+phases 1-2 and 6b, ``--only
 bf16_spread`` the bf16 cuts' distances over 8 weight seeds,
 ``--only um_step_costs`` that phase alone, ``--only
 amil_probe`` the amil_probe rows and the out-of-range check (the one-launch
@@ -2412,6 +2441,424 @@ def scenario_baseline_checks(torch, T) -> None:
          f"{len(bad)} mismatches, first {bad[:3]}")
 
 
+# ---- training: the flash attention backward and the Trainer -----------------
+
+# (case, B, S, T, causal, softcap, (H, KV, hd)): the training slice's shape,
+# then the serving slice's, the masks, ragged and right-aligned rows, the
+# other head dims and whisper's cross-attention
+BWD_CASES = (
+    ("slice", 8, 128, 128, True, 0.0, (16, 2, 128)),
+    ("long_1024", 4, 1024, 1024, True, 0.0, (16, 2, 128)),
+    ("non_causal", 4, 1024, 1024, False, 0.0, (16, 2, 128)),
+    ("softcap_30", 4, 1024, 1024, True, 30.0, (16, 2, 128)),
+    ("right_aligned_512_1024", 4, 512, 1024, True, 0.0, (16, 2, 128)),
+    ("ragged_130_200", 2, 130, 200, True, 0.0, (16, 2, 128)),
+    ("hd64", 2, 256, 256, True, 0.0, (4, 2, 64)),
+    ("zamba2_hd80", 4, 1024, 1024, True, 0.0, (32, 32, 80)),
+    ("whisper_cross_11_1500", 4, 11, 1500, False, 0.0, (6, 6, 64)))
+BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+BWD_KERNELS = ("flash_bwd_dsum_kernel", "flash_bwd_dkdv_kernel",
+               "flash_bwd_dq_kernel")
+TRAIN_ARCH = "qwen2.5-3b"
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 128, 8, 5, 3e-4
+CUT_SEQ, CUT_BATCH, CUT_LAYERS = 64, 2, 2
+CUT_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# steps of each cut on card and CPU (the CPU path takes 5-8 s a step at
+# full width: the 151,936 x 2048 embedding)
+CUT_STEPS = {"float32": 3, "bfloat16": 2}
+
+
+def scaled_err(torch, got, want, tol, what) -> float:
+    """max |got - want| / max |want|; raises unless finite and within
+    ``tol``."""
+    g, w = got.float(), want.float()
+    need(bool(torch.isfinite(g).all()), f"{what}: non-finite output")
+    scale = max(float(w.abs().max()), 1e-30)
+    err = float((g - w).abs().max()) / scale
+    need(err <= tol, f"{what}: max |kernel - plain| {err} of the largest "
+         f"magnitude, beyond {tol}")
+    return err
+
+
+def bwd_split_ok(split: dict) -> bool:
+    """One launch of each backward kernel a call, and no other kernel."""
+    return (len(split) == len(BWD_KERNELS)
+            and all(sum(kn in n for n in split) == 1 for kn in BWD_KERNELS)
+            and all(c == 1 for c, _ in split.values()))
+
+
+def bwd_device_kernels(torch, fn, case: str, windows: int = 3):
+    """The device kernels of one backward call from the profiler, one call
+    a window: a window whose records do not make one launch of each kernel
+    is profiled again, up to ``windows`` times (the tracer drops records
+    now and then, seen in windows of two long calls), each miss printed as
+    a ``profiler_miss`` line.  Returns the last window's split."""
+    split = None
+    for w in range(windows):
+        split = call_split(torch, fn, reps=1)
+        if split is None or bwd_split_ok(split):
+            return split
+        emit({"phase": "profiler_miss", "kernel": "flash_attention_bwd",
+              "case": case, "window": w, "device_kernels": split})
+    return split
+
+
+def bwd_row(torch, dev, g, case, B, S, T, causal, cap, H, KV, hd, dt,
+            flush) -> dict:
+    """flash_attention's backward (dq, dk, dv) against its plain version on
+    one random input set, from the forward kernel's output and log-sum-exp
+    (itself held to the plain forward's), timed beside its bound and the
+    backward of scaled_dot_product_attention through autograd."""
+    from repro_torch import _build
+    from repro_torch.kernels.flash_attention import ops, ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q, k, v, do = (torch.randn(B, n, h, hd, generator=g, device=dev).to(dt)
+                   for n, h in ((S, H), (T, KV), (T, KV), (S, H)))
+    out, lse = ops.flash_attention_forward(q, k, v, causal=causal,
+                                           softcap=cap, with_lse=True)
+    _, lse_p = ref.flash_attention_reference(q, k, v, causal=causal,
+                                             softcap=cap, return_lse=True)
+    lse_err = float((lse - lse_p).abs().max())
+    need(lse_err <= (1e-3 if dt == torch.bfloat16 else 1e-4),
+         f"flash_attention {case}: lse off by {lse_err}")
+    run_k = lambda: ops.flash_attention_backward(
+        q, k, v, out, lse, do, causal=causal, softcap=cap)
+    run_p = lambda: ref.flash_attention_backward_reference(
+        q, k, v, out, lse, do, causal=causal, softcap=cap)
+    _build.reset_counts()
+    got = run_k()
+    need(_build.launches.get("flash_attention_bwd") == 1,
+         f"flash_attention_bwd {case}: launches {dict(_build.launches)}")
+    want = run_p()
+    torch.cuda.synchronize()
+    tol = BWD_TOL[dtype_name(dt)]
+    errs = {n: scaled_err(torch, a, b, tol, f"flash_attention_bwd {case} {n}")
+            for n, a, b in zip(("dq", "dk", "dv"), got, want)}
+    split = bwd_device_kernels(torch, run_k, case)
+    if split is not None:               # None: the profiler saw nothing
+        need(bwd_split_ok(split),
+             f"flash_attention_bwd {case}: device kernels a call {split}, "
+             f"expected one launch each of {BWD_KERNELS}")
+    pairs = sum(min(T, s + T - S + 1) for s in range(S)) if causal \
+        else S * T
+    flops = 5 * 2 * B * H * hd * pairs
+    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() \
+        + lse.numel() * 4
+    bound_ms, bound_by = bound(flops, nbytes, dt)
+    event_ms(torch, run_k, reps=2, flush=flush)             # warm-up
+    library_ms = None
+    if cap == 0.0:
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        tf32 = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            if S == T or not causal:
+                o = sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
+            else:                        # SDPA aligns is_causal top-left
+                mask = torch.arange(T, device=dev)[None, :] \
+                    <= torch.arange(S, device=dev)[:, None] + (T - S)
+                o = sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+            dot = do.transpose(1, 2)
+            run_l = lambda: torch.autograd.grad(o, (qt, kt, vt), dot,
+                                                retain_graph=True)
+            event_ms(torch, run_l, reps=2, flush=flush)
+            library_ms = event_ms(torch, run_l, reps=10, flush=flush)
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = tf32
+    row = {"name": "flash_attention_bwd", "case": case,
+           "shape": {"B": B, "S": S, "T": T, "H": H, "KV": KV, "hd": hd},
+           "dtype": dtype_name(dt), "causal": causal, "softcap": cap,
+           "max_abs_err": max(float((a.float() - b.float()).abs().max())
+                              for a, b in zip(got, want)),
+           "max_scaled_err": errs, "lse_max_abs_err": lse_err,
+           "device_kernels": split,
+           "ms": event_ms(torch, run_k, reps=10, flush=flush),
+           "plain_ms": event_ms(torch, run_p, reps=2, flush=flush),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": library_ms}
+    emit({"phase": "kernel_vs_plain", **row})
+    return row
+
+
+def bwd_checks(torch, dev, flush) -> dict:
+    """The backward against its plain version, every BWD_CASES case in
+    bf16 and float32; returns the rows by case (float32 ones suffixed)."""
+    g = torch.Generator(device=dev).manual_seed(24)
+    rows = {}
+    for (base, B, S, T, causal, cap, (H, KV, hd)), dt in (
+            (c, dt) for c in BWD_CASES
+            for dt in (torch.bfloat16, torch.float32)):
+        case = base if dt == torch.bfloat16 else base + "_float32"
+        rows[case] = bwd_row(torch, dev, g, case, B, S, T, causal, cap, H,
+                             KV, hd, dt, flush)
+    need(rows["slice"]["device_kernels"] is not None
+         and rows["slice_float32"]["device_kernels"] is not None,
+         "the profiler saw no device kernel of the slice's backward")
+    return rows
+
+
+def train_launches(cfg, steps: int, remat: bool = False) -> dict:
+    """Kernel launches of ``steps`` training steps: every attention layer
+    runs flash_attention forward once with its log-sum-exp (twice under
+    remat: the recomputation), through the design of the model's type,
+    and one backward (three kernels, one count)."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    n = steps * cfg.n_layers
+    fwd = n * (2 if remat else 1)
+    return {"flash_attention": fwd,
+            "flash_attention." + flash_ops.DESIGNS[cfg.torch_dtype]: fwd,
+            "flash_attention.lse": fwd, "flash_attention_bwd": n}
+
+
+def check_launches(got: dict, want: dict, what: str) -> None:
+    got = {k: v for k, v in got.items() if v}
+    need(got == want, f"{what}: launches {got}, expected {want}")
+
+
+def timed_step(torch, tr, batch) -> dict:
+    """One training step of ``tr`` split by CUDA events: forward (loss),
+    backward, and the AdamW update."""
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    model = tr.model
+    model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    ev[0].record()
+    total, _ = steps.loss_fn(model, batch, tr.cfg, remat=tr.tcfg.remat)
+    ev[1].record()
+    total.backward()
+    ev[2].record()
+    params = dict(model.named_parameters())
+    grads = {n: p.grad for n, p in params.items()}
+    adamw.update(grads, tr.opt_state, params, adamw.AdamWConfig(
+        lr=tr.tcfg.lr), decay=steps.decay_mask(params, tr.cfg))
+    ev[3].record()
+    torch.cuda.synchronize()
+    model.zero_grad(set_to_none=True)
+    return {"forward_ms": ev[0].elapsed_time(ev[1]),
+            "backward_ms": ev[1].elapsed_time(ev[2]),
+            "optimizer_ms": ev[2].elapsed_time(ev[3])}
+
+
+def profiled_step(torch, tr, batch) -> dict:
+    """torch.profiler over one Trainer step: wall, device time, the
+    device's busy share and its top kernels."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        tr._one_step(batch)
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = kernel_ms(torch, prof)
+    device = sum(kernels.values()) if kernels else None
+    return {"wall_ms": wall, "device_ms": device,
+            "device_busy_share": None if device is None else device / wall,
+            "device_kernel_counts": {
+                k: kernel_count(torch, prof, k) for k in
+                ("flash_wgmma_kernel",) + BWD_KERNELS},
+            "top_kernels_ms": [(k[:60], v) for k, v in sorted(
+                kernels.items(), key=lambda kv: -kv[1])[:10]]}
+
+
+def trainer(cfg, seq, batch, steps, dev, **kw):
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.data.synthetic import for_model
+    from repro_torch.train import TrainConfig, Trainer
+    return Trainer(cfg, ShapeSpec("chip_smoke", seq, batch, "train"),
+                   for_model(cfg, seq, batch),
+                   TrainConfig(total_steps=steps, lr=TRAIN_LR, **kw),
+                   seed=0, device=dev)
+
+
+def train_full_width(torch, dev) -> int:
+    """``Trainer`` on qwen2.5-3b at its published widths (36 layers, bf16,
+    seed-0 weights) on ``for_model(cfg, 128, 8)``: TRAIN_STEPS steps, every
+    loss finite, launches against ``train_launches`` (counts reset just
+    before, read just after), peak memory under the card's; the step time
+    (median of steps 2-5), tokens/s, the forward/backward/optimizer split
+    and a profiled step; then one step with remat.  Returns the
+    flash_attention_bwd launches of the run."""
+    from repro_torch import _build
+    from repro_torch.configs import get_config
+    cfg = get_config(TRAIN_ARCH)
+    t0 = time.perf_counter()
+    tr = trainer(cfg, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_counts()
+    out = tr.run()
+    launches = dict(_build.launches)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in tr.metrics_log]
+    need(out["steps"] == TRAIN_STEPS and all(map(math.isfinite, losses)),
+         f"full-width training: steps {out['steps']}, losses {losses}")
+    check_launches(launches, train_launches(cfg, TRAIN_STEPS),
+                   "full-width training")
+    total_mem = torch.cuda.get_device_properties(dev).total_memory
+    need(peak < total_mem, f"peak {peak} over the card's {total_mem}")
+    step_s = statistics.median(m["step_time_s"] for m in tr.metrics_log[1:])
+    batch = tr.batch(tr.step)
+    split = timed_step(torch, tr, batch)
+    prof = profiled_step(torch, tr, batch)
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    row = {"phase": "train", "model": cfg.name, "n_layers": cfg.n_layers,
+           "dtype": cfg.dtype, "seq": TRAIN_SEQ, "batch": TRAIN_BATCH,
+           "lr": TRAIN_LR, "steps": TRAIN_STEPS,
+           "params": sum(p.numel() for p in tr.model.parameters()),
+           "init_s": init_s, "losses": losses,
+           "grad_norms": [m["grad_norm"] for m in tr.metrics_log],
+           "step_ms": [m["step_time_s"] * 1e3 for m in tr.metrics_log],
+           "step_ms_median_2_5": step_s * 1e3,
+           "tokens_per_s": tokens / step_s, **split,
+           "peak_mem_bytes": peak, "card_mem_bytes": total_mem,
+           "launches": launches, "profile": prof}
+    emit(row)
+    # one step with remat: each layer recomputed in the backward
+    tr.tcfg.remat = True
+    tr._build()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_counts()
+    m = tr._one_step(batch)
+    check_launches(_build.launches, train_launches(cfg, 1, remat=True),
+                   "remat step")
+    need(math.isfinite(m["loss"]), "remat step: non-finite loss")
+    emit({"phase": "train_remat", "model": cfg.name,
+          "step_ms": m["step_time_s"] * 1e3,
+          "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+          "loss": m["loss"]})
+    del tr
+    torch.cuda.empty_cache()
+    return launches.get("flash_attention_bwd", 0)
+
+
+def train_cut(torch, dev, dtype: str) -> None:
+    """qwen2.5-3b at CUT_LAYERS layers and full width, TF32 off: the first
+    step's gradients and CUT_STEPS Trainer steps from the same seeded
+    weights on the card and through the port's CPU path.  float32: losses
+    and grad norms to rtol 1e-4 and each gradient leaf within 1e-4 of its
+    largest magnitude (floored at 1e-3 of the largest of all leaves: the
+    key bias's gradient is zero in exact arithmetic, rounding noise on both
+    sides); bf16: losses within 2e-2."""
+    import dataclasses
+    from repro_torch import _build
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=CUT_LAYERS,
+                              dtype=dtype).validate()
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        host = trainer(cfg, CUT_SEQ, CUT_BATCH, CUT_STEPS[dtype], "cpu")
+        card = trainer(cfg, CUT_SEQ, CUT_BATCH, CUT_STEPS[dtype], dev)
+        with torch.no_grad():
+            for (n, a), b in zip(host.model.named_parameters(),
+                                 card.model.parameters()):
+                b.copy_(a)
+        from repro_torch.optim import adamw
+        card.opt_state = adamw.init(card.params)
+        leaf_err = None
+        if dtype == "float32":
+            gh, _, _ = steps.grads_of(host.model, host.batch(0), cfg, False)
+            gc, _, _ = steps.grads_of(card.model, card.batch(0), cfg, False)
+            top = max(float(t.abs().max()) for t in gh.values())
+            leaf_err = 0.0
+            for n, t in gh.items():
+                scale = max(float(t.abs().max()), 1e-3 * top)
+                err = float((gc[n].cpu() - t).abs().max()) / scale
+                need(err <= CUT_TOL[dtype], f"float32 cut: gradient of {n} "
+                     f"off by {err} of its scale")
+                leaf_err = max(leaf_err, err)
+            host.model.zero_grad(set_to_none=True)
+            card.model.zero_grad(set_to_none=True)
+        _build.reset_counts()
+        card.run()
+        launches = dict(_build.launches)
+        host.run()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = old
+    check_launches(launches, train_launches(cfg, CUT_STEPS[dtype]),
+                   f"{dtype} cut")
+    got = [(m["loss"], m["grad_norm"]) for m in card.metrics_log]
+    want = [(m["loss"], m["grad_norm"]) for m in host.metrics_log]
+    tol = CUT_TOL[dtype]
+    for (gl, gn), (wl, wn) in zip(got, want):
+        need(math.isclose(gl, wl, rel_tol=tol),
+             f"{dtype} cut: loss {gl} on the card, {wl} on the CPU")
+        if dtype == "float32":
+            need(math.isclose(gn, wn, rel_tol=tol),
+                 f"{dtype} cut: grad norm {gn} on the card, {wn} on the CPU")
+    emit({"phase": "train_card_vs_cpu", "model": cfg.name,
+          "n_layers": cfg.n_layers, "dtype": dtype, "seq": CUT_SEQ,
+          "batch": CUT_BATCH, "allow_tf32": False,
+          "card": got, "cpu": want, "grad_leaf_max_scaled_err": leaf_err,
+          "card_step_ms": [m["step_time_s"] * 1e3 for m in card.metrics_log],
+          "cpu_step_ms": [m["step_time_s"] * 1e3 for m in host.metrics_log],
+          "launches": launches})
+
+
+def train_restart(torch, dev) -> None:
+    """The bf16 cut on the card: 4 steps with a checkpoint, a new Trainer
+    restoring it and running to 6, against an uninterrupted 6-step run:
+    the losses of steps 5-6 and the whole final state bit for bit."""
+    import dataclasses
+    import shutil
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=CUT_LAYERS)
+    ckdir = ROOT / "build" / "train_smoke"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    try:
+        full = trainer(cfg, CUT_SEQ, CUT_BATCH, 6, dev)
+        full.run()
+        first = trainer(cfg, CUT_SEQ, CUT_BATCH, 4, dev, ckpt_every=100,
+                        ckpt_dir=str(ckdir))
+        first.run()
+        del first
+        t0 = time.perf_counter()
+        second = trainer(cfg, CUT_SEQ, CUT_BATCH, 6, dev, ckpt_every=100,
+                         ckpt_dir=str(ckdir))
+        second.ckpt = None          # resumes from ckdir; no final save
+        second.run()
+        resume_s = time.perf_counter() - t0
+        want = [m["loss"] for m in full.metrics_log[4:]]
+        got = [m["loss"] for m in second.metrics_log]
+        same_state = all(torch.equal(a, b) for a, b in
+                         zip(full.state_leaves(), second.state_leaves()))
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    emit({"phase": "train_restart", "model": cfg.name,
+          "disk_free_bytes": shutil.disk_usage(ROOT).free,
+          "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+          "losses_resumed": got, "losses_uninterrupted": want,
+          "state_bit_equal": same_state, "resume_and_run_s": resume_s})
+    need(second.step == 6 and got == want and same_state,
+         f"restart: losses {got} vs {want}, state equal {same_state}")
+
+
+def train_phase(torch, dev, flush):
+    """The training phase: the backward rows, the full-width trainer, the
+    float32 and bf16 cuts on card and CPU, the restart.  Returns (the
+    bf16 slice row of the backward, its launches on the main path)."""
+    rows = bwd_checks(torch, dev, flush)
+    torch.cuda.empty_cache()
+    launches = train_full_width(torch, dev)
+    train_cut(torch, dev, "float32")
+    train_cut(torch, dev, "bfloat16")
+    train_restart(torch, dev)
+    torch.cuda.empty_cache()
+    return rows["slice"], launches
+
+
 def hms_scan_timing(torch, T, dev, flush) -> None:
     """``--only hms_scan``: pathfnd at its default size, one config at
     (1, 1), the call the kernel_vs_plain row times: the ``hms_scan``
@@ -3118,7 +3565,8 @@ def main(argv=None) -> int:
     ap.add_argument("--write-traces", action="store_true")
     ap.add_argument("--only", choices=["um", "um_step_costs", "amil_probe",
                                        "ssd", "flash", "lanes", "hms_scan",
-                                       "obs", "families", "bf16_spread"],
+                                       "obs", "families", "bf16_spread",
+                                       "train"],
                     default=None,
                     help="run the device and build phases, then only the "
                     "UM phases (4b, 5b and um_step_costs), um_step_costs, "
@@ -3126,8 +3574,9 @@ def main(argv=None) -> int:
                     "the ssd_scan rows, the flash_attention rows, the "
                     "scenario baseline and the lanes phase (4c, 5c), "
                     "hms_scan's timing on pathfnd at (1, 1), the obs "
-                    "phase (5d), the families phase (7b), or the bf16 "
-                    "cuts' spread over weight seeds")
+                    "phase (5d), the families phase (7b), the bf16 "
+                    "cuts' spread over weight seeds, or the train phase "
+                    "(6b)")
     args = ap.parse_args(argv)
     if args.write_traces:
         return write_traces()
@@ -3195,6 +3644,8 @@ def main(argv=None) -> int:
             families_phase(torch, dev, flush)
         elif args.only == "bf16_spread":
             bf16_spread(torch, dev)
+        elif args.only == "train":
+            train_phase(torch, dev, flush)
         elif args.only == "lanes":
             scenario_baseline_checks(torch, T)
             runs = [(name, None) for name in sorted(T.WORKLOADS)] + [
@@ -3211,6 +3662,8 @@ def main(argv=None) -> int:
     # profiler's device kernel counts (decode_profile) come up one record
     # short in a window late in a long process (seen from ~610 s on)
     summary["flash_attention"] = flash_checks(torch, dev, flush)
+    summary["flash_attention_bwd"], train_bwd_launches = train_phase(
+        torch, dev, flush)
     paged_checks(torch, dev, flush)
     summary["ssd_scan"] = ssd_checks(torch, dev, flush)
     smoke_serve(torch)
@@ -3508,6 +3961,9 @@ def main(argv=None) -> int:
              "csrc/flash_attention_wgmma.cu",
              "src/repro/kernels/flash_attention/flash_attention.py:94",
              serve_launches["flash_attention"]),
+            ("flash_attention_bwd", "src/repro_torch/kernels/"
+             "flash_attention/csrc/flash_attention_bwd.cu",
+             "src/repro/models/layers.py:117", train_bwd_launches),
             ("paged_attention", "src/repro_torch/kernels/paged_attention/"
              "csrc/paged_attention.cu",
              "src/repro/kernels/paged_attention/paged_attention.py:82",

@@ -49,9 +49,15 @@ _SIGNATURES = {
                         _P),
     "ema_scan_launch": (_P, _L, ctypes.c_double, _P, _P),
     "amil_probe_launch": (_P, _I, _P, _P, _L, _P, _P, _P, _I, _P),
-    # q, k, v, o, B, S, T, H, KV, hd, causal, softcap, scale, dtype, stream
-    "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                               _F, _F, _I, _P),
+    # q, k, v, o, lse, B, S, T, H, KV, hd, causal, softcap, scale, dtype,
+    # stream
+    "flash_attention_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _I, _F, _F, _I, _P),
+    # q, k, v, o, dout, lse, dsum, dq, dk, dv, B, S, T, H, KV, hd, causal,
+    # softcap, scale, dtype, stream
+    "flash_attention_bwd_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
+                                   _P),
     # hd (the float32 kernel)
     "flash_attention_blocks_per_sm": (_I,),
     # q, k_pages, v_pages, block_table, lengths, o, workspace, counters, B,

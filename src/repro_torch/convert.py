@@ -7,14 +7,18 @@ dict (e.g. ``dataclasses.asdict`` of a config made elsewhere, nested
 ``energy`` included).  A model's state is its weights:
 :func:`model_params_from_jax` turns the JAX package's parameter tree, as
 numpy arrays, into a state dict of the port's
-:class:`~repro_torch.models.Transformer`.  Neither package imports the
-other.
+:class:`~repro_torch.models.Transformer`.  A training state is the weights
+and the optimizer's: :func:`adamw_state_from_jax` carries the reference's
+``{"master", "m", "v", "step"}`` into the port's AdamW state, and
+:func:`jax_leaf_order` maps the port's parameter names onto the leaves of
+the JAX parameter tree in the order ``jax.tree`` flattens them (the
+checkpoint's leaf order).  Neither package imports the other.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Optional, Sequence
+from typing import Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -69,11 +73,62 @@ def model_params_from_jax(params: Mapping, cfg) -> Dict[str, torch.Tensor]:
     ``dt_bias`` stay float32, every other leaf takes ``cfg.torch_dtype``;
     bf16 values handed over as float32 come back exactly.  Load with
     ``model.load_state_dict(...)``."""
+    return _split_tree(params, cfg, float32=False)
+
+
+def adamw_state_from_jax(state: Mapping, cfg) -> Dict[str, object]:
+    """The port's AdamW state (``repro_torch.optim.adamw``, CPU tensors)
+    from the reference's ``{"master", "m", "v", "step"}`` of the same
+    config, as numpy arrays: each tree split by :func:`model_params_from_jax`'s
+    names and kept float32, ``step`` an int32 0-d tensor."""
+    out: Dict[str, object] = {k: _split_tree(state[k], cfg, float32=True)
+                              for k in ("master", "m", "v")}
+    out["step"] = torch.tensor(int(np.asarray(state["step"])),
+                               dtype=torch.int32)
+    return out
+
+
+def jax_leaf_order(names: Iterable[str], cfg) -> List[Tuple[Tuple[str, ...],
+                                                            List[str]]]:
+    """The JAX parameter tree's leaves in the order ``jax.tree`` flattens
+    them (dict keys sorted at every level, so key paths in lexicographic
+    order), each as (key path, the port's parameter names it stacks): one
+    name for an unstacked leaf, the layers in order for a stacked one
+    (``blocks``, ``enc_blocks``, ``vision_blocks``; the hybrid's blocks
+    super-block by super-block, its Mamba2 layers within each).  ``names``:
+    the port model's parameter names."""
+    groups: Dict[Tuple[str, ...], list] = {}
+    for name in names:
+        parts = name.split(".")
+        if parts[0] == "blocks" and cfg.family == "hybrid":
+            index, path = (int(parts[1]), int(parts[2])), \
+                ("blocks", *parts[3:])
+        elif parts[0] in _STACKS:
+            index, path = (int(parts[1]),), (parts[0], *parts[2:])
+        else:
+            index, path = (), tuple(parts)
+        groups.setdefault(path, []).append((index, name))
+    return [(path, [n for _, n in sorted(members)])
+            for path, members in sorted(groups.items())]
+
+
+def stack_shape(path: Tuple[str, ...], cfg) -> Tuple[int, ...]:
+    """The leading layer axes of the JAX leaf at ``path``: () for an
+    unstacked leaf."""
+    if path[0] not in _STACKS:
+        return ()
+    if path[0] == "blocks" and cfg.family == "hybrid":
+        return (cfg.n_layers // cfg.attn_every, cfg.attn_every)
+    return (getattr(cfg, _STACKS[path[0]]),)
+
+
+def _split_tree(params: Mapping, cfg, float32: bool) -> Dict[str,
+                                                              torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
 
     def put(name: str, leaf) -> None:
-        dt = torch.float32 if name.rsplit(".", 1)[-1] in _FLOAT32_LEAVES \
-            else cfg.torch_dtype
+        dt = torch.float32 if float32 or name.rsplit(".", 1)[-1] \
+            in _FLOAT32_LEAVES else cfg.torch_dtype
         out[name] = torch.from_numpy(
             np.array(leaf, dtype=np.float32)).to(dt)
 

@@ -9,7 +9,10 @@
 // (offset = T - S), s = (q . k) * scale, then the optional softcap
 // c * tanh(s / c), then keys at or past T and (causal) keys past the query
 // set to -1e30; online softmax with m, l and acc in float32, and
-// out = acc / max(l, 1e-30).  The TPU kernel's sequential kv grid axis is
+// out = acc / max(l, 1e-30), and given an lse buffer (float32 (B, H, S);
+// null when serving) each row's log-sum-exp m + log l for the backward
+// kernels of flash_attention_bwd.cu.  The TPU kernel's sequential kv grid
+// axis is
 // a loop inside one CTA; ragged S and T are masked here, so the wrapper
 // neither pads nor repeats the KV heads.  hd in {16, 32, 64, 80, 128}.
 // bf16 inputs go to the wgmma kernel of flash_attention_wgmma.cu
@@ -106,9 +109,10 @@ struct Mma3Smem {
 template <int HD>
 __global__ void __launch_bounds__(THREADS, 8 / WARPS)
 flash_mma3_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, float* __restrict__ o, int S,
-                  int T, int H, int KV, int hg_log, int n_qb, int causal,
-                  float softcap, float scale) {
+                  const float* __restrict__ v, float* __restrict__ o,
+                  float* __restrict__ lse, int S, int T, int H, int KV,
+                  int hg_log, int n_qb, int causal, float softcap,
+                  float scale) {
   using L = Mma3Smem<HD>;
   constexpr int LDP = L::LDP, PLANE = L::PLANE;
   constexpr int KS = HD / 16;      // k16 steps of Q K^T
@@ -335,6 +339,8 @@ flash_mma3_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int row = r0 + g + 8 * r;
     if (row >= S) continue;
     const float denom = fmaxf(l_run[r], 1e-30f);
+    if (lse != nullptr && t4 == 0)
+      lse[((int64_t)b * H + h) * S + row] = m_run[r] + logf(l_run[r]);
     float* out = o + (((int64_t)b * S + row) * H + h) * HD + 2 * t4;
 #pragma unroll
     for (int n = 0; n < NO; ++n)
@@ -346,6 +352,7 @@ flash_mma3_kernel(const float* __restrict__ q, const float* __restrict__ k,
 struct Args {
   const void *q, *k, *v;
   void* o;
+  float* lse;
   int B, S, T, H, KV;
   int causal;
   float softcap, scale;
@@ -384,8 +391,8 @@ cudaError_t launch_mma3(const Args& a, cudaStream_t st, int* per_sm) {
   if (grid > 0x7fffffff) return cudaErrorInvalidConfiguration;
   kernel<<<(unsigned)grid, THREADS, smem, st>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.S, a.T,
-      a.H, a.KV, lg, n_qb, a.causal, a.softcap, a.scale);
+      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse, a.S,
+      a.T, a.H, a.KV, lg, n_qb, a.causal, a.softcap, a.scale);
   return cudaGetLastError();
 }
 
@@ -406,28 +413,30 @@ cudaError_t dispatch(const Args& a, int hd, cudaStream_t st, int* per_sm) {
 
 // The tensor-core kernel of flash_attention_wgmma.cu (bf16 only).
 int flash_attention_wgmma(const void* q, const void* k, const void* v,
-                          void* o, int B, int S, int T, int H, int KV, int hd,
-                          int causal, float softcap, float scale,
-                          cudaStream_t stream);
+                          void* o, float* lse, int B, int S, int T, int H,
+                          int KV, int hd, int causal, float softcap,
+                          float scale, cudaStream_t stream);
 
 // dtype: 0 = float32 (this file's three-piece kernel), 1 = bfloat16 (the
-// wgmma kernel).  Returns cudaGetLastError() after the launch (or the
-// error that refused it).
+// wgmma kernel).  lse: null, or float32 (B, H, S) for each row's
+// log-sum-exp.  Returns cudaGetLastError() after the launch (or the error
+// that refused it).
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int B, int S,
-                                      int T, int H, int KV, int hd,
-                                      int causal, float softcap, float scale,
-                                      int dtype, void* stream) {
+                                      const void* v, void* o, void* lse,
+                                      int B, int S, int T, int H, int KV,
+                                      int hd, int causal, float softcap,
+                                      float scale, int dtype, void* stream) {
   if (B == 0 || S == 0 || H == 0) return 0;
   if (KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    const Args a{q, k, v, o, B, S, T, H, KV, causal, softcap, scale};
+    const Args a{q, k, v, o, static_cast<float*>(lse), B, S, T, H, KV,
+                 causal, softcap, scale};
     return (int)dispatch(a, hd, st, nullptr);
   }
   if (dtype == 1)
-    return flash_attention_wgmma(q, k, v, o, B, S, T, H, KV, hd, causal,
-                                 softcap, scale, st);
+    return flash_attention_wgmma(q, k, v, o, static_cast<float*>(lse), B, S,
+                                 T, H, KV, hd, causal, softcap, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -11,6 +11,10 @@
 // Pallas kernel's p.astype(v.dtype)) while l sums the unrounded p, and
 // out = acc / max(l, 1e-30).  float32 inputs go to the three-piece mma.sync
 // kernel of flash_attention_mma3.cu: a float32 product here would be TF32.
+// Given an lse buffer (float32 (B, H, S); null when serving), the epilogue
+// also writes each row's log-sum-exp of its scores, (m f + log2 l) ln 2,
+// from the row max and sum already in registers: the backward kernels of
+// flash_attention_bwd.cu recompute P from it.
 //
 // What bounds it on an H100: operations.  The causal slice shape (B 4,
 // S = T = 1024, H 16, hd 128) is 17.2 GFLOP against 37.7 MB of bf16
@@ -64,6 +68,7 @@ constexpr int STAGES = 2;
 constexpr int THREADS = 384;
 constexpr int CONSUMERS = 256;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -414,8 +419,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
-                   __nv_bfloat16* __restrict__ o, int S, int T, int H,
-                   int KV, int causal, float softcap, float scale) {
+                   __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                   int S, int T, int H, int KV, int causal, float softcap,
+                   float scale) {
   using L = Smem<HD>;
   constexpr uint32_t ROWB = flash_layout::kRowBytes;
   constexpr int SLICE = flash_layout::kSliceCols;
@@ -537,6 +543,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       lt += __shfl_xor_sync(0xffffffffu, lt, 2);
       const float inv = 1.f / fmaxf(lt, 1e-30f);
       const int row = row0 + 8 * i;
+      if (lse != nullptr && lane % 4 == 0 && row < S) {
+        const float f = softcap > 0.f ? LOG2E : scale * LOG2E;
+        lse[((int64_t)b * H + h) * S + row] = (m[i] * f + log2f(lt)) * LN2;
+      }
       if (row < S) {
         __nv_bfloat16* out = o + (((int64_t)b * S + row) * H + h) * HD + col0;
 #pragma unroll
@@ -598,8 +608,8 @@ int encode(CUtensorMap* map, const void* ptr, int B, int rows, int heads,
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int S, int T, int H, int KV, int causal, float softcap,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int S, int T, int H, int KV, int causal, float softcap,
            float scale, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   int e = encode(&tq, q, B, S, H, HD, BQ);
@@ -621,37 +631,38 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   }
   const dim3 grid(B * H, (S + BQ - 1) / BQ);
   flash_wgmma_kernel<HD><<<grid, THREADS, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, T, H, KV, causal,
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, S, T, H, KV, causal,
       softcap, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// bf16 q, k, v, o; called by flash_attention_launch for dtype 1.  Returns
-// cudaGetLastError() after the launch, or the error that refused it.
+// bf16 q, k, v, o; lse float32 or null; called by flash_attention_launch
+// for dtype 1.  Returns cudaGetLastError() after the launch, or the error
+// that refused it.
 int flash_attention_wgmma(const void* q, const void* k, const void* v,
-                          void* o, int B, int S, int T, int H, int KV, int hd,
-                          int causal, float softcap, float scale,
-                          cudaStream_t stream) {
+                          void* o, float* lse, int B, int S, int T, int H,
+                          int KV, int hd, int causal, float softcap,
+                          float scale, cudaStream_t stream) {
   if (B == 0 || S == 0 || H == 0) return 0;
   if (KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
   switch (hd) {
     case 16:
-      return launch<16>(q, k, v, o, B, S, T, H, KV, causal, softcap, scale,
-                        stream);
+      return launch<16>(q, k, v, o, lse, B, S, T, H, KV, causal,
+                        softcap, scale, stream);
     case 32:
-      return launch<32>(q, k, v, o, B, S, T, H, KV, causal, softcap, scale,
-                        stream);
+      return launch<32>(q, k, v, o, lse, B, S, T, H, KV, causal,
+                        softcap, scale, stream);
     case 64:
-      return launch<64>(q, k, v, o, B, S, T, H, KV, causal, softcap, scale,
-                        stream);
+      return launch<64>(q, k, v, o, lse, B, S, T, H, KV, causal,
+                        softcap, scale, stream);
     case 80:
-      return launch<80>(q, k, v, o, B, S, T, H, KV, causal, softcap, scale,
-                        stream);
+      return launch<80>(q, k, v, o, lse, B, S, T, H, KV, causal,
+                        softcap, scale, stream);
     case 128:
-      return launch<128>(q, k, v, o, B, S, T, H, KV, causal, softcap, scale,
-                         stream);
+      return launch<128>(q, k, v, o, lse, B, S, T, H, KV, causal,
+                        softcap, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,1 +1,1 @@
-"""Launchers: the serve CLI."""
+"""Launchers: the serve and train CLIs, and the training step."""

@@ -9,6 +9,11 @@ Conventions:
   * the functions (``attention(p, x, cfg)``, ``mlp(p, x, cfg)``, ...) take
     such a module as ``p`` and compute what their JAX namesakes compute, in
     ``cfg.torch_dtype`` with float32 islands for norms, softmax and rope;
+  * parameters take gradients; serving runs under ``torch.no_grad()``
+    (``prefill``, ``decode_step``), where attention calls the forward
+    kernel alone, and with gradients enabled it goes through the
+    autograd Function of ``kernels/flash_attention/ops.py`` (the forward
+    kernel with its log-sum-exp, then the backward kernels);
   * KV caches are dicts ``{"k": (B, max_len, KV, hd), "v": ...}`` per
     layer.  Decode writes the new token's K/V into the cache in place (the
     JAX code returns an updated copy; the values are the same) and reads it
@@ -25,7 +30,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..kernels.flash_attention.ops import flash_attention
+from ..kernels.flash_attention.ops import (flash_attention,
+                                           flash_attention_trainable)
 from ..kernels.paged_attention.ops import paged_decode_attention
 from .config import ModelConfig
 
@@ -44,23 +50,18 @@ def _dense_init(gen: torch.Generator, shape, dtype, device,
     scale = scale if scale is not None else float(1.0 / np.sqrt(fan_in))
     w = torch.randn(shape, generator=gen, device=gen.device,
                     dtype=torch.float32) * scale
-    return _frozen(w.to(device=device, dtype=dtype))
-
-
-def _frozen(t) -> nn.Parameter:
-    """A parameter without gradient: the port runs forward only so far."""
-    return nn.Parameter(t, requires_grad=False)
+    return nn.Parameter(w.to(device=device, dtype=dtype))
 
 
 def _zeros(n: int, dtype, device) -> nn.Parameter:
-    return _frozen(torch.zeros(n, dtype=dtype, device=device))
+    return nn.Parameter(torch.zeros(n, dtype=dtype, device=device))
 
 
 class RMSNorm(nn.Module):
     def __init__(self, d: int, *, device=None):
         super().__init__()
-        self.scale = _frozen(torch.ones(d, dtype=torch.float32,
-                                        device=device))
+        self.scale = nn.Parameter(torch.ones(d, dtype=torch.float32,
+                                             device=device))
 
 
 def rms_norm(x, p: RMSNorm, eps: float = 1e-5):
@@ -202,7 +203,9 @@ def attention(p: Attention, x, cfg: ModelConfig, *,
         return out.reshape(B, S, H * hd) @ p.wo, kv_cache
 
     new_cache = {"k": k, "v": v} if kv_cache is not None else None
-    out = flash_attention(q, k, v, causal=causal, softcap=cfg.logit_softcap)
+    attend = flash_attention_trainable if torch.is_grad_enabled() \
+        else flash_attention
+    out = attend(q, k, v, causal=causal, softcap=cfg.logit_softcap)
     return out.reshape(B, S, H * hd) @ p.wo, new_cache
 
 

@@ -20,7 +20,7 @@ from torch import nn
 from ..kernels.ssd_scan.ops import ssd
 from ..kernels.ssd_scan.ref import ssd_decode_step
 from .config import ModelConfig
-from .layers import RMSNorm, _dense_init, _frozen, _zeros, rms_norm, silu
+from .layers import RMSNorm, _dense_init, _zeros, rms_norm, silu
 
 Cache = Dict[str, torch.Tensor]
 
@@ -45,7 +45,7 @@ class MambaBlock(nn.Module):
         self.conv_bc_w = _dense_init(gen, (K, gn2), dt, device, scale=0.5)
         self.conv_bc_b = _zeros(gn2, dt, device)
         self.A_log = _zeros(h, f32, device)
-        self.D = _frozen(torch.ones(h, dtype=f32, device=device))
+        self.D = nn.Parameter(torch.ones(h, dtype=f32, device=device))
         self.dt_bias = _zeros(h, f32, device)
         self.gate_norm = RMSNorm(di, device=device)
         self.out_proj = _dense_init(gen, (di, d), dt, device)

@@ -4,7 +4,7 @@ for every family: dense, moe, ssm, hybrid, encdec and vlm.
 Public API, as in the reference, with a :class:`Transformer` module in the
 place of the parameter tree:
     init_params(generator, cfg, device=None)         -> Transformer
-    train_logits(model, batch, cfg)                  -> (logits, aux)
+    train_logits(model, batch, cfg, remat=False)     -> (logits, aux)
     prefill(model, batch, cfg, max_len)              -> (logits, cache)
     decode_step(model, tokens, cache, pos, cfg)      -> (logits, cache)
     init_cache(cfg, batch, max_len, device=None)     -> cache
@@ -34,6 +34,15 @@ attention, the encoders' and the cross-attention's included, runs the
 ``paged_attention`` and decode cross-attention ``flash_attention`` (one
 query over the encoder's keys).  Entry points run on the CUDA card unless
 given ``device="cpu"``.
+
+``train_logits`` takes gradients: its attention goes through the flash
+kernels' autograd Function (forward with log-sum-exp, backward kernels),
+and ``remat`` recomputes each layer's block in the backward pass
+(``torch.utils.checkpoint``; the reference's ``jax.checkpoint`` on its
+layer-scan body).  The ssm and hybrid families' gradients wait for
+``ssd_scan``'s backward: ``train_logits`` raises for them while gradients
+are enabled.  ``prefill`` and ``decode_step`` run under
+``torch.no_grad()``.
 """
 
 from __future__ import annotations
@@ -43,6 +52,7 @@ from typing import Optional, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from . import layers as L
@@ -227,46 +237,63 @@ def _layer(tree, *index):
     return {k: v[index] for k, v in tree.items()}
 
 
-def _encoder(blocks: nn.ModuleList, x, cfg: ModelConfig, heads: int):
+def _layers(fn, x, remat: bool):
+    """``fn(x)``, or (``remat``) the same under ``torch.utils.checkpoint``:
+    its activations dropped after the forward and recomputed in the
+    backward."""
+    return checkpoint(fn, x, use_reentrant=False) if remat else fn(x)
+
+
+def _encoder(blocks: nn.ModuleList, x, cfg: ModelConfig, heads: int,
+             remat: bool = False):
     """The encoder (or vision tower) stack: non-causal attention with rope
     at the stack's head dim, the model's softcap and mlp kind."""
     hd = x.shape[-1] // heads
     rope = L.rope_tables(torch.arange(x.shape[1], device=x.device), hd,
                          cfg.rope_theta)
     for blk in blocks:
-        a, _ = L.attention(blk.attn, L.rms_norm(x, blk.norm1, cfg.norm_eps),
-                           cfg, causal=False, rope=rope, hd=hd)
-        x = x + a
-        x = x + L.mlp(blk.mlp, L.rms_norm(x, blk.norm2, cfg.norm_eps), cfg)
+        def layer(x, blk=blk):
+            a, _ = L.attention(blk.attn,
+                               L.rms_norm(x, blk.norm1, cfg.norm_eps), cfg,
+                               causal=False, rope=rope, hd=hd)
+            x = x + a
+            return x + L.mlp(blk.mlp, L.rms_norm(x, blk.norm2, cfg.norm_eps),
+                             cfg)
+        x = _layers(layer, x, remat)
     return x
 
 
-def _input_embeds(model: Transformer, batch, cfg: ModelConfig):
+def _input_embeds(model: Transformer, batch, cfg: ModelConfig,
+                  remat: bool = False):
     """The token embeddings; for the vlm ``[image, text]``, the image
     through the vision tower, its norm and the projector."""
     txt = L.embed(model.embed, batch["tokens"])
     if cfg.family != "vlm":
         return txt
     v = _encoder(model.vision_blocks,
-                 batch["patches"].to(cfg.torch_dtype), cfg, cfg.vision_heads)
+                 batch["patches"].to(cfg.torch_dtype), cfg, cfg.vision_heads,
+                 remat)
     v = L.rms_norm(v, model.vision_norm, cfg.norm_eps)
     img = (v @ model.projector).to(cfg.torch_dtype)
     return torch.cat([img, txt], dim=1)
 
 
-def _encode(model: Transformer, batch, cfg: ModelConfig):
+def _encode(model: Transformer, batch, cfg: ModelConfig,
+            remat: bool = False):
     """The encdec's encoder states (B, T_enc, D)."""
     x = batch["enc_frames"].to(cfg.torch_dtype) @ model.enc_in
-    x = _encoder(model.enc_blocks, x, cfg, cfg.n_heads)
+    x = _encoder(model.enc_blocks, x, cfg, cfg.n_heads, remat)
     return L.rms_norm(x, model.enc_norm, cfg.norm_eps)
 
 
 def _forward(model: Transformer, batch, cfg: ModelConfig, make_cache: bool,
-             max_len: Optional[int] = None, last_only: bool = False):
-    """(logits, aux, cache)."""
-    x = _input_embeds(model, batch, cfg)
+             max_len: Optional[int] = None, last_only: bool = False,
+             remat: bool = False):
+    """(logits, aux, cache); ``remat`` (no cache) checkpoints each layer."""
+    x = _input_embeds(model, batch, cfg, remat)
     B, S, _ = x.shape
-    enc_out = _encode(model, batch, cfg) if cfg.family == "encdec" else None
+    enc_out = _encode(model, batch, cfg, remat) \
+        if cfg.family == "encdec" else None
     cache = _alloc_cache(cfg, B, max(S, max_len or S), x.device,
                          None if enc_out is None else enc_out.shape[1]) \
         if make_cache else None
@@ -289,32 +316,49 @@ def _forward(model: Transformer, batch, cfg: ModelConfig, make_cache: bool,
             if make_cache:
                 kvs["kv"]["k"][s, :, :S] = kv["k"]
                 kvs["kv"]["v"][s, :, :S] = kv["v"]
-    else:
-        for i, blk in enumerate(model.blocks):
-            x, kv, cross, a = _dense_block(
-                blk, x, cfg, cache={} if make_cache else None, rope=rope,
-                enc_out=enc_out)
+    elif not make_cache:
+        for blk in model.blocks:
+            def layer(x, blk=blk):
+                x, _, _, a = _dense_block(blk, x, cfg, rope=rope,
+                                          enc_out=enc_out)
+                return x, a
+            x, a = _layers(layer, x, remat)
             if a is not None:
                 aux = aux + a
-            if make_cache:
-                cache["kv"]["k"][i, :, :S] = kv["k"]
-                cache["kv"]["v"][i, :, :S] = kv["v"]
-                if cross is not None:
-                    cache["cross"]["k"][i] = cross["k"]
-                    cache["cross"]["v"][i] = cross["v"]
+    else:
+        for i, blk in enumerate(model.blocks):
+            x, kv, cross, _ = _dense_block(
+                blk, x, cfg, cache={}, rope=rope, enc_out=enc_out)
+            cache["kv"]["k"][i, :, :S] = kv["k"]
+            cache["kv"]["v"][i, :, :S] = kv["v"]
+            if cross is not None:
+                cache["cross"]["k"][i] = cross["k"]
+                cache["cross"]["v"][i] = cross["v"]
     if last_only:
         x = x[:, -1:]
     x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
     return L.unembed(model.embed, x), aux, cache
 
 
-@torch.no_grad()
-def train_logits(model: Transformer, batch, cfg: ModelConfig):
+SSD_BACKWARD = ("ROADMAP A10, 'ssd_scan backward': the ssm and hybrid "
+                "families train once ssd_scan has a backward kernel")
+
+
+def train_logits(model: Transformer, batch, cfg: ModelConfig, *,
+                 remat: bool = False):
     """Full-sequence logits (float32) and the auxiliary loss: the sum of
-    the MoE layers' load-balance terms, 0 for the other families.
-    Forward only: training is not ported yet."""
-    logits, aux, _ = _forward(model, batch, cfg.validate(),
-                              make_cache=False)
+    the MoE layers' load-balance terms, 0 for the other families.  With
+    gradients enabled it records the graph for ``backward``; ``remat``
+    recomputes each layer in the backward pass instead of keeping its
+    activations.  Raises ``NotImplementedError`` for the ssm and hybrid
+    families while gradients are enabled (see ``SSD_BACKWARD``)."""
+    cfg = cfg.validate()
+    if torch.is_grad_enabled() and cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(
+            f"train_logits with gradients for the {cfg.family} family: "
+            + SSD_BACKWARD)
+    logits, aux, _ = _forward(model, batch, cfg, make_cache=False,
+                              remat=remat)
     return logits, aux
 
 

@@ -125,8 +125,10 @@ class Engine:
         """Image positions ahead of each prompt (the vlm's patches)."""
         return self.cfg.n_patches if self.cfg.family == "vlm" else 0
 
+    @torch.no_grad()
     def run(self) -> Dict[int, np.ndarray]:
-        """Drain the queue; returns rid -> generated tokens."""
+        """Drain the queue; returns rid -> generated tokens (no gradients
+        are recorded)."""
         while self.queue:
             reqs = [self.queue.pop(0)
                     for _ in range(min(self.scfg.max_batch,

@@ -34,6 +34,13 @@ from repro_torch.models import layers as TL
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
+@pytest.fixture(autouse=True)
+def _forward_only():
+    """These tests compare forward values: they run without recording
+    gradients (the port's parameters take gradients)."""
+    with torch.no_grad():
+        yield
+
 
 def _tol(name):
     return dict(atol=2e-2, rtol=2e-2) if name == "bfloat16" \

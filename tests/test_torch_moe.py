@@ -34,6 +34,13 @@ ARCHS = ["grok-1-314b", "phi3.5-moe-42b"]
 TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
        "bfloat16": dict(atol=2e-2, rtol=2e-2)}
 
+@pytest.fixture(autouse=True)
+def _forward_only():
+    """These tests compare forward values: they run without recording
+    gradients (the port's parameters take gradients)."""
+    with torch.no_grad():
+        yield
+
 
 def _np(x):
     return np.asarray(x.float() if isinstance(x, torch.Tensor) else

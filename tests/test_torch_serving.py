@@ -45,6 +45,13 @@ from repro_torch.serving import Engine, Request, ServeConfig
 TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
        "bfloat16": dict(atol=2e-2, rtol=2e-2)}
 
+@pytest.fixture(autouse=True)
+def _forward_only():
+    """These tests compare forward values: they run without recording
+    gradients (the port's parameters take gradients)."""
+    with torch.no_grad():
+        yield
+
 
 def _configs(dtype):
     return (dataclasses.replace(jax_config("qwen2.5-3b", smoke=True),
@@ -150,7 +157,7 @@ def test_model_params_round_trip_exactly():
             got = port.pop(name)
             assert got.dtype == (torch.float32 if name.endswith("scale")
                                  else torch.bfloat16), name
-            assert np.array_equal(got.float().numpy(), want), name
+            assert np.array_equal(got.detach().float().numpy(), want), name
             n += 1
     assert not port, sorted(port)
     assert n == sum(p.numel() > 0 for p in model.parameters())

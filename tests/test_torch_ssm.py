@@ -61,6 +61,13 @@ TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
+@pytest.fixture(autouse=True)
+def _forward_only():
+    """These tests compare forward values: they run without recording
+    gradients (the port's parameters take gradients)."""
+    with torch.no_grad():
+        yield
+
 
 def _np(x):
     return np.asarray(x.float() if isinstance(x, torch.Tensor) else
@@ -394,7 +401,7 @@ def test_model_params_round_trip_exactly(arch):
             f32 = keys[-1] in ("scale", "A_log", "D", "dt_bias")
             assert got.dtype == (torch.float32 if f32 else torch.bfloat16), \
                 name
-            assert np.array_equal(got.float().numpy(), want), name
+            assert np.array_equal(got.detach().float().numpy(), want), name
             n += 1
     assert not port, sorted(port)
     assert n == sum(1 for _ in model.parameters())
