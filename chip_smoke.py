@@ -165,20 +165,27 @@ window's kernel count and where the kernel kind sits among them.
                ``repro_torch.launch.serve --arch mamba2-1.3b --smoke`` on
                the card (``smoke_serve``).
   6b. train  - (``train_phase``, right after the flash rows) the flash
-               attention backward (``csrc/flash_attention_bwd.cu``, three
-               launches, no atomics) against its plain version
-               (``flash_attention_backward_reference``) on the forward
-               kernel's output and log-sum-exp (the log-sum-exp itself
-               against the plain forward's), BWD_CASES in bf16 (2e-2 of
-               each gradient's largest magnitude) and float32 (1e-4): the
-               training slice (B 8, S = T = 128, 16 over 2 heads, hd 128,
-               causal), B 4 at S = T = 1024, non-causal, softcap 30, S 512
-               under T 1024, ragged 130 / 200, hd 64, hd 80 and whisper's
-               cross shape (11 over 1500); each row timed beside its bound
-               (5 products, at the type's peak, against the bytes) and the
-               backward of scaled_dot_product_attention through autograd,
-               and profiled: one launch each of the three kernels a call
-               and nothing else.  Then ``Trainer`` on qwen2.5-3b at full
+               attention backward (``csrc/flash_attention_bwd.cu`` on the
+               tensor cores: bf16 design ``mma``, float32 ``mma3``, three
+               bf16 pieces an operand; no atomics) against its plain
+               version (``flash_attention_backward_reference``) on the
+               forward kernel's output and log-sum-exp (the log-sum-exp
+               itself against the plain forward's), BWD_CASES in bf16
+               (2e-2 of each gradient's largest magnitude) and float32
+               (1e-4): the training slice (B 8, S = T = 128, 16 over 2
+               heads, hd 128, causal), B 4 at S = T = 1024, non-causal,
+               softcap 30, S 512 under T 1024, ragged 130 / 200, hd 64, hd
+               80 and whisper's cross shape (11 over 1500); two calls
+               bit-equal; each row names its design and its two tile
+               kernels' CTAs per SM, timed beside its bound (5 products at
+               the type's peak against the bytes; float32: six bf16 piece
+               products at the bf16 peak, the FMA pipes' bound beside it),
+               the backward of scaled_dot_product_attention through
+               autograd and, with ``--parent-bwd DIR``, an earlier tree's
+               FMA-pipe backward built from DIR, and profiled: one launch
+               each of the D pre-pass, the dK/dV kernel, the sum of the
+               heads' partials (only where H > KV) and the dQ kernel a
+               call, and nothing else.  Then ``Trainer`` on qwen2.5-3b at full
                width (36 layers, bf16, seed-0 weights, ``for_model(cfg,
                128, 8)``, 5 steps at lr 3e-4): finite losses, launches
                against ``train_launches`` (36 forwards with log-sum-exp and
@@ -249,7 +256,8 @@ window's kernel count and where the kernel kind sits among them.
 ``--only um`` runs phases 1-2 and the UM phases (4b, 5b and
 um_step_costs), ``--only lanes`` phases 1-2, 4c and 5c, ``--only obs``
 phases 1-2 and 5d, ``--only families`` phases 1-2 and 7b, ``--only train``
-phases 1-2 and 6b, ``--only
+phases 1-2 and 6b, ``--only bwd`` phases 1-2 and 6b's backward rows,
+``--only
 bf16_spread`` the bf16 cuts' distances over 8 weight seeds,
 ``--only um_step_costs`` that phase alone, ``--only
 amil_probe`` the amil_probe rows and the out-of-range check (the one-launch
@@ -589,13 +597,78 @@ def call_split(torch, fn, reps: int = 5, windows: int = 3):
     return None
 
 
+# CUgraphNodeType, as cuda.h numbers it
+GRAPH_NODE_TYPES = ("kernel", "memcpy", "memset", "host", "graph", "empty",
+                    "wait_event", "event_record", "ext_semas_signal",
+                    "ext_semas_wait", "mem_alloc", "mem_free",
+                    "batch_mem_op", "conditional")
+
+
+def _kernel_node_params():
+    """An empty ctypes CUDA_KERNEL_NODE_PARAMS_v2, laid out as cuda.h."""
+    import ctypes
+
+    class Params(ctypes.Structure):
+        _fields_ = [("func", ctypes.c_void_p),
+                    *[(f, ctypes.c_uint) for f in (
+                        "gx", "gy", "gz", "bx", "by", "bz", "smem")],
+                    ("params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                    ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+    return Params()
+
+
+def graph_nodes(torch, fn) -> list:
+    """Every node that one call of ``fn`` puts on its stream, as
+    ``[type, kernel name or None]``, read by the driver API from a CUDA
+    graph captured around the call (the call is captured, not run).
+    Unlike the profiler's tracer, the graph cannot drop a record."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        fn()
+    raw = ctypes.c_void_p(g.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    need(cu.cuGraphGetNodes(raw, None, ctypes.byref(n)) == 0,
+         "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * max(n.value, 1))()
+    need(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) == 0,
+         "cuGraphGetNodes failed")
+    out = []
+    for i in range(n.value):
+        node = ctypes.c_void_p(nodes[i])
+        t = ctypes.c_int(-1)
+        need(cu.cuGraphNodeGetType(node, ctypes.byref(t)) == 0,
+             "cuGraphNodeGetType failed")
+        kind = (GRAPH_NODE_TYPES[t.value]
+                if 0 <= t.value < len(GRAPH_NODE_TYPES) else str(t.value))
+        name = None
+        if kind == "kernel":
+            p = _kernel_node_params()
+            need(cu.cuGraphKernelNodeGetParams_v2(node, ctypes.byref(p))
+                 == 0, "cuGraphKernelNodeGetParams_v2 failed")
+            s = ctypes.c_char_p()
+            if p.func:
+                e = cu.cuFuncGetName(ctypes.byref(s), ctypes.c_void_p(p.func))
+            else:
+                e = cu.cuKernelGetName(ctypes.byref(s),
+                                       ctypes.c_void_p(p.kern))
+            need(e == 0 and s.value, f"no name for a kernel node ({e})")
+            name = s.value.decode()
+        out.append([kind, name])
+    g.reset()
+    return out
+
+
 def amil_checks(torch, dev, flush, judge: bool):
     """amil_probe against its plain version, bit for bit, on AMIL_CASES:
     the wrapper's call (CUDA events, L2 flushed), the kernel alone
     (profiler), every device kernel of a call with its time (``split``),
-    the plain version and the bytes bound (20 B a request and the table).
+    every node a call puts on its stream (``graph_nodes``), the plain
+    version and the bytes bound (20 B a request and the table).
     ``judge``: a call must be one launch of the probe kernel and nothing
-    else.  A copy of this script beside another checkout's ``src/``
+    else, read from the graph (and from ``split`` where the profiler saw
+    the call).  A copy of this script beside another checkout's ``src/``
     measures that checkout (``--only amil_probe``).  Returns the lanes_8192
     row."""
     from repro_torch.kernels.amil_probe import ops as probe_ops
@@ -621,9 +694,17 @@ def amil_checks(torch, dev, flush, judge: bool):
         split = call_split(torch, run)
         per_call = None if split is None else sum(
             v[0] for v in split.values())
+        if split is None:
+            emit({"phase": "profiler_miss", "kernel": "amil_probe_kernel",
+                  "case": case, "windows": 3})
+        nodes = graph_nodes(torch, run)
         if judge:
-            need(per_call == 1 and all(
-                "amil_probe_kernel" in k for k in split),
+            need(len(nodes) == 1 and nodes[0][0] == "kernel"
+                 and "amil_probe_kernel" in nodes[0][1],
+                 f"amil_probe {case}: a call put {nodes} on its stream, "
+                 "not one launch of the probe kernel")
+            need(split is None or (per_call == 1 and all(
+                "amil_probe_kernel" in k for k in split)),
                 f"amil_probe {case}: a call launched {split}, not one "
                 "launch of the probe kernel")
         plain_ms = event_ms(
@@ -633,7 +714,7 @@ def amil_checks(torch, dev, flush, judge: bool):
         row = {"name": "amil_probe", "case": case, "table_lanes": n_slots,
                "requests": n_req, "view_offset": shift, "max_abs_err": err,
                "ms": ms, "kernel_ms": kernel_ms, "split": split,
-               "kernels_per_call": per_call,
+               "kernels_per_call": per_call, "graph_nodes": nodes,
                "plain_ms": plain_ms,
                "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
                "bound_by": "bytes", "library_ms": None,
@@ -1238,6 +1319,18 @@ def bound(flops: float, nbytes: float, dt):
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def piece_bounds(flops: float, nbytes: float):
+    """(bound_ms, bound_by, the three bounds) of a float32 kernel on the
+    tensor cores: each product as F32_PIECE_PRODUCTS bf16 products at the
+    bf16 peak (``tensor_bound_ms``) against the bytes; the FMA pipes'
+    float32 rate beside them (``fma_bound_ms``)."""
+    t_ops = F32_PIECE_PRODUCTS * flops / PEAK_FLOPS["bfloat16"] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+            {"fma_bound_ms": flops / PEAK_FLOPS["float32"] * 1e3,
+             "tensor_bound_ms": t_ops, "bytes_bound_ms": t_bytes})
+
+
 def flash_row(torch, dev, g, case, B, S, T, causal, cap, H, KV, hd, dt,
               flush) -> dict:
     """flash_attention against its plain version on one random input set:
@@ -1267,15 +1360,11 @@ def flash_row(torch, dev, g, case, B, S, T, causal, cap, H, KV, hd, dt,
     bound_ms, bound_by = bound(flops, nbytes, dt)
     extra = {}
     if dt == torch.float32:
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = F32_PIECE_PRODUCTS * flops / PEAK_FLOPS["bfloat16"] * 1e3
-        extra = {"fma_bound_ms": flops / PEAK_FLOPS["float32"] * 1e3,
-                 "tensor_bound_ms": t_ops, "bytes_bound_ms": t_bytes,
-                 "blocks_per_sm": None}
+        piece_ms, piece_by, extra = piece_bounds(flops, nbytes)
+        extra["blocks_per_sm"] = None
         if designs == ["mma3"]:        # else an older checkout's FMA kernel
             extra["blocks_per_sm"] = ops.blocks_per_sm(hd)
-            bound_ms = max(t_ops, t_bytes)
-            bound_by = "operations" if t_ops >= t_bytes else "bytes"
+            bound_ms, bound_by = piece_ms, piece_by
     event_ms(torch, run_k, reps=3, flush=flush)             # warm-up
     library_ms = None
     if cap == 0.0:
@@ -1533,14 +1622,11 @@ def ssd_checks(torch, dev, flush):
         need(torch.allclose(st, sw, atol=3e-4, rtol=3e-4),
              f"ssd {case}: max |state - plain| {serr} beyond 3e-4")
         flops, nbytes = ssd_bound(x, Bm, l, chunk, init)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         bounds = {}
         if dt_ == bf16:
-            t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+            bound_ms, bound_by = bound(flops, nbytes, bf16)
         else:
-            t_ops = F32_PIECE_PRODUCTS * flops / PEAK_FLOPS["bfloat16"] * 1e3
-            bounds = {"fma_bound_ms": flops / PEAK_FLOPS["float32"] * 1e3,
-                      "tensor_bound_ms": t_ops, "bytes_bound_ms": t_bytes}
+            bound_ms, bound_by, bounds = piece_bounds(flops, nbytes)
         event_ms(torch, run_k, reps=3, flush=flush)          # warm-up
         row = {"name": "ssd_scan", "case": case,
                "shape": {"b": b, "l": l, "h": h, "p": p, "g": G, "n": n,
@@ -1554,8 +1640,7 @@ def ssd_checks(torch, dev, flush):
                "ms": event_ms(torch, run_k, reps=20, flush=flush),
                "plain_ms": event_ms(torch, run_p, reps=3, flush=flush),
                "flops": flops, "bytes": nbytes,
-               "bound_ms": max(t_ops, t_bytes),
-               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "bound_ms": bound_ms, "bound_by": bound_by,
                **bounds, "library_ms": None}
         emit({"phase": "kernel_vs_plain", **row})
         rows[case] = row
@@ -2457,8 +2542,10 @@ BWD_CASES = (
     ("zamba2_hd80", 4, 1024, 1024, True, 0.0, (32, 32, 80)),
     ("whisper_cross_11_1500", 4, 11, 1500, False, 0.0, (6, 6, 64)))
 BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# the backward's device kernels a call; flash_bwd_sum_kernel (the GQA sum of
+# the heads' partials) runs only where H > KV
 BWD_KERNELS = ("flash_bwd_dsum_kernel", "flash_bwd_dkdv_kernel",
-               "flash_bwd_dq_kernel")
+               "flash_bwd_sum_kernel", "flash_bwd_dq_kernel")
 TRAIN_ARCH = "qwen2.5-3b"
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 128, 8, 5, 3e-4
 CUT_SEQ, CUT_BATCH, CUT_LAYERS = 64, 2, 2
@@ -2480,35 +2567,101 @@ def scaled_err(torch, got, want, tol, what) -> float:
     return err
 
 
-def bwd_split_ok(split: dict) -> bool:
-    """One launch of each backward kernel a call, and no other kernel."""
-    return (len(split) == len(BWD_KERNELS)
-            and all(sum(kn in n for n in split) == 1 for kn in BWD_KERNELS)
+def bwd_kernels(grouped: bool) -> tuple:
+    """The backward's device kernels a call: all four where the KV heads
+    are shared (H > KV), else all but the sum of the heads' partials."""
+    return tuple(k for k in BWD_KERNELS
+                 if grouped or k != "flash_bwd_sum_kernel")
+
+
+def bwd_split_ok(split: dict, grouped: bool) -> bool:
+    """One launch of each of the call's backward kernels, and no other
+    kernel."""
+    want = bwd_kernels(grouped)
+    return (len(split) == len(want)
+            and all(sum(kn in n for n in split) == 1 for kn in want)
             and all(c == 1 for c, _ in split.values()))
 
 
-def bwd_device_kernels(torch, fn, case: str, windows: int = 3):
+def bwd_device_kernels(torch, fn, case: str, grouped: bool,
+                       windows: int = 5):
     """The device kernels of one backward call from the profiler, one call
     a window: a window whose records do not make one launch of each kernel
     is profiled again, up to ``windows`` times (the tracer drops records
-    now and then, seen in windows of two long calls), each miss printed as
-    a ``profiler_miss`` line.  Returns the last window's split."""
+    now and then: the first kernel of a short call's window, up to twice
+    in a row), each miss printed as a ``profiler_miss`` line.  Returns the
+    last window's split."""
     split = None
     for w in range(windows):
         split = call_split(torch, fn, reps=1)
-        if split is None or bwd_split_ok(split):
+        if split is None or bwd_split_ok(split, grouped):
             return split
         emit({"phase": "profiler_miss", "kernel": "flash_attention_bwd",
               "case": case, "window": w, "device_kernels": split})
     return split
 
 
+def parent_bwd_library(src_dir):
+    """The FMA-pipe backward of an earlier tree (its
+    ``flash_attention_bwd.cu`` and ``flash_bwd_tile.cuh`` in ``src_dir``,
+    three launches a call), built by nvcc into ``build/parent_bwd/`` and
+    loaded, so that its time stands beside the current kernels' in one
+    process; None without ``src_dir``."""
+    if src_dir is None:
+        return None
+    import ctypes
+    from repro_torch import _build
+    out = ROOT / "build" / "parent_bwd"
+    out.mkdir(parents=True, exist_ok=True)
+    so = out / "libparent_bwd.so"
+    cmd = [_build._nvcc(), *[f for f in _build.NVCC_FLAGS
+                             if f != "-Xptxas=-v"],
+           "-shared", "-o", str(so),
+           str(Path(src_dir) / "flash_attention_bwd.cu")]
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    need(r.returncode == 0, f"parent backward build failed: {r.stderr}")
+    lib = ctypes.CDLL(str(so))
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_attention_bwd_launch.argtypes = [P] * 10 + [I] * 7 + [F, F, I,
+                                                                   P]
+    lib.flash_attention_bwd_launch.restype = I
+    return lib
+
+
+def parent_bwd_ms(torch, lib, q, k, v, out, lse, do, causal, cap, want,
+                  flush):
+    """(ms, max scaled error) of the parent tree's backward on the row's
+    inputs: its time from CUDA events and its largest distance from the
+    plain version, of each gradient's largest magnitude."""
+    from repro_torch import _build
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    dsum = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
+    grads = [torch.empty_like(t) for t in (q, k, v)]
+    code = _build.dtype_code("parent_bwd", q)
+
+    def run():
+        err = lib.flash_attention_bwd_launch(
+            *(t.data_ptr() for t in (q, k, v, out, do, lse, dsum, *grads)),
+            B, S, T, H, KV, hd, int(causal), float(cap), 1.0 / math.sqrt(hd),
+            code, _build.stream_ptr(q))
+        _build.check(err, "parent flash_attention_bwd")
+    run()
+    torch.cuda.synchronize()
+    err = max(float((a.float() - b.float()).abs().max())
+              / max(float(b.float().abs().max()), 1e-30)
+              for a, b in zip(grads, want))
+    event_ms(torch, run, reps=2, flush=flush)
+    return event_ms(torch, run, reps=10, flush=flush), err
+
+
 def bwd_row(torch, dev, g, case, B, S, T, causal, cap, H, KV, hd, dt,
-            flush) -> dict:
+            flush, parent=None) -> dict:
     """flash_attention's backward (dq, dk, dv) against its plain version on
     one random input set, from the forward kernel's output and log-sum-exp
-    (itself held to the plain forward's), timed beside its bound and the
-    backward of scaled_dot_product_attention through autograd."""
+    (itself held to the plain forward's), timed beside its bound, the
+    backward of scaled_dot_product_attention through autograd and, given
+    ``parent`` (``parent_bwd_library``), an earlier tree's backward."""
     from repro_torch import _build
     from repro_torch.kernels.flash_attention import ops, ref
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -2527,24 +2680,40 @@ def bwd_row(torch, dev, g, case, B, S, T, causal, cap, H, KV, hd, dt,
         q, k, v, out, lse, do, causal=causal, softcap=cap)
     _build.reset_counts()
     got = run_k()
-    need(_build.launches.get("flash_attention_bwd") == 1,
-         f"flash_attention_bwd {case}: launches {dict(_build.launches)}")
+    design = ops.BWD_DESIGNS[dt]
+    need(_build.launches.get("flash_attention_bwd") == 1
+         and _build.launches.get(f"flash_attention_bwd.{design}") == 1,
+         f"flash_attention_bwd {case}: launches {dict(_build.launches)}, "
+         f"expected one call of the {design} design")
     want = run_p()
     torch.cuda.synchronize()
     tol = BWD_TOL[dtype_name(dt)]
     errs = {n: scaled_err(torch, a, b, tol, f"flash_attention_bwd {case} {n}")
             for n, a, b in zip(("dq", "dk", "dv"), got, want)}
-    split = bwd_device_kernels(torch, run_k, case)
+    again = run_k()
+    torch.cuda.synchronize()
+    need(all(torch.equal(a, b) for a, b in zip(got, again)),
+         f"flash_attention_bwd {case}: two calls differ")
+    grouped = H > KV
+    split = bwd_device_kernels(torch, run_k, case, grouped)
     if split is not None:               # None: the profiler saw nothing
-        need(bwd_split_ok(split),
+        need(bwd_split_ok(split, grouped),
              f"flash_attention_bwd {case}: device kernels a call {split}, "
-             f"expected one launch each of {BWD_KERNELS}")
+             f"expected one launch each of {bwd_kernels(grouped)}")
     pairs = sum(min(T, s + T - S + 1) for s in range(S)) if causal \
         else S * T
     flops = 5 * 2 * B * H * hd * pairs
     nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() \
         + lse.numel() * 4
     bound_ms, bound_by = bound(flops, nbytes, dt)
+    extra = {}
+    if dt == torch.float32:
+        bound_ms, bound_by, extra = piece_bounds(flops, nbytes)
+    parent_ms = parent_err = None
+    if parent is not None:
+        parent_ms, parent_err = parent_bwd_ms(torch, parent, q, k, v, out,
+                                              lse, do, causal, cap, want,
+                                              flush)
     event_ms(torch, run_k, reps=2, flush=flush)             # warm-up
     library_ms = None
     if cap == 0.0:
@@ -2569,32 +2738,40 @@ def bwd_row(torch, dev, g, case, B, S, T, causal, cap, H, KV, hd, dt,
         finally:
             (torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32) = tf32
-    row = {"name": "flash_attention_bwd", "case": case,
+    dkdv_per_sm, dq_per_sm = ops.bwd_blocks_per_sm(hd, dt)
+    row = {"name": "flash_attention_bwd", "case": case, "design": design,
            "shape": {"B": B, "S": S, "T": T, "H": H, "KV": KV, "hd": hd},
            "dtype": dtype_name(dt), "causal": causal, "softcap": cap,
            "max_abs_err": max(float((a.float() - b.float()).abs().max())
                               for a, b in zip(got, want)),
            "max_scaled_err": errs, "lse_max_abs_err": lse_err,
            "device_kernels": split,
+           "blocks_per_sm": {"dkdv": dkdv_per_sm, "dq": dq_per_sm},
            "ms": event_ms(torch, run_k, reps=10, flush=flush),
+           "parent_fma_ms": parent_ms, "parent_max_scaled_err": parent_err,
            "plain_ms": event_ms(torch, run_p, reps=2, flush=flush),
-           "bound_ms": bound_ms, "bound_by": bound_by,
+           "bound_ms": bound_ms, "bound_by": bound_by, **extra,
            "library_ms": library_ms}
     emit({"phase": "kernel_vs_plain", **row})
     return row
 
 
-def bwd_checks(torch, dev, flush) -> dict:
+def bwd_checks(torch, dev, flush, parent_dir=None) -> dict:
     """The backward against its plain version, every BWD_CASES case in
-    bf16 and float32; returns the rows by case (float32 ones suffixed)."""
+    bf16 and float32, each row naming its design (bf16 ``mma``, float32
+    ``mma3``), its kernels' CTAs per SM and, given ``parent_dir``
+    (``--parent-bwd``), an earlier tree's FMA-pipe backward timed on the
+    same inputs; two calls must give the same bits.  Returns the rows by
+    case (float32 ones suffixed)."""
     g = torch.Generator(device=dev).manual_seed(24)
+    parent = parent_bwd_library(parent_dir)
     rows = {}
     for (base, B, S, T, causal, cap, (H, KV, hd)), dt in (
             (c, dt) for c in BWD_CASES
             for dt in (torch.bfloat16, torch.float32)):
         case = base if dt == torch.bfloat16 else base + "_float32"
         rows[case] = bwd_row(torch, dev, g, case, B, S, T, causal, cap, H,
-                             KV, hd, dt, flush)
+                             KV, hd, dt, flush, parent)
     need(rows["slice"]["device_kernels"] is not None
          and rows["slice_float32"]["device_kernels"] is not None,
          "the profiler saw no device kernel of the slice's backward")
@@ -2605,13 +2782,15 @@ def train_launches(cfg, steps: int, remat: bool = False) -> dict:
     """Kernel launches of ``steps`` training steps: every attention layer
     runs flash_attention forward once with its log-sum-exp (twice under
     remat: the recomputation), through the design of the model's type,
-    and one backward (three kernels, one count)."""
+    and one backward (one count a call, and one for its design)."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
     n = steps * cfg.n_layers
     fwd = n * (2 if remat else 1)
     return {"flash_attention": fwd,
             "flash_attention." + flash_ops.DESIGNS[cfg.torch_dtype]: fwd,
-            "flash_attention.lse": fwd, "flash_attention_bwd": n}
+            "flash_attention.lse": fwd, "flash_attention_bwd": n,
+            "flash_attention_bwd." + flash_ops.BWD_DESIGNS[cfg.torch_dtype]:
+                n}
 
 
 def check_launches(got: dict, want: dict, what: str) -> None:
@@ -2659,6 +2838,8 @@ def profiled_step(torch, tr, batch) -> dict:
     device = sum(kernels.values()) if kernels else None
     return {"wall_ms": wall, "device_ms": device,
             "device_busy_share": None if device is None else device / wall,
+            "attention_bwd_ms": sum(v for k, v in kernels.items()
+                                    if any(b in k for b in BWD_KERNELS)),
             "device_kernel_counts": {
                 k: kernel_count(torch, prof, k) for k in
                 ("flash_wgmma_kernel",) + BWD_KERNELS},
@@ -2845,11 +3026,11 @@ def train_restart(torch, dev) -> None:
          f"restart: losses {got} vs {want}, state equal {same_state}")
 
 
-def train_phase(torch, dev, flush):
+def train_phase(torch, dev, flush, parent_dir=None):
     """The training phase: the backward rows, the full-width trainer, the
     float32 and bf16 cuts on card and CPU, the restart.  Returns (the
     bf16 slice row of the backward, its launches on the main path)."""
-    rows = bwd_checks(torch, dev, flush)
+    rows = bwd_checks(torch, dev, flush, parent_dir)
     torch.cuda.empty_cache()
     launches = train_full_width(torch, dev)
     train_cut(torch, dev, "float32")
@@ -3566,7 +3747,7 @@ def main(argv=None) -> int:
     ap.add_argument("--only", choices=["um", "um_step_costs", "amil_probe",
                                        "ssd", "flash", "lanes", "hms_scan",
                                        "obs", "families", "bf16_spread",
-                                       "train"],
+                                       "train", "bwd"],
                     default=None,
                     help="run the device and build phases, then only the "
                     "UM phases (4b, 5b and um_step_costs), um_step_costs, "
@@ -3575,8 +3756,12 @@ def main(argv=None) -> int:
                     "scenario baseline and the lanes phase (4c, 5c), "
                     "hms_scan's timing on pathfnd at (1, 1), the obs "
                     "phase (5d), the families phase (7b), the bf16 "
-                    "cuts' spread over weight seeds, or the train phase "
-                    "(6b)")
+                    "cuts' spread over weight seeds, the train phase "
+                    "(6b), or its backward rows alone")
+    ap.add_argument("--parent-bwd", default=None, metavar="DIR",
+                    help="a directory holding an earlier tree's "
+                    "flash_attention_bwd.cu (and its header): built and "
+                    "timed beside every backward row")
     args = ap.parse_args(argv)
     if args.write_traces:
         return write_traces()
@@ -3645,7 +3830,9 @@ def main(argv=None) -> int:
         elif args.only == "bf16_spread":
             bf16_spread(torch, dev)
         elif args.only == "train":
-            train_phase(torch, dev, flush)
+            train_phase(torch, dev, flush, args.parent_bwd)
+        elif args.only == "bwd":
+            bwd_checks(torch, dev, flush, args.parent_bwd)
         elif args.only == "lanes":
             scenario_baseline_checks(torch, T)
             runs = [(name, None) for name in sorted(T.WORKLOADS)] + [
@@ -3663,7 +3850,7 @@ def main(argv=None) -> int:
     # short in a window late in a long process (seen from ~610 s on)
     summary["flash_attention"] = flash_checks(torch, dev, flush)
     summary["flash_attention_bwd"], train_bwd_launches = train_phase(
-        torch, dev, flush)
+        torch, dev, flush, args.parent_bwd)
     paged_checks(torch, dev, flush)
     summary["ssd_scan"] = ssd_checks(torch, dev, flush)
     smoke_serve(torch)

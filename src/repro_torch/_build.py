@@ -53,11 +53,13 @@ _SIGNATURES = {
     # stream
     "flash_attention_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _F, _F, _I, _P),
-    # q, k, v, o, dout, lse, dsum, dq, dk, dv, B, S, T, H, KV, hd, causal,
-    # softcap, scale, dtype, stream
+    # q, k, v, o, dout, lse, dsum, dq, dk, dv, part, B, S, T, H, KV, hd,
+    # causal, softcap, scale, dtype, stream
     "flash_attention_bwd_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                   _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
-                                   _P),
+                                   _P, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+                                   _I, _P),
+    # hd, dtype, which (0 dK/dV, 1 dQ)
+    "flash_attention_bwd_blocks_per_sm": (_I, _I, _I),
     # hd (the float32 kernel)
     "flash_attention_blocks_per_sm": (_I,),
     # q, k_pages, v_pages, block_table, lengths, o, workspace, counters, B,

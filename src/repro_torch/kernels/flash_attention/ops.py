@@ -11,10 +11,11 @@ placement raises.
 
 Training goes through :func:`flash_attention_trainable`, a
 ``torch.autograd.Function``: its forward is the same kernel, asked to write
-each query row's log-sum-exp as well, and its backward is the three
-launches of ``csrc/flash_attention_bwd.cu`` (on CPU tensors, the plain
-``flash_attention_backward_reference``).  Neither direction catches a
-refused shape or a failed launch.
+each query row's log-sum-exp as well, and its backward is the kernels of
+``csrc/flash_attention_bwd.cu`` on the tensor cores, chosen by type as
+the forward's are (:data:`BWD_DESIGNS`: bf16 ``mma``, float32 ``mma3``)
+(on CPU tensors, the plain ``flash_attention_backward_reference``).
+Neither direction catches a refused shape or a failed launch.
 """
 
 from __future__ import annotations
@@ -28,6 +29,9 @@ from .ref import flash_attention_backward_reference, flash_attention_reference
 
 HEAD_DIMS = (16, 32, 64, 80, 128)   # the kernels' instantiations
 DESIGNS = {torch.bfloat16: "wgmma", torch.float32: "mma3"}
+# the backward's: mma.sync on bf16 operands, or on three bf16 pieces of
+# each float32 operand
+BWD_DESIGNS = {torch.bfloat16: "mma", torch.float32: "mma3"}
 
 
 def check_kernel_shape(hd: int, dtype: torch.dtype) -> str:
@@ -118,9 +122,11 @@ def flash_attention_backward(q, k, v, out, lse, dout, *, causal: bool = True,
                              softcap: float = 0.0):
     """(dq, dk, dv) of :func:`flash_attention` at (q, k, v), from its output
     ``out``, its log-sum-exp ``lse`` (``flash_attention_forward``'s) and
-    the output's gradient ``dout``, each in its input's type.  On the card:
-    three launches of ``csrc/flash_attention_bwd.cu`` (D = rowsum(dO O),
-    then dK/dV, then dQ), no atomics; on the CPU the plain version."""
+    the output's gradient ``dout``, each in its input's type.  On the card
+    the launches of ``csrc/flash_attention_bwd.cu`` (D = rowsum(dO O); dK
+    and dV per (key tile, query head); where H > KV, the sum of the heads'
+    float32 partials in head order; dQ), no atomics; on the CPU the plain
+    version."""
     B, S, T, H, KV, hd = _shape(q, k, v, causal)
     if out.shape != q.shape or dout.shape != q.shape \
             or lse.shape != (B, H, S):
@@ -140,15 +146,22 @@ def flash_attention_backward(q, k, v, out, lse, dout, *, causal: bool = True,
     if q.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
     dsum = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
+    G = H // KV
+    part = torch.empty(2, G, B, T, KV, hd, dtype=torch.float32,
+                       device=q.device) if G > 1 else None
+    design = BWD_DESIGNS[q.dtype]
     lib = _build.library()
     with torch.cuda.device(q.device):
         err = lib.flash_attention_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), B, S, T, H, KV, hd, int(causal),
-            float(softcap), 1.0 / math.sqrt(hd), code, _build.stream_ptr(q))
-    _build.check(err, "flash_attention_bwd")
+            dk.data_ptr(), dv.data_ptr(),
+            None if part is None else part.data_ptr(), B, S, T, H, KV, hd,
+            int(causal), float(softcap), 1.0 / math.sqrt(hd), code,
+            _build.stream_ptr(q))
+    _build.check(err, f"flash_attention_bwd ({design})")
     _build.count("flash_attention_bwd")
+    _build.count(f"flash_attention_bwd.{design}")
     return dq, dk, dv
 
 
@@ -185,3 +198,14 @@ def blocks_per_sm(hd: int) -> int:
     needs the card."""
     check_kernel_shape(hd, torch.float32)
     return int(_build.library().flash_attention_blocks_per_sm(hd))
+
+
+def bwd_blocks_per_sm(hd: int, dtype: torch.dtype) -> tuple:
+    """(dK/dV, dQ): CTAs of the backward's two tile kernels at this head dim
+    and type that one SM of the current card holds at once; needs the
+    card."""
+    check_kernel_shape(hd, dtype)
+    code = 0 if dtype == torch.float32 else 1      # the C entries' codes
+    lib = _build.library()
+    return tuple(int(lib.flash_attention_bwd_blocks_per_sm(hd, code, which))
+                 for which in (0, 1))

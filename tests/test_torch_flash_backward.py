@@ -8,20 +8,12 @@
   2e-2.
 * ``flash_attention_backward_reference`` equals ``torch.autograd`` through
   ``flash_attention_reference``.
-* The backward kernels' CTA programs (``csrc/flash_bwd_tile.cuh``) built
-  for the host by g++ and run thread by thread, phase by phase, in the
-  kernels' own order (the D pre-pass with its warp butterfly, dK/dV per key
-  tile over the group's heads, dQ per query tile): their float32 dq, dk
-  and dv against the plain version, at every head dim the kernels take,
-  ragged S and T, S < T, softcap and GQA; the same call twice gives the
-  same bits (no atomics).  The CUDA kernels themselves run only on the
-  card (``chip_smoke.py``).
-"""
 
-import ctypes
-import shutil
-import subprocess
-from pathlib import Path
+The backward kernels' design (their arithmetic in plain PyTorch, their
+tile schedule and GQA sum built with g++) is checked in
+``tests/test_torch_flash_bwd_design.py``; the CUDA kernels themselves run
+only on the card (``chip_smoke.py``).
+"""
 
 import jax
 import jax.numpy as jnp
@@ -33,8 +25,6 @@ from repro.models import layers as JL
 
 from repro_torch.kernels.flash_attention import ops, ref
 
-CSRC = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
-        / "kernels" / "flash_attention" / "csrc")
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 DT = {"float32": (jnp.float32, torch.float32),
       "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -167,136 +157,3 @@ def test_no_grad_forward_is_unchanged():
     qg = q.clone().requires_grad_()
     c = ops.flash_attention_trainable(qg, k, v)
     assert torch.equal(a, c.detach()) and c.grad_fn is not None
-
-
-# ---------------------------------------------------------------------------
-# The CTA programs of the backward kernels, built for the host
-# ---------------------------------------------------------------------------
-
-_HOST_SRC = r"""
-#include <stdint.h>
-#include <vector>
-#include "flash_bwd_tile.cuh"
-
-using namespace flash_bwd;
-
-template <int N>
-struct HostCta {
-  std::vector<float> acc;
-  HostCta() : acc(THREADS * N, 0.f) {}
-  template <class F>
-  void each(F&& f) {
-    for (int t = 0; t < THREADS; ++t) f(t, &acc[t * N]);
-  }
-};
-
-template <int HD>
-void run(const Tensors<float>& t, const Shape& s) {
-  const int64_t rows = (int64_t)s.B * s.S * s.H;
-  for (int64_t row = 0; row < rows; ++row) {      // the D pre-pass
-    float a[32], b[32];
-    for (int l = 0; l < 32; ++l)
-      a[l] = dsum_part<HD>(t.o + row * HD, t.dout + row * HD, l);
-    for (int off = 16; off > 0; off /= 2) {        // __shfl_xor_sync
-      for (int l = 0; l < 32; ++l) b[l] = a[l] + a[l ^ off];
-      for (int l = 0; l < 32; ++l) a[l] = b[l];
-    }
-    const int64_t h = row % s.H, bs = row / s.H;
-    t.dsum[((bs / s.S) * s.H + h) * s.S + bs % s.S] = a[0];
-  }
-  std::vector<float> sm(Tile<HD>::floats);
-  for (int b = 0; b < s.B; ++b)
-    for (int kvh = 0; kvh < s.KV; ++kvh)
-      for (int jt = 0; jt * C < s.T; ++jt) {
-        HostCta<HD / 4> cta;
-        dkdv_block<HD>(cta, sm.data(), t, s, jt, kvh, b);
-      }
-  for (int b = 0; b < s.B; ++b)
-    for (int h = 0; h < s.H; ++h)
-      for (int it = 0; it * R < s.S; ++it) {
-        HostCta<HD / 8> cta;
-        dq_block<HD>(cta, sm.data(), t, s, it, h, b);
-      }
-}
-
-extern "C" int bwd_host(const float* q, const float* k, const float* v,
-                        const float* o, const float* dout, const float* lse,
-                        float* dsum, float* dq, float* dk, float* dv, int B,
-                        int S, int T, int H, int KV, int hd, int causal,
-                        float softcap, float scale) {
-  const Tensors<float> t{q, k, v, o, dout, lse, dsum, dq, dk, dv};
-  const Shape s{B, S, T, H, KV, causal, softcap, scale};
-  switch (hd) {
-    case 16: run<16>(t, s); return 0;
-    case 32: run<32>(t, s); return 0;
-    case 64: run<64>(t, s); return 0;
-    case 80: run<80>(t, s); return 0;
-    case 128: run<128>(t, s); return 0;
-    default: return 1;
-  }
-}
-"""
-
-
-@pytest.fixture(scope="module")
-def host_bwd(tmp_path_factory):
-    """``flash_bwd_tile.cuh`` built for the host by g++ (skips without
-    g++): ``bwd_host`` runs the three launches' CTA programs on float32
-    host arrays."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("g++ not found: the host build of flash_bwd_tile.cuh "
-                    "needs it")
-    d = tmp_path_factory.mktemp("flash_bwd")
-    (d / "host.cpp").write_text(_HOST_SRC)
-    so = d / "libflash_bwd.so"
-    subprocess.run([gxx, "-std=c++17", "-O2", "-shared", "-fPIC",
-                    f"-I{CSRC}", "-o", str(so), str(d / "host.cpp")],
-                   check=True, capture_output=True)
-    lib = ctypes.CDLL(str(so))
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.bwd_host.argtypes = [P] * 10 + [I] * 7 + [F, F]
-    lib.bwd_host.restype = I
-
-    def run(q, k, v, out, lse, dout, causal, softcap):
-        B, S, H, hd = q.shape
-        T, KV = k.shape[1], k.shape[2]
-        dsum = torch.empty(B, H, S)
-        dq, dk, dv = (torch.full_like(t, float("nan")) for t in (q, k, v))
-        rc = lib.bwd_host(*(t.data_ptr() for t in (q, k, v, out, dout, lse,
-                                                   dsum, dq, dk, dv)),
-                          B, S, T, H, KV, hd, int(causal), softcap,
-                          hd ** -0.5)
-        assert rc == 0
-        return dq, dk, dv
-    return run
-
-
-HOST_CASES = {                 # B, S, T, H, KV, hd, causal, softcap
-    "slice_hd128": (2, 64, 64, 4, 2, 128, True, 0.0),
-    "ragged_130_200": (1, 130, 200, 2, 1, 32, True, 0.0),
-    "non_causal": (2, 40, 40, 4, 2, 64, False, 0.0),
-    "softcap_30": (2, 48, 48, 4, 2, 64, True, 30.0),
-    "s512_under_t_like": (1, 24, 72, 2, 2, 32, True, 0.0),
-    "hd16": (2, 33, 33, 2, 1, 16, True, 0.0),
-    "hd80": (1, 40, 40, 4, 4, 80, True, 0.0),
-    "cross_11_over_75": (2, 11, 75, 6, 6, 64, False, 0.0),
-    "gqa_8": (1, 32, 32, 8, 1, 32, True, 0.0),
-}
-
-
-@pytest.mark.parametrize("case", sorted(HOST_CASES))
-def test_host_build_matches_plain(host_bwd, case):
-    B, S, T, H, KV, hd, causal, cap = HOST_CASES[case]
-    q, k, v, g = (torch.from_numpy(a) for a in
-                  _inputs(11, B, S, T, H, KV, hd))
-    out, lse = ref.flash_attention_reference(q, k, v, causal=causal,
-                                             softcap=cap, return_lse=True)
-    got = host_bwd(q, k, v, out, lse, g, causal, cap)
-    want = ref.flash_attention_backward_reference(q, k, v, out, lse, g,
-                                                  causal=causal, softcap=cap)
-    for name, a, b in zip(("dq", "dk", "dv"), got, want):
-        assert torch.isfinite(a).all(), f"{case} {name}: unwritten output"
-        _near(a.numpy(), b.numpy(), TOL["float32"], f"{case} {name}")
-    again = host_bwd(q, k, v, out, lse, g, causal, cap)
-    assert all(torch.equal(a, b) for a, b in zip(got, again))
