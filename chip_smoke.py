@@ -5,7 +5,7 @@ every model family) on one card.
     python3 chip_smoke.py [--out DIR]
 
 Phases, each printed as one JSON line; any failure exits non-zero.  They
-run in the order 1, 2, 6 (its flash rows, then 6b), 7, 7b, 8, then 3-5d and
+run in the order 1, 2, 6 (its flash rows, then 6b, 6c), 7, 7b, 8, then 3-5d and
 9: the serving and training phases
 come first because late in a long process (from ~610 s on, on the
 H100 machines) the torch profiler's window now and then records one
@@ -25,10 +25,9 @@ window's kernel count and where the kernel kind sits among them.
                a child process whose out-of-range slot must fail the
                stream; hms_scan + ema_scan on the golden
                trace under all 8 policies (and 48 CTC ways of 64 and 96 of
-               128: two and four a thread in the kernel) and on one
-               workload at its full
-               default size (there the plain step loop runs once, timed
-               and compared).  Each hms_scan row names its domains per
+               128: two and four a thread in the kernel) and on pathfnd
+               at a quarter of its default size (PLAIN_SCAN_N: there the
+               plain step loop runs once, timed and compared).  Each hms_scan row names its domains per
                lane, its longest chain and both bounds (longest chain,
                and one chain per lane).  Times each kernel's wrapper call
                and its plain version, and hms_scan's kernel alone.
@@ -198,6 +197,27 @@ window's kernel count and where the kernel kind sits among them.
                (2 steps' losses to 2e-2); and a restart on the card: 4
                steps, a checkpoint, a new Trainer resuming to 6, bit-equal
                to an uninterrupted run (losses and whole state).
+  6c. train_ssm - (``train_ssm_phase``, right after 6b) the ssd_scan
+               backward (``csrc/ssd_scan_bwd.cu``: float32 products on the
+               FMA pipes, design ``fma``; a fixed-order summing launch, no
+               atomics) against its plain version (``ssd_plain_backward``)
+               in bf16 (2e-2 of each gradient's largest magnitude) and
+               float32 (1e-4): mamba2-1.3b's and zamba2-2.7b's training
+               shapes (B 8, L 128), mamba2's at B 4, L 1024, ragged L 200
+               with an initial state and a dstate, G = 2 and the smoke
+               shape; two calls bit-equal, one launch each of its two
+               device kernels a call, registers and spills from ptxas, the
+               call's time beside its bound and the plain version's.  Then
+               ``Trainer`` on mamba2-1.3b at full width (48 layers, bf16,
+               seed-0 weights, 128 x 8 tokens, 5 steps) as in 6b (48
+               ssd_scan and 48 ssd_scan_bwd launches a step, a remat
+               step), the float32 cuts of mamba2-1.3b (2 layers) and
+               zamba2-2.7b (one super-block; its steps held one at a
+               time from the CPU path's state, beside a free card run
+               and a one-ulp CPU run: ``cut_steps_from_cpu``) on card and
+               CPU, and a mamba2 restart.  ``--only train_ssm`` adds zamba2-2.7b at full
+               width and depth (54 ssd_scan_bwd and 9 flash_attention_bwd
+               launches a step).
   7. serve   - qwen2.5-3b at full width (36 layers, bf16, random weights
                from seed 0) through ``repro_torch.serving.Engine``: (a) the
                launcher's traffic (8 requests of 4-12 tokens, 16 new
@@ -236,7 +256,7 @@ window's kernel count and where the kernel kind sits among them.
                paged_attention on phi's long-mix cache (32 over 8 heads, hd
                128), each against its plain version; then float32 and bf16
                cuts on card and CPU as in phase 8: phi3.5-moe at 2 layers,
-               pixtral at 2 decoder and 2 vision layers, whisper-tiny
+               pixtral at 1 decoder and 1 vision layer, whisper-tiny
                whole, their logit runs on seeded random frames and patches
                (the engine's zeros leave the encoders' output zero).
   8. serve_card_vs_cpu - cuts at full width, TF32 off for matmuls and
@@ -257,6 +277,8 @@ window's kernel count and where the kernel kind sits among them.
 um_step_costs), ``--only lanes`` phases 1-2, 4c and 5c, ``--only obs``
 phases 1-2 and 5d, ``--only families`` phases 1-2 and 7b, ``--only train``
 phases 1-2 and 6b, ``--only bwd`` phases 1-2 and 6b's backward rows,
+``--only train_ssm`` phases 1-2 and 6c with zamba2-2.7b at full width and
+depth, ``--only ssd_bwd`` phases 1-2 and 6c's backward rows,
 ``--only
 bf16_spread`` the bf16 cuts' distances over 8 weight seeds,
 ``--only um_step_costs`` that phase alone, ``--only
@@ -880,6 +902,7 @@ def scan_bounds(scan_ops, s, cycle_ms):
 # the default-size paging workload whose fault and nvlink lanes also run
 # through um_scan's plain version (its 6315 pages clip the last chunk)
 UM_PLAIN_WORKLOAD = "gpt_train"
+PLAIN_SCAN_N = 40_000            # pathfnd's requests for the plain hms_scan
 
 def um_bounds(args, counts, cycle_ms):
     """um_scan's bounds on its arguments and its counts: the slowest lane's
@@ -1536,6 +1559,11 @@ def paged_checks(torch, dev, flush) -> None:
                   vc.view(pool), table, lengths, (kc, vc), flush)
 
 
+SSD_MAMBA = (64, 1, 128, 64)          # H, G, n, p of mamba2-1.3b
+SSD_ZAMBA = (80, 1, 64, 64)           # of zamba2-2.7b
+SSD_SMOKE = (8, 1, 16, 16)            # of both smoke configs
+
+
 def ssd_bound(x, B, l, chunk, has_init):
     """(flops, bytes) one SSD scan needs: the causal half of each chunk's
     (C B^T) X product and its scores over the positions < l, the
@@ -1574,9 +1602,7 @@ def ssd_checks(torch, dev, flush):
     g = torch.Generator(device=dev).manual_seed(15)
     bf16, f32 = torch.bfloat16, torch.float32
     need(ops.DESIGNS[bf16] == "mma", "ssd: bf16 is not the mma design")
-    mamba = (64, 1, 128, 64)            # H, G, n, p of mamba2-1.3b
-    zamba = (80, 1, 64, 64)             # of zamba2-2.7b
-    smoke = (8, 1, 16, 16)              # of both smoke configs
+    mamba, zamba, smoke = SSD_MAMBA, SSD_ZAMBA, SSD_SMOKE
     rows = {}
     for case, b, l, (h, G, n, p), dt_, init in (
             ("mamba2", 4, 1024, mamba, bf16, False),
@@ -1949,8 +1975,9 @@ class plain_kernels:
     def __init__(self, torch):
         from repro_torch.kernels.flash_attention import ref as flash_ref
         from repro_torch.kernels.paged_attention import ref as paged_ref
+        from repro_torch.kernels.ssd_scan import ops as ssd_ops
         from repro_torch.kernels.ssd_scan import ref as ssd_ref
-        from repro_torch.models import layers, mamba2
+        from repro_torch.models import layers
 
         def paged(q, kp, vp, table, lengths, softcap=0.0):
             B, _, H, hd = q.shape
@@ -1960,7 +1987,8 @@ class plain_kernels:
         self.swaps = [(layers, "flash_attention",
                        flash_ref.flash_attention_reference),
                       (layers, "paged_decode_attention", paged),
-                      (mamba2, "ssd", ssd_ref.ssd_plain)]
+                      # the forward of ops.SSD, which the Mamba2 layer calls
+                      (ssd_ops, "ssd", ssd_ref.ssd_plain)]
 
     def __enter__(self):
         self.saved = [getattr(m, n) for m, n, _ in self.swaps]
@@ -2407,8 +2435,9 @@ def families_phase(torch, dev, flush):
     (FAMILY_FLASH, bf16 and float32) and paged_attention on the identity
     table of phi's long-mix cache (32 over 8 heads, hd 128), each against
     its plain version; then the cuts on card and CPU: phi3.5-moe at 2
-    layers, pixtral at 2 decoder and 2 vision layers, whisper-tiny whole,
-    float32 and bf16.  Returns (the launches of the serving runs summed,
+    layers, pixtral at 1 decoder and 1 vision layer (its CPU path at 1024
+    patches and full width is the slowest of the cuts), whisper-tiny
+    whole, float32 and bf16.  Returns (the launches of the serving runs summed,
     the flash and paged rows)."""
     import dataclasses
     from repro_torch.configs import get_config
@@ -2467,8 +2496,8 @@ def families_phase(torch, dev, flush):
                                 (torch.float32, "_float32"))]
     for dtype in ("float32", "bfloat16"):
         serve_card_vs_cpu(torch, dev, "phi3.5-moe-42b", 2, dtype)
-        serve_card_vs_cpu(torch, dev, "pixtral-12b", 2, dtype,
-                          ServeConfig(max_len=4096), n_vision_layers=2)
+        serve_card_vs_cpu(torch, dev, "pixtral-12b", 1, dtype,
+                          ServeConfig(max_len=4096), n_vision_layers=1)
         serve_card_vs_cpu(torch, dev, "whisper-tiny",
                           get_config("whisper-tiny").n_layers, dtype)
     return total, flash + [paged]
@@ -2782,15 +2811,32 @@ def train_launches(cfg, steps: int, remat: bool = False) -> dict:
     """Kernel launches of ``steps`` training steps: every attention layer
     runs flash_attention forward once with its log-sum-exp (twice under
     remat: the recomputation), through the design of the model's type,
-    and one backward (one count a call, and one for its design)."""
+    and one backward; every Mamba2 layer ssd_scan forward once (twice
+    under remat) and its backward once (one count a call, and one for its
+    design).  The hybrid's attention layers are its shared block's
+    applications, one a super-block; the ssm family has none."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
-    n = steps * cfg.n_layers
-    fwd = n * (2 if remat else 1)
-    return {"flash_attention": fwd,
-            "flash_attention." + flash_ops.DESIGNS[cfg.torch_dtype]: fwd,
-            "flash_attention.lse": fwd, "flash_attention_bwd": n,
-            "flash_attention_bwd." + flash_ops.BWD_DESIGNS[cfg.torch_dtype]:
-                n}
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    fwd = 2 if remat else 1
+    mamba = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+    attn = {"ssm": 0, "hybrid": cfg.n_layers // max(cfg.attn_every, 1)}.get(
+        cfg.family, cfg.n_layers)
+    out = {}
+    if attn:
+        n = steps * attn
+        out.update({
+            "flash_attention": n * fwd,
+            "flash_attention." + flash_ops.DESIGNS[cfg.torch_dtype]: n * fwd,
+            "flash_attention.lse": n * fwd, "flash_attention_bwd": n,
+            "flash_attention_bwd."
+            + flash_ops.BWD_DESIGNS[cfg.torch_dtype]: n})
+    if mamba:
+        n = steps * mamba
+        out.update({
+            "ssd_scan": n * fwd,
+            "ssd_scan." + ssd_ops.DESIGNS[cfg.torch_dtype]: n * fwd,
+            "ssd_scan_bwd": n, "ssd_scan_bwd." + ssd_ops.BWD_DESIGN: n})
+    return out
 
 
 def check_launches(got: dict, want: dict, what: str) -> None:
@@ -2840,9 +2886,12 @@ def profiled_step(torch, tr, batch) -> dict:
             "device_busy_share": None if device is None else device / wall,
             "attention_bwd_ms": sum(v for k, v in kernels.items()
                                     if any(b in k for b in BWD_KERNELS)),
+            "ssd_bwd_ms": sum(v for k, v in kernels.items()
+                              if any(b in k for b in SSD_BWD_KERNELS)),
             "device_kernel_counts": {
                 k: kernel_count(torch, prof, k) for k in
-                ("flash_wgmma_kernel",) + BWD_KERNELS},
+                ("flash_wgmma_kernel", "ssd_mma_kernel") + BWD_KERNELS
+                + SSD_BWD_KERNELS},
             "top_kernels_ms": [(k[:60], v) for k, v in sorted(
                 kernels.items(), key=lambda kv: -kv[1])[:10]]}
 
@@ -2857,17 +2906,19 @@ def trainer(cfg, seq, batch, steps, dev, **kw):
                    seed=0, device=dev)
 
 
-def train_full_width(torch, dev) -> int:
-    """``Trainer`` on qwen2.5-3b at its published widths (36 layers, bf16,
-    seed-0 weights) on ``for_model(cfg, 128, 8)``: TRAIN_STEPS steps, every
-    loss finite, launches against ``train_launches`` (counts reset just
-    before, read just after), peak memory under the card's; the step time
-    (median of steps 2-5), tokens/s, the forward/backward/optimizer split
-    and a profiled step; then one step with remat.  Returns the
-    flash_attention_bwd launches of the run."""
+def train_full_width(torch, dev, arch: str = TRAIN_ARCH) -> dict:
+    """``Trainer`` on ``arch`` at its published widths and depth (qwen2.5-3b:
+    36 layers; mamba2-1.3b: 48; zamba2-2.7b: 54 Mamba2 layers and 9
+    applications of the shared block; bf16, seed-0 weights) on
+    ``for_model(cfg, 128, 8)``: TRAIN_STEPS steps, every loss finite,
+    launches against ``train_launches`` (counts reset just before, read
+    just after), peak memory under the card's; the step time (median of
+    steps 2-5), tokens/s, the forward/backward/optimizer split and a
+    profiled step; then one step with remat.  Returns the launches of the
+    run."""
     from repro_torch import _build
     from repro_torch.configs import get_config
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     tr = trainer(cfg, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, dev)
     torch.cuda.synchronize()
@@ -2917,22 +2968,27 @@ def train_full_width(torch, dev) -> int:
           "loss": m["loss"]})
     del tr
     torch.cuda.empty_cache()
-    return launches.get("flash_attention_bwd", 0)
+    return launches
 
 
-def train_cut(torch, dev, dtype: str) -> None:
-    """qwen2.5-3b at CUT_LAYERS layers and full width, TF32 off: the first
+def train_cut(torch, dev, dtype: str, arch: str = TRAIN_ARCH,
+              n_layers: int = CUT_LAYERS, from_cpu_state: bool = False
+              ) -> None:
+    """``arch`` at ``n_layers`` layers and full width, TF32 off: the first
     step's gradients and CUT_STEPS Trainer steps from the same seeded
     weights on the card and through the port's CPU path.  float32: losses
     and grad norms to rtol 1e-4 and each gradient leaf within 1e-4 of its
     largest magnitude (floored at 1e-3 of the largest of all leaves: the
     key bias's gradient is zero in exact arithmetic, rounding noise on both
-    sides); bf16: losses within 2e-2."""
+    sides); bf16: losses within 2e-2.  ``from_cpu_state`` (a model whose
+    free-running steps amplify float32 rounding: the hybrid,
+    ``train_ssm_phase``): each card step starts from the CPU path's whole
+    training state and ends checked against it (``cut_steps_from_cpu``)."""
     import dataclasses
     from repro_torch import _build
     from repro_torch.configs import get_config
     from repro_torch.launch import steps
-    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=CUT_LAYERS,
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers,
                               dtype=dtype).validate()
     old = (torch.backends.cuda.matmul.allow_tf32,
            torch.backends.cudnn.allow_tf32)
@@ -2961,17 +3017,32 @@ def train_cut(torch, dev, dtype: str) -> None:
                 leaf_err = max(leaf_err, err)
             host.model.zero_grad(set_to_none=True)
             card.model.zero_grad(set_to_none=True)
-        _build.reset_counts()
-        card.run()
-        launches = dict(_build.launches)
-        host.run()
+        stepwise = None
+        if from_cpu_state:
+            launches, stepwise = cut_steps_from_cpu(torch, cfg, host, card,
+                                                    CUT_STEPS[dtype])
+        else:
+            _build.reset_counts()
+            card.run()
+            host.run()
+            launches = dict(_build.launches)
     finally:
         torch.backends.cuda.matmul.allow_tf32, \
             torch.backends.cudnn.allow_tf32 = old
-    check_launches(launches, train_launches(cfg, CUT_STEPS[dtype]),
-                   f"{dtype} cut")
     got = [(m["loss"], m["grad_norm"]) for m in card.metrics_log]
     want = [(m["loss"], m["grad_norm"]) for m in host.metrics_log]
+    emit({"phase": "train_card_vs_cpu", "model": cfg.name,
+          "n_layers": cfg.n_layers, "dtype": dtype, "seq": CUT_SEQ,
+          "batch": CUT_BATCH, "allow_tf32": False,
+          "from_cpu_state": from_cpu_state, "stepwise": stepwise,
+          "card": got, "cpu": want, "grad_leaf_max_scaled_err": leaf_err,
+          "card_step_ms": [m["step_time_s"] * 1e3 for m in card.metrics_log],
+          "cpu_step_ms": [m["step_time_s"] * 1e3 for m in host.metrics_log],
+          "launches": launches})
+    check_launches(launches, train_launches(cfg, CUT_STEPS[dtype]),
+                   f"{dtype} cut")
+    if stepwise is not None:
+        judge_stepwise(stepwise)
     tol = CUT_TOL[dtype]
     for (gl, gn), (wl, wn) in zip(got, want):
         need(math.isclose(gl, wl, rel_tol=tol),
@@ -2979,23 +3050,165 @@ def train_cut(torch, dev, dtype: str) -> None:
         if dtype == "float32":
             need(math.isclose(gn, wn, rel_tol=tol),
                  f"{dtype} cut: grad norm {gn} on the card, {wn} on the CPU")
-    emit({"phase": "train_card_vs_cpu", "model": cfg.name,
-          "n_layers": cfg.n_layers, "dtype": dtype, "seq": CUT_SEQ,
-          "batch": CUT_BATCH, "allow_tf32": False,
-          "card": got, "cpu": want, "grad_leaf_max_scaled_err": leaf_err,
-          "card_step_ms": [m["step_time_s"] * 1e3 for m in card.metrics_log],
-          "cpu_step_ms": [m["step_time_s"] * 1e3 for m in host.metrics_log],
-          "launches": launches})
 
 
-def train_restart(torch, dev) -> None:
-    """The bf16 cut on the card: 4 steps with a checkpoint, a new Trainer
-    restoring it and running to 6, against an uninterrupted 6-step run:
-    the losses of steps 5-6 and the whole final state bit for bit."""
+def _leaf_err(torch, got, want, floor: float = 1e-3):
+    """(the largest distance of the leaves ``got`` from ``want``, name ->
+    tensor, each scaled by its leaf's largest magnitude floored at
+    ``floor`` of the largest of all leaves; the leaf where it lies)."""
+    want = {n: w.to(got[n].device) for n, w in want.items()}
+    top = max(float(t.abs().max()) for t in want.values())
+    worst = (0.0, None)
+    for n, w in want.items():
+        scale = max(float(w.abs().max()), floor * top)
+        if scale > 0:
+            err = float((got[n] - w).abs().max()) / scale
+            worst = max(worst, (err, n), key=lambda e: e[0])
+    return worst
+
+
+def cut_steps_from_cpu(torch, cfg, host, card, n_steps: int) -> dict:
+    """The float32 cut's steps of a model whose free-running steps amplify
+    float32 rounding, so that a card run and a CPU run from the same
+    weights part after a few steps whatever computes their gradients.
+    Three free runs show it: the card's, the CPU path's, and the CPU path
+    from the seeded weights moved by one float32 ulp each (a rounding-size
+    change that involves no card).  Then each card step starts from the
+    CPU path's whole training state (the CPU path runs free) and is held
+    to it: its loss and grad norm (judged by ``train_cut``); the card's
+    AdamW update, m, v and the float32 master weights after the step
+    against the update recomputed leaf by leaf, apart from
+    ``adamw.update``, from the step's starting state and the card's own
+    gradients (``steps.grads_of`` just before the step) and grad norm
+    (decay mask, clipping, bias corrections, lr),
+    within 1e-6 of each value plus 1e-6 of the leaf's largest (of lr for
+    the weights); the model's parameters equal to the master weights; the
+    step counters equal.  The distance of the card's m and sqrt(v) from
+    the CPU path's after each step, scaled as the gradients are, is
+    recorded.
+
+    Launch counts are reset just before each held step and read just
+    after it.  Returns (the launches of the held steps, the row's
+    ``stepwise`` record, judged by ``judge_stepwise``)."""
+    from repro_torch import _build
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw
+    card.run()
+    card_free = [(m["loss"], m["grad_norm"]) for m in card.metrics_log]
+    card.metrics_log.clear()
+    ulp = trainer(cfg, CUT_SEQ, CUT_BATCH, n_steps, "cpu")
+    g = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for (_, a), b in zip(host.model.named_parameters(),
+                             ulp.model.parameters()):
+            up = torch.rand(a.shape, generator=g) < 0.5
+            b.copy_(torch.nextafter(a, torch.where(
+                up, torch.tensor(math.inf), torch.tensor(-math.inf))))
+    ulp.opt_state = adamw.init(ulp.params)
+    ulp.run()
+    ulp_free = [(m["loss"], m["grad_norm"]) for m in ulp.metrics_log]
+    del ulp
+
+    opt = adamw.AdamWConfig(lr=TRAIN_LR)
+    decay = steps.decay_mask(host.params, cfg)
+    held, launches = [], {}
+    hs, cs = host.opt_state, card.opt_state
+    for step in range(n_steps):
+        with torch.no_grad():
+            params = card.params
+            for n, t in host.params.items():
+                params[n].copy_(t)
+            for key in ("master", "m", "v"):
+                for n, t in hs[key].items():
+                    cs[key][n].copy_(t)
+            cs["step"].copy_(hs["step"])
+        gc, _, _ = steps.grads_of(card.model, card.batch(step), cfg, False)
+        gc = {n: t.detach().float() for n, t in gc.items()}
+        before = {key: {n: t.clone() for n, t in cs[key].items()}
+                  for key in ("master", "m", "v")}
+        card.model.zero_grad(set_to_none=True)
+        _build.reset_counts()
+        card.metrics_log.append(card._one_step(card.batch(step)))
+        for key, c in _build.launches.items():
+            launches[key] = launches.get(key, 0) + c
+        dev = next(iter(gc.values())).device
+        gnorm = torch.tensor(card.metrics_log[-1]["grad_norm"], device=dev)
+        scale = torch.clamp(opt.clip_norm / torch.clamp(gnorm, min=1e-9),
+                            max=1.0)
+        k = torch.tensor(float(step + 1), device=dev)
+        b1c, b2c = 1.0 - opt.b1 ** k, 1.0 - opt.b2 ** k
+        worst = {"m": (0.0, None), "v": (0.0, None), "master": (0.0, None)}
+        same = True
+        for n, grad in gc.items():
+            t = grad * scale
+            m = before["m"][n].mul_(opt.b1).add_(t * (1.0 - opt.b1))
+            v = before["v"][n].mul_(opt.b2).add_(
+                t.square().mul_(1.0 - opt.b2))
+            w = before["master"][n]
+            upd = (m / b1c).div_((v / b2c).sqrt_().add_(opt.eps))
+            if decay[n]:
+                upd.add_(opt.weight_decay * w)
+            want = {"m": m, "v": v, "master": w - upd.mul_(opt.lr)}
+            for key, x in want.items():
+                off = (cs[key][n] - x).abs()
+                lim = 1e-6 * (x.abs() + (opt.lr if key == "master"
+                                         else float(x.abs().max())))
+                err = float((off / lim).max()) if x.numel() else 0.0
+                worst[key] = max(worst[key], (err, n), key=lambda e: e[0])
+            same &= torch.equal(params[n], cs["master"][n].to(
+                params[n].dtype))
+        del gc, before
+        host.metrics_log.append(host._one_step(host.batch(step)))
+        held.append({
+            "step": step + 1,
+            "counters": (int(cs["step"]), int(hs["step"])),
+            "params_are_master": same,
+            "m_vs_cpu": _leaf_err(torch, cs["m"], hs["m"]),
+            "sqrt_v_vs_cpu": _leaf_err(
+                torch, {n: t.sqrt() for n, t in cs["v"].items()},
+                {n: t.sqrt() for n, t in hs["v"].items()}),
+            **{f"{key}_over_bound": e for key, e in worst.items()}})
+    cpu = [(m["loss"], m["grad_norm"]) for m in host.metrics_log]
+
+    def part(run):
+        return max(max(abs(a - c) / abs(c), abs(b - d) / abs(d))
+                   for (a, b), (c, d) in zip(run, cpu))
+    return launches, {"card_free": card_free, "ulp_free": ulp_free,
+                      "card_free_rel": part(card_free),
+                      "ulp_free_rel": part(ulp_free), "held": held}
+
+
+def judge_stepwise(rec: dict) -> None:
+    """``cut_steps_from_cpu``'s record: every held step's AdamW update
+    within its bound, parameters equal to the master weights, counters
+    equal; and where the one-ulp CPU run stays within CUT_TOL of the CPU
+    path, the card's free run must too."""
+    tol = CUT_TOL["float32"]
+    for h in rec["held"]:
+        at = f"float32 cut step {h['step']}"
+        need(tuple(h["counters"]) == (h["step"], h["step"]),
+             f"{at}: step counters {h['counters']}")
+        for key in ("m", "v", "master"):
+            err, leaf = h[f"{key}_over_bound"]
+            need(err <= 1.0, f"{at}: {key} of {leaf} {err} times the bound "
+                 "from AdamW's update")
+        need(h["params_are_master"], f"{at}: parameters are not the "
+             "master weights")
+    need(rec["ulp_free_rel"] > tol or rec["card_free_rel"] <= tol,
+         f"float32 cut: the card's free run parts from the CPU path by "
+         f"{rec['card_free_rel']}, a one-ulp change on the CPU by only "
+         f"{rec['ulp_free_rel']}")
+
+
+def train_restart(torch, dev, arch: str = TRAIN_ARCH) -> None:
+    """The bf16 cut of ``arch`` on the card: 4 steps with a checkpoint, a
+    new Trainer restoring it and running to 6, against an uninterrupted
+    6-step run: the losses of steps 5-6 and the whole final state bit for
+    bit."""
     import dataclasses
     import shutil
     from repro_torch.configs import get_config
-    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=CUT_LAYERS)
+    cfg = dataclasses.replace(get_config(arch), n_layers=CUT_LAYERS)
     ckdir = ROOT / "build" / "train_smoke"
     shutil.rmtree(ckdir, ignore_errors=True)
     try:
@@ -3037,7 +3250,194 @@ def train_phase(torch, dev, flush, parent_dir=None):
     train_cut(torch, dev, "bfloat16")
     train_restart(torch, dev)
     torch.cuda.empty_cache()
-    return rows["slice"], launches
+    return rows["slice"], launches.get("flash_attention_bwd", 0)
+
+
+SSD_BWD_KERNELS = ("ssd_bwd_kernel", "ssd_bwd_sum_kernel")
+# (case, b, l, (H, G, n, p), initial state, dstate): both training
+# shapes, mamba2's prefill length, ragged with both states, two groups,
+# the smoke shape
+SSD_BWD_CASES = (
+    ("mamba2_train", 8, 128, SSD_MAMBA, False, False),
+    ("zamba2_train", 8, 128, SSD_ZAMBA, False, False),
+    ("long_1024", 4, 1024, SSD_MAMBA, False, False),
+    ("ragged_200_states", 2, 200, SSD_MAMBA, True, True),
+    ("groups_2", 2, 512, (64, 2, 128, 64), False, False),
+    ("smoke", 8, 128, SSD_SMOKE, False, False))
+SSD_ARCH = "mamba2-1.3b"
+HYBRID_ARCH = "zamba2-2.7b"
+
+
+def ssd_bwd_bound(x, B, l, chunk, has_init, has_dstate):
+    """(flops, bytes) of the SSD scan's gradient: over the positions < l,
+    the causal half of each chunk's square products, C B^T once per
+    (b, group) (its scores are shared by the group's heads) and per (b, h)
+    dy u^T and M^T dy over p, Wd B and Wd^T C over n (2n + 2p a pair);
+    four (p x n) products a position per (b, h) (dS B, S0^T dy, whose
+    product with C is also R, dS^T u and the dS update) and one more a
+    position before the last chunk (the entering states recomputed); x, dy
+    and dx once, dt and ddt, B, C, dB and dC once per group, A and dA, and
+    the states given or written."""
+    b, _, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    pairs = 0
+    for c0 in range(0, l, chunk):
+        v = min(chunk, l - c0)
+        pairs += v * (v + 1) // 2
+    recompute = max(0, -(-l // chunk) - 1) * chunk    # chunks before the last
+    flops = 2 * (b * g * pairs * n
+                 + b * h * (pairs * (2 * n + 2 * p) + 4 * l * p * n
+                            + recompute * p * n))
+    e = x.element_size()
+    nbytes = (3 * b * l * h * p * e + 2 * 4 * b * l * h + 2 * 4 * h
+              + 4 * b * l * g * n * B.element_size()
+              + 4 * b * h * p * n * (2 * has_init + has_dstate))
+    return flops, nbytes
+
+
+def ptxas_usage(needle: str) -> dict:
+    """{entry: {registers, spill stores, spill loads}} of the kernels
+    whose mangled names hold ``needle``, from the build's ``-Xptxas=-v``
+    log (empty when this run loaded an earlier build)."""
+    from repro_torch import _build
+    out, entry = {}, None
+    for ln in str(_build.build_info.get("log", "")).splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1] if "'" in ln else ln
+            entry = name if needle in name else None
+            if entry:
+                out[entry] = {}
+        elif entry and "spill stores" in ln:
+            w = ln.replace(",", " ").split()
+            out[entry]["spill_stores"] = int(w[w.index("spill") - 2])
+            out[entry]["spill_loads"] = int(w[-4])
+        elif entry and "Used" in ln and "registers" in ln:
+            w = ln.replace(",", " ").split()
+            out[entry]["registers"] = int(w[w.index("Used") + 1])
+    return out
+
+
+def ssd_bwd_row(torch, dev, g, case, b, l, shape, dt_, init, dstate,
+                flush) -> dict:
+    """ssd_scan's backward against its plain version
+    (``ssd_plain_backward``, autograd through ``ssd_plain``) on one
+    random input set: every gradient within BWD_TOL of its largest
+    magnitude, two calls bit-equal, one launch of each of its two device
+    kernels a call; the call timed by CUDA events (L2 flushed), each
+    launch by the profiler, beside its bound (float32: ``piece_bounds``,
+    as the other float32 rows) and the plain version (no PyTorch call
+    computes this gradient: library_ms is None)."""
+    from repro_torch import _build
+    from repro_torch.kernels.ssd_scan import ops, ref
+    h, G, n, p = shape
+    chunk = 128
+    x = (torch.randn(b, l, h, p, generator=g, device=dev) * 0.5).to(dt_)
+    dt = torch.rand(b, l, h, generator=g, device=dev) * 0.5 + 0.1
+    A = -(torch.rand(h, generator=g, device=dev) * 0.5 + 0.5)
+    bc = (torch.randn(b, l, 2 * G * n, generator=g, device=dev)
+          * 0.3).to(dt_)
+    Bm = bc[..., :G * n].reshape(b, l, G, n)
+    Cm = bc[..., G * n:].reshape(b, l, G, n)
+    s0 = torch.randn(b, h, p, n, generator=g, device=dev) * 0.5 \
+        if init else None
+    ds = torch.randn(b, h, p, n, generator=g, device=dev) * 0.5 \
+        if dstate else None
+    dy = torch.randn(b, l, h, p, generator=g, device=dev).to(dt_)
+    run_k = lambda: ops.ssd_backward(x, dt, A, Bm, Cm, chunk, s0, dy, ds)
+    run_p = lambda: ref.ssd_plain_backward(x, dt, A, Bm, Cm, chunk, s0,
+                                           dy, ds)
+    _build.reset_counts()
+    got = run_k()
+    need(_build.launches.get("ssd_scan_bwd") == 1
+         and _build.launches.get("ssd_scan_bwd." + ops.BWD_DESIGN) == 1,
+         f"ssd_scan_bwd {case}: launches {dict(_build.launches)}")
+    want = run_p()
+    torch.cuda.synchronize()
+    tol = BWD_TOL[dtype_name(dt_)]
+    names = ("dx", "ddt", "dA", "dB", "dC", "dinit")
+    errs = {}
+    for name, a, w in zip(names, got, want):
+        need((a is None) == (w is None), f"ssd_scan_bwd {case}: {name}")
+        if w is not None:
+            need(a.shape == w.shape and a.dtype == w.dtype,
+                 f"ssd_scan_bwd {case} {name}: {a.shape} {a.dtype} vs "
+                 f"{w.shape} {w.dtype}")
+            errs[name] = scaled_err(torch, a, w, tol,
+                                    f"ssd_scan_bwd {case} {name}")
+    again = run_k()
+    torch.cuda.synchronize()
+    need(all(torch.equal(a, c) for a, c in zip(got, again)
+             if a is not None), f"ssd_scan_bwd {case}: two calls differ")
+    split = call_split(torch, run_k, reps=1)
+    if split is not None:
+        need(len(split) == 2 and all(
+            sum(k in name for name in split) == 1 for k in SSD_BWD_KERNELS)
+             and all(c == 1 for c, _ in split.values()),
+             f"ssd_scan_bwd {case}: device kernels a call {split}")
+    flops, nbytes = ssd_bwd_bound(x, Bm, l, chunk, init, dstate)
+    if dt_ == torch.float32:
+        bound_ms, bound_by, bounds = piece_bounds(flops, nbytes)
+    else:
+        bound_ms, bound_by = bound(flops, nbytes, dt_)
+        bounds = {"fma_bound_ms": flops / PEAK_FLOPS["float32"] * 1e3}
+    event_ms(torch, run_k, reps=2, flush=flush)             # warm-up
+    row = {"name": "ssd_scan_bwd", "case": case, "design": ops.BWD_DESIGN,
+           "shape": {"b": b, "l": l, "h": h, "p": p, "g": G, "n": n,
+                     "chunk": chunk},
+           "dtype": dtype_name(dt_), "initial_state": init,
+           "dstate": dstate,
+           "max_abs_err": max(float((a.float() - w.float()).abs().max())
+                              for a, w in zip(got, want) if w is not None),
+           "max_scaled_err": errs, "tol": tol, "bit_equal_twice": True,
+           "device_kernels": split,
+           "ptxas": ptxas_usage("ssd_bwd"),
+           "ms": event_ms(torch, run_k, reps=10, flush=flush),
+           "plain_ms": event_ms(torch, run_p, reps=2, flush=flush),
+           "flops": flops, "bytes": nbytes, "bound_ms": bound_ms,
+           "bound_by": bound_by, **bounds,
+           "library_ms": None, "library_call": "none"}
+    emit({"phase": "kernel_vs_plain", **row})
+    return row
+
+
+def ssd_bwd_checks(torch, dev, flush) -> dict:
+    """The SSD scan's backward against its plain version, every
+    SSD_BWD_CASES case in bf16 and float32 (rows of float32 cases
+    suffixed).  Returns the rows by case."""
+    g = torch.Generator(device=dev).manual_seed(26)
+    rows = {}
+    for (base, b, l, shape, init, dstate), dt_ in (
+            (c, dt_) for c in SSD_BWD_CASES
+            for dt_ in (torch.bfloat16, torch.float32)):
+        case = base if dt_ == torch.bfloat16 else base + "_float32"
+        rows[case] = ssd_bwd_row(torch, dev, g, case, b, l, shape, dt_,
+                                 init, dstate, flush)
+    return rows
+
+
+def train_ssm_phase(torch, dev, flush, full_hybrid: bool = False):
+    """The ssm and hybrid families' training: the ssd_scan backward rows,
+    ``Trainer`` on mamba2-1.3b at full width and depth, the float32 cuts of
+    mamba2-1.3b (2 layers) and zamba2-2.7b (one super-block: 6 Mamba2
+    layers and the shared block) on card and CPU, a mamba2 restart; with
+    ``full_hybrid`` (``--only train_ssm``) zamba2-2.7b at full width and
+    depth too.  Returns (the bf16 mamba2 training-shape row, the
+    ssd_scan_bwd launches of the mamba2 run)."""
+    from repro_torch.configs import get_config
+    rows = ssd_bwd_checks(torch, dev, flush)
+    torch.cuda.empty_cache()
+    launches = train_full_width(torch, dev, SSD_ARCH)
+    train_cut(torch, dev, "float32", SSD_ARCH, CUT_LAYERS)
+    # the hybrid's free-running steps amplify float32 rounding (AdamW's
+    # first steps move every weight by about lr whatever its gradient's
+    # size): its steps are held one at a time, beside a one-ulp CPU run
+    train_cut(torch, dev, "float32", HYBRID_ARCH,
+              get_config(HYBRID_ARCH).attn_every, from_cpu_state=True)
+    train_restart(torch, dev, SSD_ARCH)
+    if full_hybrid:
+        train_full_width(torch, dev, HYBRID_ARCH)
+    torch.cuda.empty_cache()
+    return rows["mamba2_train"], launches.get("ssd_scan_bwd", 0)
 
 
 def hms_scan_timing(torch, T, dev, flush) -> None:
@@ -3747,7 +4147,8 @@ def main(argv=None) -> int:
     ap.add_argument("--only", choices=["um", "um_step_costs", "amil_probe",
                                        "ssd", "flash", "lanes", "hms_scan",
                                        "obs", "families", "bf16_spread",
-                                       "train", "bwd"],
+                                       "train", "bwd", "train_ssm",
+                                       "ssd_bwd"],
                     default=None,
                     help="run the device and build phases, then only the "
                     "UM phases (4b, 5b and um_step_costs), um_step_costs, "
@@ -3757,7 +4158,9 @@ def main(argv=None) -> int:
                     "hms_scan's timing on pathfnd at (1, 1), the obs "
                     "phase (5d), the families phase (7b), the bf16 "
                     "cuts' spread over weight seeds, the train phase "
-                    "(6b), or its backward rows alone")
+                    "(6b), its backward rows alone, the ssm and hybrid "
+                    "training (6c, with zamba2-2.7b at full width and "
+                    "depth) or its ssd_scan backward rows alone")
     ap.add_argument("--parent-bwd", default=None, metavar="DIR",
                     help="a directory holding an earlier tree's "
                     "flash_attention_bwd.cu (and its header): built and "
@@ -3833,6 +4236,10 @@ def main(argv=None) -> int:
             train_phase(torch, dev, flush, args.parent_bwd)
         elif args.only == "bwd":
             bwd_checks(torch, dev, flush, args.parent_bwd)
+        elif args.only == "train_ssm":
+            train_ssm_phase(torch, dev, flush, full_hybrid=True)
+        elif args.only == "ssd_bwd":
+            ssd_bwd_checks(torch, dev, flush)
         elif args.only == "lanes":
             scenario_baseline_checks(torch, T)
             runs = [(name, None) for name in sorted(T.WORKLOADS)] + [
@@ -3851,6 +4258,8 @@ def main(argv=None) -> int:
     summary["flash_attention"] = flash_checks(torch, dev, flush)
     summary["flash_attention_bwd"], train_bwd_launches = train_phase(
         torch, dev, flush, args.parent_bwd)
+    summary["ssd_scan_bwd"], ssd_bwd_launches = train_ssm_phase(
+        torch, dev, flush)
     paged_checks(torch, dev, flush)
     summary["ssd_scan"] = ssd_checks(torch, dev, flush)
     smoke_serve(torch)
@@ -3885,8 +4294,10 @@ def main(argv=None) -> int:
               "max_abs_err": err, "ema_max_abs_err": ema_err,
               "hits": int((got[0] & 1).sum())})
 
-    # one workload at the main path's full default size
-    t = T.make_trace("pathfnd")
+    # one workload at a quarter of its default size (PLAIN_SCAN_N): the
+    # plain step loop at the full 160,000 requests took ~205 s, the run's
+    # longest phase; the kernel's full-size times are the breakdown rows'
+    t = T.make_trace("pathfnd", n=PLAIN_SCAN_N)
     cfg = T.HMSConfig(footprint=t.footprint).validate()
     s = sim.scan_inputs(t, cfg, dev)
     depth = s["slot"].shape[1]
@@ -3907,7 +4318,8 @@ def main(argv=None) -> int:
     entry_ms = launch_ms(torch, run_k, "hms_scan_launch")
     bounds = scan_bounds(scan_ops, s, cycle_ms)
     summary["hms_scan"] = {
-        "name": "hms_scan", "trace": t.name, "depth": depth, **bounds,
+        "name": "hms_scan", "trace": t.name, "n": t.n, "depth": depth,
+        **bounds,
         "max_abs_err": err, "ms": ms, "kernel_ms": kernel_ms,
         "launch_ms": entry_ms, "plain_ms": plain_ms,
         "ns_per_chain_step": kernel_ms * 1e6 / bounds["longest_chain"],
@@ -4158,6 +4570,9 @@ def main(argv=None) -> int:
             ("ssd_scan", "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
              "src/repro/kernels/ssd_scan/ssd_scan.py:71",
              serve_launches["ssd_scan"]),
+            ("ssd_scan_bwd", "src/repro_torch/kernels/ssd_scan/csrc/"
+             "ssd_scan_bwd.cu", "src/repro/kernels/ssd_scan/ref.py:39",
+             ssd_bwd_launches),
             ("um_scan", "src/repro_torch/kernels/um_scan/csrc/um_scan.cu",
              "src/repro/um/engine.py:226", um_launches["um_scan"])):
         row = summary[name]

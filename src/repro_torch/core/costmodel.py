@@ -3,6 +3,8 @@
 The reference package's ``repro.core.costmodel`` with its form unchanged;
 only the committed constants differ: they were fitted on the H100 by
 ``repro_torch.core.calibrate`` (the reference's describe a 2-core CPU).
+They plan calls on the card; calls on CPU tensors (the kernels' plain
+versions) plan under :data:`HOST_PROFILE` (:func:`profile_for`).
 
 One module owns every hand-set execution-shape constant and cap the
 engines used to scatter across ``simulator.py`` and ``um/engine.py``:
@@ -51,6 +53,8 @@ depth at low S, and the UM paging scan, which cannot shard at all.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import math
 import os
@@ -122,9 +126,28 @@ DEFAULT_PROFILE = CalibProfile(fingerprint=DEFAULT_FINGERPRINT,
                                source="measured",
                                created_ts=1792278800.5110352)
 
+#: the profile that plans calls on the host (CPU tensors: the kernels'
+#: plain versions).  Uncalibrated, as the reference's default is on its
+#: host: a plain scan step costs about a millisecond on a CPU
+#: (``python -m repro_torch.core.calibrate --quick --device cpu`` gave
+#: 0.6-2.4 ms a step at n 2000 and 6000; the UM scan 0.12-0.18 ms), well
+#: inside the drift sentinel's band, and a lane is priced as a whole step,
+#: so the planner keeps host calls at (1, 1).  The rounds line is the
+#: card's: the stitch takes T rounds at T = 2-16 on the host too.
+HOST_PROFILE = CalibProfile(step_cost_solo=1000.0, step_overhead=0.0,
+                            lane_cost=1000.0, um_step_cost_solo=150.0,
+                            um_step_overhead=0.0, um_lane_cost=150.0,
+                            fingerprint="host (uncalibrated)",
+                            source="default")
+
 _ACTIVE_PROFILE: Optional[CalibProfile] = None
 _PROFILE_RESOLVED = False
+# a profile pinned by set_profile for calls on every device (None: none)
+_PINNED: Optional[CalibProfile] = None
 _CALIB_MODE: Optional[str] = None
+# the device type of the engine call being planned (None: the card)
+_PLAN_DEVICE: contextvars.ContextVar = contextvars.ContextVar(
+    "plan_device", default=None)
 
 
 def calib_mode() -> str:
@@ -141,30 +164,62 @@ def set_calib_mode(mode: Optional[str]) -> Optional[str]:
     """Pin the calibration mode programmatically (``None`` restores the
     ``REPRO_CALIB`` env default) and drop the resolved profile so the next
     planner call re-resolves; returns the previous pinned value."""
-    global _CALIB_MODE, _PROFILE_RESOLVED, _ACTIVE_PROFILE
+    global _CALIB_MODE, _PROFILE_RESOLVED, _ACTIVE_PROFILE, _PINNED
     old = _CALIB_MODE
     _CALIB_MODE = None if mode is None else str(mode).strip().lower()
     _PROFILE_RESOLVED = False
-    _ACTIVE_PROFILE = None
+    _ACTIVE_PROFILE = _PINNED = None
     return old
 
 
 def set_profile(profile: Optional[CalibProfile]) -> Optional[CalibProfile]:
-    """Pin the active calibration profile (tests, the calibrate CLI).
-    ``None`` drops back to mode resolution on next use; returns the
-    previously pinned/resolved profile (or ``None``)."""
-    global _ACTIVE_PROFILE, _PROFILE_RESOLVED
-    old = _ACTIVE_PROFILE if _PROFILE_RESOLVED else None
-    _ACTIVE_PROFILE = profile
-    _PROFILE_RESOLVED = profile is not None
+    """Pin the active calibration profile (tests, the calibrate CLI), for
+    calls on every device.  ``None`` drops back to the profile by device
+    (:func:`profile_for`).  Returns the previously pinned profile, ``None``
+    when none was pinned (never the card's resolution), so ``old =
+    set_profile(p) ... set_profile(old)`` leaves the pin as it was."""
+    global _PINNED
+    old, _PINNED = _PINNED, profile
     return old
 
 
+@contextlib.contextmanager
+def planning_on(device):
+    """Within the block, :func:`active_profile` is the profile of calls
+    whose tensors lie on ``device`` (the engines' entry points wrap their
+    planning, drift check and ledger record in it)."""
+    token = _PLAN_DEVICE.set(getattr(device, "type", device))
+    try:
+        yield
+    finally:
+        _PLAN_DEVICE.reset(token)
+
+
+def profile_for(device=None) -> CalibProfile:
+    """The profile that plans a call whose tensors lie on ``device`` (a
+    ``torch.device`` or its type; None: the card): a pinned profile
+    (:func:`set_profile`) on every device; else :data:`HOST_PROFILE` for
+    the CPU and the card's resolution (:func:`card_profile`) for CUDA."""
+    if _PINNED is not None:
+        return _PINNED
+    kind = getattr(device, "type", device)
+    if kind is not None and str(kind).split(":")[0] == "cpu":
+        return HOST_PROFILE
+    return card_profile()
+
+
 def active_profile() -> CalibProfile:
-    """The profile the planner is using right now, resolved once per
-    process: ``off`` -> committed defaults, ``auto`` -> per-host profile
-    under ``REPRO_CALIB_DIR`` if present else defaults, ``force`` -> run
-    the quick timed-step profiler and persist the result."""
+    """The profile the planner is using right now: :func:`profile_for`
+    the device of the call being planned (:func:`planning_on`; the card
+    outside any call)."""
+    return profile_for(_PLAN_DEVICE.get())
+
+
+def card_profile() -> CalibProfile:
+    """The card's profile, resolved once per process: ``off`` ->
+    committed defaults, ``auto`` -> per-host profile under
+    ``REPRO_CALIB_DIR`` if present else defaults, ``force`` -> run the
+    quick timed-step profiler and persist the result."""
     global _ACTIVE_PROFILE, _PROFILE_RESOLVED
     if _PROFILE_RESOLVED:
         return _ACTIVE_PROFILE

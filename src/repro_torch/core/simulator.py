@@ -1117,7 +1117,8 @@ def simulate(trace: Trace, cfg: HMSConfig, nvlink: bool = False, *,
     dev = resolve_device(device, "simulate")
     cfg = cfg.validate()
     _rvalidate.validate_trace(trace)
-    return _simulate(trace, cfg, nvlink, dev, "simulate")
+    with costmodel.planning_on(dev):
+        return _simulate(trace, cfg, nvlink, dev, "simulate")
 
 
 def _single_tier_record(entry: str, trace: Trace, cfg: HMSConfig, C,
@@ -1185,6 +1186,12 @@ def simulate_many(trace: Trace, configs: Sequence[HMSConfig],
     dev = resolve_device(device, "simulate_many")
     configs = [c.validate() for c in configs]
     _rvalidate.validate_trace(trace)
+    with costmodel.planning_on(dev):
+        return _simulate_many(trace, configs, nvlink, dev)
+
+
+def _simulate_many(trace: Trace, configs: List[HMSConfig], nvlink: bool,
+                   dev: torch.device) -> List[SimResult]:
     results: List[SimResult | None] = [None] * len(configs)
     ck = _sweepckpt.active()
     tfp = _sweepckpt.trace_fingerprint(trace) if ck is not None else None

@@ -10,7 +10,8 @@ Quadratic attention-like products inside a chunk of ``chunk`` positions, a
 linear recurrence carrying (b, h, p, n) float32 states across chunks.  The
 tests hold it to the JAX oracle, the model runs it on the CPU, and
 ``chip_smoke.py`` holds the CUDA kernel (``ops.ssd``) to :func:`ssd_plain`
-on the card.
+on the card; likewise the backward kernel (``ops.ssd_backward``) to
+:func:`ssd_plain_backward`, autograd through :func:`ssd_plain`.
 """
 
 from __future__ import annotations
@@ -120,3 +121,26 @@ def ssd_decode_step(state, x_t, dt_t, A, B_t, C_t):
     state = state.to(f32) * dA[:, :, None, None] + upd
     y = torch.einsum("bhpn,bhn->bhp", state, Ch)
     return y.to(x_t.dtype), state
+
+
+def ssd_plain_backward(x, dt, A, B, C, chunk: int,
+                       initial_state: Optional[torch.Tensor], dy,
+                       dstate: Optional[torch.Tensor] = None):
+    """The gradients of :func:`ssd_plain` at (x, dt, A, B, C,
+    initial_state) for the output gradients ``dy`` (of y) and ``dstate``
+    (of the final state; None: zero), by autograd through it: (dx, ddt,
+    dA, dB, dC, dinit), each in its input's type (``dinit`` None without
+    an initial state)."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_() for t in (x, dt, A, B, C)]
+        init = None if initial_state is None else \
+            initial_state.detach().requires_grad_()
+        y, state = ssd_plain(*ins, chunk, initial_state=init)
+        outs, grads = [y], [dy]
+        if dstate is not None:
+            outs.append(state)
+            grads.append(dstate)
+        wrt = ins + ([] if init is None else [init])
+        got = torch.autograd.grad(outs, wrt, grads, allow_unused=True)
+    got = [torch.zeros_like(t) if g is None else g for t, g in zip(wrt, got)]
+    return (*got[:5], got[5] if init is not None else None)

@@ -3,10 +3,12 @@ out (the port of the JAX package's ``models/mamba2.py``).
 
 Used standalone for ``mamba2-1.3b`` and as the backbone block of the
 ``zamba2`` hybrid.  The projections are split per stream (``z_proj``,
-``x_proj``, ``bc_proj``, ``dt_proj``) as in the reference.  Prefill runs
-the SSD scan through ``kernels.ssd_scan.ops.ssd`` (the CUDA kernel on the
-card, its plain version on the CPU); decode runs the one-token recurrence
-``ssd_decode_step`` as torch ops, as the reference does.
+``x_proj``, ``bc_proj``, ``dt_proj``) as in the reference.  Training and
+prefill run the SSD scan through the autograd Function
+``kernels.ssd_scan.ops.SSD`` (forward ``ops.ssd``, backward
+``ops.ssd_backward``: the CUDA kernels on the card, their plain versions
+on the CPU); decode runs the one-token recurrence ``ssd_decode_step`` as
+torch ops, as the reference does.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..kernels.ssd_scan.ops import ssd
+from ..kernels.ssd_scan.ops import SSD
 from ..kernels.ssd_scan.ref import ssd_decode_step
 from .config import ModelConfig
 from .layers import RMSNorm, _dense_init, _zeros, rms_norm, silu
@@ -103,8 +105,9 @@ def mamba_block(p: MambaBlock, x, cfg: ModelConfig,
         Cm = bcc[..., g * n:].reshape(B, S, g, n)
         dtv = _softplus(dtp.float() + p.dt_bias)
         init = None if cache is None else cache["state"]
-        y, state = ssd(xs, dtv, A, Bm, Cm, cfg.ssm_chunk,
-                       initial_state=init)
+        # the Function's backward writes dense dB and dC; autograd places
+        # them into bcc's gradient through the views
+        y, state = SSD.apply(xs, dtv, A, Bm, Cm, init, cfg.ssm_chunk)
         y = (y + xs * p.D[None, None, :, None]).reshape(B, S, di)
         if cache is not None:
             cache["state"].copy_(state)

@@ -37,11 +37,12 @@ given ``device="cpu"``.
 
 ``train_logits`` takes gradients: its attention goes through the flash
 kernels' autograd Function (forward with log-sum-exp, backward kernels),
-and ``remat`` recomputes each layer's block in the backward pass
+its Mamba2 layers through ``ssd_scan``'s (forward kernel, backward
+kernel), and ``remat`` recomputes each layer's block in the backward pass
 (``torch.utils.checkpoint``; the reference's ``jax.checkpoint`` on its
-layer-scan body).  The ssm and hybrid families' gradients wait for
-``ssd_scan``'s backward: ``train_logits`` raises for them while gradients
-are enabled.  ``prefill`` and ``decode_step`` run under
+layer-scan body): a dense layer, a Mamba2 block, or the hybrid's
+super-block (its Mamba2 layers and the shared attention block's
+application).  ``prefill`` and ``decode_step`` run under
 ``torch.no_grad()``.
 """
 
@@ -302,20 +303,24 @@ def _forward(model: Transformer, batch, cfg: ModelConfig, make_cache: bool,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
         for i, blk in enumerate(model.blocks):
-            x = _ssm_block(blk, x, cfg,
-                           cache=_layer(cache, i) if make_cache else None)
+            def layer(x, blk=blk, c=_layer(cache, i) if make_cache else None):
+                return _ssm_block(blk, x, cfg, cache=c)
+            x = _layers(layer, x, remat)
     elif cfg.family == "hybrid":
         mstack, kvs = cache if make_cache else (None, None)
         for s, sup in enumerate(model.blocks):
-            for j, blk in enumerate(sup):
-                x = _ssm_block(blk, x, cfg, cache=_layer(mstack, s, j)
-                               if make_cache else None)
-            x, kv, _, _ = _dense_block(model.shared, x, cfg,
-                                       cache={} if make_cache else None,
-                                       rope=rope)
-            if make_cache:
-                kvs["kv"]["k"][s, :, :S] = kv["k"]
-                kvs["kv"]["v"][s, :, :S] = kv["v"]
+            def super_block(x, s=s, sup=sup):
+                for j, blk in enumerate(sup):
+                    x = _ssm_block(blk, x, cfg, cache=_layer(mstack, s, j)
+                                   if make_cache else None)
+                x, kv, _, _ = _dense_block(model.shared, x, cfg,
+                                           cache={} if make_cache else None,
+                                           rope=rope)
+                if make_cache:
+                    kvs["kv"]["k"][s, :, :S] = kv["k"]
+                    kvs["kv"]["v"][s, :, :S] = kv["v"]
+                return x
+            x = _layers(super_block, x, remat)
     elif not make_cache:
         for blk in model.blocks:
             def layer(x, blk=blk):
@@ -340,23 +345,14 @@ def _forward(model: Transformer, batch, cfg: ModelConfig, make_cache: bool,
     return L.unembed(model.embed, x), aux, cache
 
 
-SSD_BACKWARD = ("ROADMAP A10, 'ssd_scan backward': the ssm and hybrid "
-                "families train once ssd_scan has a backward kernel")
-
-
 def train_logits(model: Transformer, batch, cfg: ModelConfig, *,
                  remat: bool = False):
     """Full-sequence logits (float32) and the auxiliary loss: the sum of
     the MoE layers' load-balance terms, 0 for the other families.  With
     gradients enabled it records the graph for ``backward``; ``remat``
     recomputes each layer in the backward pass instead of keeping its
-    activations.  Raises ``NotImplementedError`` for the ssm and hybrid
-    families while gradients are enabled (see ``SSD_BACKWARD``)."""
+    activations."""
     cfg = cfg.validate()
-    if torch.is_grad_enabled() and cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"train_logits with gradients for the {cfg.family} family: "
-            + SSD_BACKWARD)
     logits, aux, _ = _forward(model, batch, cfg, make_cache=False,
                               remat=remat)
     return logits, aux

@@ -346,10 +346,15 @@ def simulate_um_many(trace: Trace, specs: Sequence[UMSpec], *,
     memo is kept per device, so a card run never returns a host result.
     With ``repro_torch.obs`` enabled every call emits one ledger record,
     a fully memoized one too (engine key ``"um:memoized"``)."""
-    global _LANES_RUN
     t_start = time.perf_counter()
     dev = resolve_device(device, "simulate_um_many")
-    specs = list(specs)
+    with costmodel.planning_on(dev):
+        return _simulate_um_many(trace, list(specs), dev, t_start)
+
+
+def _simulate_um_many(trace: Trace, specs: List[UMSpec], dev,
+                      t_start: float) -> List[UMResult]:
+    global _LANES_RUN
     for s in specs:
         _rvalidate.validate_um_spec(s)
     cache = _RESULT_CACHE.setdefault(trace, {})

@@ -220,3 +220,143 @@ def test_set_forced_shards_forwards_to_the_cost_model():
     assert P._FORCED_SHARDS == old
     with pytest.raises(ValueError):
         tsim.set_forced_shards(0)
+
+
+# ---------------------------------------------------------------------------
+# the profile follows the device of the call
+# ---------------------------------------------------------------------------
+
+def test_profile_for_picks_the_profile_by_device():
+    """CUDA tensors plan under the card's profile (the committed H100 fit
+    with ``REPRO_CALIB=off``), CPU tensors under the uncalibrated host
+    profile; a pinned profile holds on both; outside a call the card's."""
+    import torch
+    old = P.set_calib_mode("off")
+    try:
+        assert P.profile_for("cuda") is P.DEFAULT_PROFILE
+        assert P.profile_for(torch.device("cuda", 0)) is P.DEFAULT_PROFILE
+        assert P.profile_for(torch.device("cpu")) is P.HOST_PROFILE
+        assert P.profile_for("cpu") is P.HOST_PROFILE
+        assert "H100" not in P.HOST_PROFILE.fingerprint
+        assert P.active_profile() is P.DEFAULT_PROFILE
+        with P.planning_on(torch.device("cpu")):
+            assert P.active_profile() is P.HOST_PROFILE
+            with P.planning_on(torch.device("cuda")):
+                assert P.active_profile() is P.DEFAULT_PROFILE
+            assert P.active_profile() is P.HOST_PROFILE
+        assert P.active_profile() is P.DEFAULT_PROFILE
+        pin = P.CalibProfile(fingerprint="pinned")
+        P.set_profile(pin)
+        try:
+            assert P.profile_for("cpu") is pin and P.profile_for("cuda") is pin
+        finally:
+            P.set_profile(None)
+        assert P.profile_for("cpu") is P.HOST_PROFILE
+    finally:
+        P.set_calib_mode(old)
+
+
+def test_profile_save_restore_leaves_cpu_calls_on_the_host_profile():
+    """``old = set_profile(p) ... set_profile(old)`` after the card's
+    profile was resolved pins nothing: CPU calls go back to the host
+    profile, CUDA calls to the card's."""
+    old_mode = P.set_calib_mode("off")
+    try:
+        assert P.profile_for("cuda") is P.DEFAULT_PROFILE     # resolved
+        for pin in (P.DEFAULT_PROFILE, P.CalibProfile(fingerprint="x")):
+            old = P.set_profile(pin)
+            assert old is None and P.profile_for("cpu") is pin
+            P.set_profile(old)
+            assert P.profile_for("cpu") is P.HOST_PROFILE
+            assert P.profile_for("cuda") is P.DEFAULT_PROFILE
+        outer = P.CalibProfile(fingerprint="outer")
+        P.set_profile(outer)
+        old = P.set_profile(P.HOST_PROFILE)
+        P.set_profile(old)
+        assert P.profile_for("cuda") is outer
+        P.set_profile(None)
+        assert P.profile_for("cpu") is P.HOST_PROFILE
+    finally:
+        P.set_calib_mode(old_mode)
+
+
+def test_host_profile_keeps_the_host_plans_sequential():
+    """A lane priced as a whole step and the stitch's T rounds: no (S, T)
+    beats (1, 1) for either engine on the host."""
+    old = P.set_profile(P.HOST_PROFILE)
+    try:
+        for depth in (7, 2000, 250_000):
+            for skew in (0.0, 0.3):
+                for batch in (1, 4, 12):
+                    plan = P.plan_hms_split(_depth_of(depth, skew), batch)
+                    assert (plan.shards, plan.t_segments) == (1, 1)
+            for width in (1, 2, 16):
+                assert P.plan_um_split(depth, width).t_segments == 1
+    finally:
+        P.set_profile(old)
+
+
+def _drift(caught):
+    return [w for w in caught
+            if issubclass(w.category, P.CalibrationDriftWarning)]
+
+
+def test_cpu_calls_plan_under_the_host_profile(tmp_path):
+    """A CPU ``simulate`` (HMS scan) and an oversubscribed ``hbm`` one (the
+    UM scan)
+    record the host profile as their calib_fingerprint with its
+    prediction, and raise no CalibrationDriftWarning where the reference
+    raises none; the card's profile on the same calls warns (the plain
+    versions run some thousand times slower than the card)."""
+    import warnings
+
+    from repro import core as RC
+
+    from repro_torch import core as T
+    from repro_torch import obs
+    from repro_torch.convert import trace_from_arrays
+
+    def traces(n):
+        rt = RC.make_trace("gpt_train", n=n)
+        return rt, trace_from_arrays(rt.name, rt.col, rt.is_write,
+                                     rt.footprint)
+
+    rt, t = traces(2345)                    # an engine key of its own
+    with warnings.catch_warnings(record=True) as ref_w:
+        warnings.simplefilter("always")
+        for org in ("hms", "hbm"):
+            RC.simulate(rt, RC.HMSConfig(footprint=rt.footprint, r_hbm=0.3,
+                                         organization=org))
+    obs.clear_records()
+    obs.enable(str(tmp_path))
+    try:
+        with warnings.catch_warnings(record=True) as port_w:
+            warnings.simplefilter("always")
+            for org in ("hms", "hbm"):
+                T.simulate(t, T.HMSConfig(footprint=t.footprint, r_hbm=0.3,
+                                          organization=org), device="cpu")
+        recs = {r.engine: r for r in obs.records()
+                if r.engine_key != "um:memoized"}
+    finally:
+        obs.disable()
+        obs.clear_records()
+    if not _drift(ref_w):
+        assert not _drift(port_w), [str(w.message) for w in port_w]
+    host = P.HOST_PROFILE
+    assert recs["hms"].calib_fingerprint == host.fingerprint
+    assert (recs["hms"].shards, recs["hms"].t_segments) == (1, 1)
+    depth = tsim.plan_depth(t, [T.HMSConfig(footprint=t.footprint,
+                                            r_hbm=0.3).validate()])(1)
+    assert recs["hms"].plan_predicted_us == depth * host.step_cost_solo
+    assert recs["um"].calib_fingerprint == host.fingerprint
+    assert recs["um"].plan_predicted_us == t.n * host.um_step_cost_solo
+
+    _, t = traces(2346)
+    old = P.set_profile(P.DEFAULT_PROFILE)
+    try:
+        with warnings.catch_warnings(record=True) as card_w:
+            warnings.simplefilter("always")
+            T.simulate(t, T.HMSConfig(footprint=t.footprint), device="cpu")
+    finally:
+        P.set_profile(old)
+    assert _drift(card_w) and "H100" in str(_drift(card_w)[0].message)

@@ -32,6 +32,7 @@ kernels themselves run only on the card (``chip_smoke.py``).
 """
 
 import ctypes
+import functools
 import math
 import shutil
 import subprocess
@@ -152,10 +153,12 @@ def flash_bwd_model(q, k, v, out, lse, dout, causal=True, softcap=0.0,
             head_sum(dv_h).transpose(1, 2).to(v.dtype).contiguous())
 
 
+@functools.lru_cache(maxsize=None)
 def _model_grads(case, dtype, split=None):
     """The model's (dq, dk, dv) on the case's inputs, from the plain
     forward's output and log-sum-exp, as float32 tensors; and the plain
-    backward's on the same."""
+    backward's on the same.  Computed once per (case, dtype, split) for
+    the module (the tests only read them)."""
     _, _, _, _, _, _, causal, cap = CASES[case]
     tdt = DT[dtype][1]
     q, k, v, g = (torch.from_numpy(a).to(tdt) for a in _inputs(case, dtype))
@@ -164,12 +167,15 @@ def _model_grads(case, dtype, split=None):
     got = flash_bwd_model(q, k, v, out, lse, g, causal, cap, split)
     plain = ref.flash_attention_backward_reference(
         q, k, v, out, lse, g, causal=causal, softcap=cap)
-    return [t.float() for t in got], [t.float() for t in plain]
+    return (tuple(t.float() for t in got),
+            tuple(t.float() for t in plain))
 
 
+@functools.lru_cache(maxsize=None)
 def _jax_grads(case, dtype, blocked):
     """jax.grad of sum(out * dO) through the reference's ``_sdpa`` or
-    ``_blocked_sdpa`` (K and V repeated over the group), float32 numpy."""
+    ``_blocked_sdpa`` (K and V repeated over the group), jitted, float32
+    numpy; once per (case, dtype, blocked)."""
     B, S, T, H, KV, hd, causal, cap = CASES[case]
     G = H // KV
     jdt = DT[dtype][0]
@@ -189,8 +195,10 @@ def _jax_grads(case, dtype, blocked):
                        .astype(jnp.float32))
 
     args = [jnp.asarray(a, jdt) for a in (q, k, v)]
-    grads = jax.grad(loss, argnums=(0, 1, 2))(*args)
-    return [np.asarray(x.astype(jnp.float32)) for x in grads]
+    # jitted, as the reference trains: op by op the same gradient took 4x
+    # as long (float32 equal to 2.5e-7 of the scale, bf16 to 8.9e-4)
+    grads = jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(*args)
+    return tuple(np.asarray(x.astype(jnp.float32)) for x in grads)
 
 
 def _scaled_dist(got, want):
@@ -200,9 +208,10 @@ def _scaled_dist(got, want):
                                                  1e-30)
 
 
+@functools.lru_cache(maxsize=None)
 def _oracle64(case):
     """The gradients in float64 on the float32 inputs: autograd through a
-    float64 attention."""
+    float64 attention; once per case."""
     _, _, _, _, KV, _, causal, cap = CASES[case]
     q, k, v, g = (torch.from_numpy(a).double() for a in
                   _inputs(case, "float32"))
@@ -220,7 +229,7 @@ def _oracle64(case):
         s = s.masked_fill(hide, -math.inf)
     out = (torch.softmax(s, -1) @ vh).transpose(1, 2)
     out.backward(g)
-    return [t.grad for t in (qa, ka, va)]
+    return tuple(t.grad for t in (qa, ka, va))
 
 
 @pytest.mark.parametrize("blocked", [False, True],

@@ -485,3 +485,30 @@ def test_ssm_serving_imports_and_runs_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok ")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_chip_smoke_plain_kernels_reaches_the_mamba2_layer(arch,
+                                                          monkeypatch):
+    """``chip_smoke.plain_kernels`` (the card's runs of the plain versions)
+    swaps names the models call: a prefill inside it runs the SSD scan's
+    plain version through the Mamba2 layer, and every name is put back."""
+    import chip_smoke
+
+    from repro_torch.kernels.ssd_scan import ops, ref
+    from repro_torch.models import layers
+    calls, plain = [], ref.ssd_plain
+
+    def spy(*args, **kw):
+        calls.append(args[0].shape)
+        return plain(*args, **kw)
+    monkeypatch.setattr(ref, "ssd_plain", spy)
+    _, cfg = _configs(arch)
+    _, model = _params(arch)
+    names = (ops.ssd, layers.flash_attention, layers.paged_decode_attention)
+    toks = np.random.default_rng(0).integers(1, cfg.vocab, (2, 7))
+    with chip_smoke.plain_kernels(torch), torch.no_grad():
+        prefill(model, {"tokens": torch.from_numpy(toks)}, cfg, max_len=32)
+    assert len(calls) == cfg.n_layers
+    assert (ops.ssd, layers.flash_attention,
+            layers.paged_decode_attention) == names

@@ -9,8 +9,9 @@
 * The train step, float32 smoke configs carrying the same JAX weights, on
   the same batches as the reference's ``make_train_step``: 3 steps' losses,
   aux and grad norms at rtol 1e-4 (qwen2.5-3b, microbatches 1 and 2, and
-  the moe, encdec and vlm families), the first step's gradients leaf by
-  leaf, remat equal to no remat, and a bf16 run at 2e-2.
+  the moe, encdec, vlm, ssm and hybrid families), the first step's
+  gradients leaf by leaf, remat equal to no remat (the ssm and hybrid
+  families' too), and a bf16 run at 2e-2.
 * The reference's system tests on the port's ``Trainer``: the loss falls
   over 25 steps at lr 1e-3, a checkpoint restart is bit-exact, an injected
   fault recovers, the async checkpointer round-trips, a partial step
@@ -19,9 +20,11 @@
   (float32 smoke) restores in the port's ``Trainer``, whose steps 5-6 match
   the reference's 6-step run at rtol 1e-4; the reference's
   ``ckpt.restore`` reads the port's checkpoint.
-* ``python -m repro_torch.launch.train --smoke --device cpu`` runs; the
-  training modules import without JAX; ssm and hybrid training raise;
-  ``chip_smoke.train_launches`` counts a step's attention calls.
+* ``python -m repro_torch.launch.train --smoke --device cpu`` runs (and
+  with ``--arch mamba2-1.3b``); the training modules import without JAX;
+  the ssm and hybrid families train on the port's ``Trainer`` with a
+  falling loss; ``chip_smoke.train_launches`` counts a step's attention
+  and SSD scan calls.
 """
 
 import dataclasses
@@ -231,6 +234,8 @@ TRAIN_CASES = {
     "phi3.5-moe-42b": ("phi3.5-moe-42b", 1),
     "whisper-tiny": ("whisper-tiny", 1),
     "pixtral-12b": ("pixtral-12b", 1),
+    "mamba2-1.3b": ("mamba2-1.3b", 1),
+    "zamba2-2.7b": ("zamba2-2.7b", 1),
 }
 
 
@@ -253,7 +258,8 @@ def test_train_steps_bf16_match_jax():
                                        err_msg=f"step {s} {k}")
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "phi3.5-moe-42b"])
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "phi3.5-moe-42b",
+                                  "mamba2-1.3b", "zamba2-2.7b"])
 def test_first_step_grads_match_jax(arch):
     jcfg, cfg = _configs(arch)
     jparams = jax_init(jax.random.PRNGKey(1), jcfg)
@@ -286,15 +292,37 @@ def test_remat_equals_no_remat():
 
 
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-2.7b"])
-def test_ssm_training_raises(arch):
-    cfg = get_config(arch, smoke=True)
-    model = Transformer(cfg, device="cpu")
+def test_remat_equals_no_remat_ssm(arch):
+    """Remat of each Mamba2 block (ssm) or super-block (hybrid: its Mamba2
+    layers and the shared attention block) changes no gradient."""
+    jcfg, cfg = _configs(arch)
+    model = _carry(jax_init(jax.random.PRNGKey(2), jcfg), cfg)
+    b = _tbatch(data.for_model(cfg, SEQ, BATCH).batch_at(0))
+    g0, l0, _ = steps.grads_of(model, b, cfg, remat=False)
+    g0 = {k: v.clone() for k, v in g0.items()}
+    g1, l1, _ = steps.grads_of(model, b, cfg, remat=True)
+    assert float(l0) == float(l1)
+    for k in g0:
+        torch.testing.assert_close(g1[k], g0[k], rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-2.7b"])
+def test_ssm_families_train(arch):
+    """The port's Trainer takes 3 steps of the ssm and hybrid families on
+    the CPU: finite losses, the last below the first; train_logits under
+    no_grad gives the same logits."""
+    tr = _trainer(None, arch, steps_=3, lr=3e-3)
+    tr.run()
+    losses = [m["loss"] for m in tr.metrics_log]
+    assert len(losses) == 3 and all(np.isfinite(losses)), losses
+    assert losses[-1] < losses[0], losses
+    cfg = tr.cfg
     b = _tbatch(data.for_model(cfg, 8, 2).batch_at(0))
-    with pytest.raises(NotImplementedError, match="ssd_scan"):
-        train_logits(model, b, cfg)
+    logits, _ = train_logits(tr.model, b, cfg)
     with torch.no_grad():
-        logits, _ = train_logits(model, b, cfg)
-    assert logits.shape == (2, 8, cfg.vocab)
+        again, _ = train_logits(tr.model, b, cfg)
+    assert logits.requires_grad and logits.shape == (2, 8, cfg.vocab)
+    assert torch.equal(logits.detach(), again)
 
 
 # ---------------------------------------------------------------------------
@@ -444,7 +472,7 @@ def test_port_checkpoint_restores_in_jax(tmp_path):
 
 def test_leaf_order_is_jax_flatten_order():
     for arch in ("qwen2.5-3b", "phi3.5-moe-42b", "whisper-tiny",
-                 "pixtral-12b", "zamba2-2.7b"):
+                 "pixtral-12b", "mamba2-1.3b", "zamba2-2.7b"):
         jcfg, cfg = _configs(arch)
         jparams = jax.eval_shape(lambda k: jax_init(k, jcfg),
                                  jax.random.PRNGKey(0))
@@ -488,6 +516,41 @@ def test_chip_smoke_train_launches_count_the_attention_calls(remat,
                      "backward": want["flash_attention_bwd"]}
 
 
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-2.7b"])
+def test_chip_smoke_train_launches_count_the_ssd_calls(arch, remat,
+                                                       monkeypatch):
+    """``chip_smoke.train_launches`` for the ssm and hybrid families equals
+    the calls one Trainer step makes: an ssd_scan forward per Mamba2 layer
+    (twice under remat) and one backward; the hybrid's shared attention
+    block once a super-block."""
+    monkeypatch.syspath_prepend(str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd_scan import ops as sops
+    calls = {"ssd": 0, "ssd_bwd": 0, "flash": 0, "flash_bwd": 0}
+
+    def counted(mod, name, key):
+        fn = getattr(mod, name)
+
+        def run(*args, **kw):
+            calls[key] += 1
+            return fn(*args, **kw)
+        monkeypatch.setattr(mod, name, run)
+    counted(sops, "ssd", "ssd")
+    counted(sops, "ssd_backward", "ssd_bwd")
+    counted(fops, "flash_attention_forward", "flash")
+    counted(fops, "flash_attention_backward", "flash_bwd")
+    tr = _trainer(None, arch, steps_=1, remat=remat)
+    tr.run()
+    want = chip_smoke.train_launches(tr.cfg, 1, remat=remat)
+    assert calls == {"ssd": want["ssd_scan"],
+                     "ssd_bwd": want["ssd_scan_bwd"],
+                     "flash": want.get("flash_attention", 0),
+                     "flash_bwd": want.get("flash_attention_bwd", 0)}
+    assert (calls["flash"] > 0) == (arch == "zamba2-2.7b")
+
+
 # ---------------------------------------------------------------------------
 # the launcher, and the training modules without JAX
 # ---------------------------------------------------------------------------
@@ -501,6 +564,8 @@ def test_launcher_trains_without_jax():
         "import repro_torch.checkpoint, repro_torch.launch.steps",
         "from repro_torch.launch import train",
         "train.main(['--arch', 'qwen2.5-3b', '--smoke', '--device', 'cpu',",
+        "            '--steps', '3', '--seq', '16', '--batch', '2'])",
+        "train.main(['--arch', 'mamba2-1.3b', '--smoke', '--device', 'cpu',",
         "            '--steps', '3', '--seq', '16', '--batch', '2'])",
         "try:",
         "    train.main(['--smoke', '--device', 'cpu',",
@@ -518,6 +583,7 @@ def test_launcher_trains_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     lines = out.stdout.splitlines()
-    assert lines[0].startswith("final loss ") and \
-        lines[0].endswith("after 3 steps (stragglers=0, recoveries=0)")
-    assert lines[1] == "mesh refused"
+    for line in lines[:2]:
+        assert line.startswith("final loss ") and \
+            line.endswith("after 3 steps (stragglers=0, recoveries=0)")
+    assert lines[2] == "mesh refused"
