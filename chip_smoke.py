@@ -198,16 +198,22 @@ window's kernel count and where the kernel kind sits among them.
                steps, a checkpoint, a new Trainer resuming to 6, bit-equal
                to an uninterrupted run (losses and whole state).
   6c. train_ssm - (``train_ssm_phase``, right after 6b) the ssd_scan
-               backward (``csrc/ssd_scan_bwd.cu``: float32 products on the
-               FMA pipes, design ``fma``; a fixed-order summing launch, no
-               atomics) against its plain version (``ssd_plain_backward``)
-               in bf16 (2e-2 of each gradient's largest magnitude) and
-               float32 (1e-4): mamba2-1.3b's and zamba2-2.7b's training
-               shapes (B 8, L 128), mamba2's at B 4, L 1024, ragged L 200
-               with an initial state and a dstate, G = 2 and the smoke
-               shape; two calls bit-equal, one launch each of its two
-               device kernels a call, registers and spills from ptxas, the
-               call's time beside its bound and the plain version's.  Then
+               backward (``csrc/ssd_scan_bwd.cu`` on the tensor cores: bf16
+               design ``mma``, float32 ``mma3``; the walks where there is
+               more than one chunk or an initial state, one CTA a chunk
+               and head, a fixed-order summing launch, no atomics) against
+               its plain version (``ssd_plain_backward``) in bf16 (2e-2 of
+               each gradient's largest magnitude) and float32 (1e-4):
+               mamba2-1.3b's and zamba2-2.7b's training shapes (B 8,
+               L 128), mamba2's at B 4, L 1024, ragged L 200 with an
+               initial state and a dstate, G = 2 and the smoke shape; two
+               calls bit-equal, one launch each of its device kernels a
+               call (read from a captured CUDA graph), registers and
+               spills from ptxas, CTAs per SM, the
+               call's device and host time beside its bound, the plain
+               version's and, with ``--parent-ssd-bwd DIR``, the
+               ``ssd_backward`` of an earlier checkout DIR (its own wrapper
+               and library) on the same inputs.  Then
                ``Trainer`` on mamba2-1.3b at full width (48 layers, bf16,
                seed-0 weights, 128 x 8 tokens, 5 steps) as in 6b (48
                ssd_scan and 48 ssd_scan_bwd launches a step, a remat
@@ -2603,37 +2609,37 @@ def bwd_kernels(grouped: bool) -> tuple:
                  if grouped or k != "flash_bwd_sum_kernel")
 
 
-def bwd_split_ok(split: dict, grouped: bool) -> bool:
-    """One launch of each of the call's backward kernels, and no other
-    kernel."""
-    want = bwd_kernels(grouped)
+def split_ok(split: dict, want: tuple) -> bool:
+    """One launch of each of the kernels ``want`` (name fragments) in a
+    call's device kernels, and no other kernel."""
     return (len(split) == len(want)
             and all(sum(kn in n for n in split) == 1 for kn in want)
             and all(c == 1 for c, _ in split.values()))
 
 
-def bwd_device_kernels(torch, fn, case: str, grouped: bool,
-                       windows: int = 5):
-    """The device kernels of one backward call from the profiler, one call
-    a window: a window whose records do not make one launch of each kernel
-    is profiled again, up to ``windows`` times (the tracer drops records
-    now and then: the first kernel of a short call's window, up to twice
-    in a row), each miss printed as a ``profiler_miss`` line.  Returns the
-    last window's split."""
+def call_kernels(torch, fn, kernel: str, case: str, want: tuple,
+                 windows: int = 5):
+    """The device kernels of one call of ``kernel``'s wrapper ``fn`` from
+    the profiler, one call a window: a window whose records do not make
+    one launch of each kernel in ``want`` is profiled again, up to
+    ``windows`` times (the tracer drops records now and then: the first
+    kernel of a short call's window, up to twice in a row), each miss
+    printed as a ``profiler_miss`` line.  Returns the last window's split
+    (None: the profiler saw nothing)."""
     split = None
     for w in range(windows):
         split = call_split(torch, fn, reps=1)
-        if split is None or bwd_split_ok(split, grouped):
+        if split is None or split_ok(split, want):
             return split
-        emit({"phase": "profiler_miss", "kernel": "flash_attention_bwd",
-              "case": case, "window": w, "device_kernels": split})
+        emit({"phase": "profiler_miss", "kernel": kernel, "case": case,
+              "window": w, "device_kernels": split})
     return split
 
 
 def parent_bwd_library(src_dir):
-    """The FMA-pipe backward of an earlier tree (its
-    ``flash_attention_bwd.cu`` and ``flash_bwd_tile.cuh`` in ``src_dir``,
-    three launches a call), built by nvcc into ``build/parent_bwd/`` and
+    """The attention backward of an earlier tree (its
+    ``flash_attention_bwd.cu`` and headers in ``src_dir``; the shared ones
+    from this checkout), built by nvcc into ``build/parent_bwd/`` and
     loaded, so that its time stands beside the current kernels' in one
     process; None without ``src_dir``."""
     if src_dir is None:
@@ -2645,7 +2651,7 @@ def parent_bwd_library(src_dir):
     so = out / "libparent_bwd.so"
     cmd = [_build._nvcc(), *[f for f in _build.NVCC_FLAGS
                              if f != "-Xptxas=-v"],
-           "-shared", "-o", str(so),
+           "-I", str(_build.SHARED_HEADERS), "-shared", "-o", str(so),
            str(Path(src_dir) / "flash_attention_bwd.cu")]
     r = subprocess.run(cmd, capture_output=True, text=True)
     need(r.returncode == 0, f"parent backward build failed: {r.stderr}")
@@ -2724,9 +2730,10 @@ def bwd_row(torch, dev, g, case, B, S, T, causal, cap, H, KV, hd, dt,
     need(all(torch.equal(a, b) for a, b in zip(got, again)),
          f"flash_attention_bwd {case}: two calls differ")
     grouped = H > KV
-    split = bwd_device_kernels(torch, run_k, case, grouped)
+    split = call_kernels(torch, run_k, "flash_attention_bwd", case,
+                         bwd_kernels(grouped))
     if split is not None:               # None: the profiler saw nothing
-        need(bwd_split_ok(split, grouped),
+        need(split_ok(split, bwd_kernels(grouped)),
              f"flash_attention_bwd {case}: device kernels a call {split}, "
              f"expected one launch each of {bwd_kernels(grouped)}")
     pairs = sum(min(T, s + T - S + 1) for s in range(S)) if causal \
@@ -2835,7 +2842,8 @@ def train_launches(cfg, steps: int, remat: bool = False) -> dict:
         out.update({
             "ssd_scan": n * fwd,
             "ssd_scan." + ssd_ops.DESIGNS[cfg.torch_dtype]: n * fwd,
-            "ssd_scan_bwd": n, "ssd_scan_bwd." + ssd_ops.BWD_DESIGN: n})
+            "ssd_scan_bwd": n,
+            "ssd_scan_bwd." + ssd_ops.BWD_DESIGNS[cfg.torch_dtype]: n})
     return out
 
 
@@ -3253,7 +3261,10 @@ def train_phase(torch, dev, flush, parent_dir=None):
     return rows["slice"], launches.get("flash_attention_bwd", 0)
 
 
-SSD_BWD_KERNELS = ("ssd_bwd_kernel", "ssd_bwd_sum_kernel")
+# the backward's device kernels; the walks run only where a call has more
+# than one chunk or an initial state
+SSD_BWD_KERNELS = ("ssd_bwd_walk_kernel", "ssd_bwd_chunk_kernel",
+                   "ssd_bwd_sum_kernel")
 # (case, b, l, (H, G, n, p), initial state, dstate): both training
 # shapes, mamba2's prefill length, ragged with both states, two groups,
 # the smoke shape
@@ -3317,16 +3328,66 @@ def ptxas_usage(needle: str) -> dict:
     return out
 
 
+def ssd_bwd_ptxas(torch, p: int, n: int, dt_) -> dict:
+    """ptxas's registers and spills of the backward's kernels for (p, n)
+    and the type (the sum kernel's for the type), by mangled name."""
+    tag = "I13__nv_bfloat16" if dt_ == torch.bfloat16 else "If"
+    return {k: v for k, v in ptxas_usage("ssd_bwd").items()
+            if tag in k and ("sum_kernel" in k or f"Li{p}ELi{n}E" in k)}
+
+
+def parent_module(root, module: str):
+    """Module ``module`` (e.g. ``kernels.ssd_scan.ops``) of the port in an
+    earlier checkout ``root``, imported beside this tree's as the package
+    ``parent_repro_torch``: its own wrappers, C interface and library (built
+    by its own ``_build`` into ``root/build/``), so that the earlier tree's
+    kernels run through its own entry points in this process; None without
+    ``root``."""
+    if root is None:
+        return None
+    import importlib
+    import importlib.util
+    name = "parent_repro_torch"
+    if name not in sys.modules:
+        pkg = Path(root).resolve() / "src" / "repro_torch"
+        need((pkg / "__init__.py").exists(), f"no port under {root}")
+        spec = importlib.util.spec_from_file_location(
+            name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod
+        spec.loader.exec_module(mod)
+    return importlib.import_module(f"{name}.{module}")
+
+
+def host_ms(torch, fn, reps: int = 10) -> float:
+    """Median host time of one call of ``fn`` (its checks, allocations
+    and launches; the device drained before each), in ms."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def ssd_bwd_row(torch, dev, g, case, b, l, shape, dt_, init, dstate,
-                flush) -> dict:
+                flush, parent=None) -> dict:
     """ssd_scan's backward against its plain version
     (``ssd_plain_backward``, autograd through ``ssd_plain``) on one
     random input set: every gradient within BWD_TOL of its largest
-    magnitude, two calls bit-equal, one launch of each of its two device
-    kernels a call; the call timed by CUDA events (L2 flushed), each
-    launch by the profiler, beside its bound (float32: ``piece_bounds``,
-    as the other float32 rows) and the plain version (no PyTorch call
-    computes this gradient: library_ms is None)."""
+    magnitude, two calls bit-equal, launches counted under the design of
+    the type, one launch of each of its device kernels a call (the walks
+    only with more than one chunk or an initial state; read from a
+    captured CUDA graph, ``graph_nodes``); the call timed by
+    CUDA events (L2 flushed), each launch by the profiler, beside its bound
+    (float32: ``piece_bounds``, as the other float32 rows), the plain
+    version (no PyTorch call computes this gradient: library_ms is None)
+    and, given ``parent`` (an earlier tree's ``ssd_scan.ops``,
+    ``parent_module``), that tree's ``ssd_backward`` on the same inputs:
+    its distance from the plain version and its device and host times
+    beside this tree's."""
     from repro_torch import _build
     from repro_torch.kernels.ssd_scan import ops, ref
     h, G, n, p = shape
@@ -3346,11 +3407,13 @@ def ssd_bwd_row(torch, dev, g, case, b, l, shape, dt_, init, dstate,
     run_k = lambda: ops.ssd_backward(x, dt, A, Bm, Cm, chunk, s0, dy, ds)
     run_p = lambda: ref.ssd_plain_backward(x, dt, A, Bm, Cm, chunk, s0,
                                            dy, ds)
+    design = ops.BWD_DESIGNS[dt_]
     _build.reset_counts()
     got = run_k()
     need(_build.launches.get("ssd_scan_bwd") == 1
-         and _build.launches.get("ssd_scan_bwd." + ops.BWD_DESIGN) == 1,
-         f"ssd_scan_bwd {case}: launches {dict(_build.launches)}")
+         and _build.launches.get("ssd_scan_bwd." + design) == 1,
+         f"ssd_scan_bwd {case}: launches {dict(_build.launches)}, expected "
+         f"one call of the {design} design")
     want = run_p()
     torch.cuda.synchronize()
     tol = BWD_TOL[dtype_name(dt_)]
@@ -3368,20 +3431,40 @@ def ssd_bwd_row(torch, dev, g, case, b, l, shape, dt_, init, dstate,
     torch.cuda.synchronize()
     need(all(torch.equal(a, c) for a, c in zip(got, again)
              if a is not None), f"ssd_scan_bwd {case}: two calls differ")
-    split = call_split(torch, run_k, reps=1)
-    if split is not None:
-        need(len(split) == 2 and all(
-            sum(k in name for name in split) == 1 for k in SSD_BWD_KERNELS)
-             and all(c == 1 for c, _ in split.values()),
-             f"ssd_scan_bwd {case}: device kernels a call {split}")
+    # a call's device kernels judged from a captured CUDA graph (the
+    # profiler's tracer drops records; the graph cannot), their times from
+    # the profiler
+    kernels = tuple(k for k in SSD_BWD_KERNELS
+                    if k != "ssd_bwd_walk_kernel" or l > chunk or init)
+    nodes = graph_nodes(torch, run_k)
+    knames = [nm for kind, nm in nodes if kind == "kernel"]
+    need(len(nodes) == len(knames) == len(kernels)
+         and all(sum(k in nm for nm in knames) == 1 for k in kernels),
+         f"ssd_scan_bwd {case}: a call's graph nodes {nodes}, expected one "
+         f"kernel node each of {kernels}")
+    split = call_kernels(torch, run_k, "ssd_scan_bwd", case, kernels)
     flops, nbytes = ssd_bwd_bound(x, Bm, l, chunk, init, dstate)
     if dt_ == torch.float32:
         bound_ms, bound_by, bounds = piece_bounds(flops, nbytes)
     else:
         bound_ms, bound_by = bound(flops, nbytes, dt_)
         bounds = {"fma_bound_ms": flops / PEAK_FLOPS["float32"] * 1e3}
+    parent_row = None
+    if parent is not None:
+        run_q = lambda: parent.ssd_backward(x, dt, A, Bm, Cm, chunk, s0, dy,
+                                            ds)
+        theirs = run_q()
+        torch.cuda.synchronize()
+        event_ms(torch, run_q, reps=2, flush=flush)         # warm-up
+        parent_row = {
+            "ms": event_ms(torch, run_q, reps=10, flush=flush),
+            "host_ms": host_ms(torch, run_q),
+            "max_scaled_err": max(
+                float((a.float() - w.float()).abs().max())
+                / max(float(w.float().abs().max()), 1e-30)
+                for a, w in zip(theirs, want) if w is not None)}
     event_ms(torch, run_k, reps=2, flush=flush)             # warm-up
-    row = {"name": "ssd_scan_bwd", "case": case, "design": ops.BWD_DESIGN,
+    row = {"name": "ssd_scan_bwd", "case": case, "design": design,
            "shape": {"b": b, "l": l, "h": h, "p": p, "g": G, "n": n,
                      "chunk": chunk},
            "dtype": dtype_name(dt_), "initial_state": init,
@@ -3389,9 +3472,11 @@ def ssd_bwd_row(torch, dev, g, case, b, l, shape, dt_, init, dstate,
            "max_abs_err": max(float((a.float() - w.float()).abs().max())
                               for a, w in zip(got, want) if w is not None),
            "max_scaled_err": errs, "tol": tol, "bit_equal_twice": True,
-           "device_kernels": split,
-           "ptxas": ptxas_usage("ssd_bwd"),
+           "device_kernels": split, "graph_nodes": nodes,
+           "ptxas": ssd_bwd_ptxas(torch, p, n, dt_),
+           "blocks_per_sm": ops.bwd_blocks_per_sm(p, n, chunk, dt_),
            "ms": event_ms(torch, run_k, reps=10, flush=flush),
+           "host_ms": host_ms(torch, run_k), "parent": parent_row,
            "plain_ms": event_ms(torch, run_p, reps=2, flush=flush),
            "flops": flops, "bytes": nbytes, "bound_ms": bound_ms,
            "bound_by": bound_by, **bounds,
@@ -3400,31 +3485,81 @@ def ssd_bwd_row(torch, dev, g, case, b, l, shape, dt_, init, dstate,
     return row
 
 
-def ssd_bwd_checks(torch, dev, flush) -> dict:
+def ssd_bwd_checks(torch, dev, flush, parent_dir=None) -> dict:
     """The SSD scan's backward against its plain version, every
     SSD_BWD_CASES case in bf16 and float32 (rows of float32 cases
-    suffixed).  Returns the rows by case."""
+    suffixed), each naming its design (bf16 ``mma``, float32 ``mma3``)
+    and, given ``parent_dir`` (``--parent-ssd-bwd``), an earlier
+    checkout's backward timed on the same inputs.  Returns the rows by
+    case."""
     g = torch.Generator(device=dev).manual_seed(26)
+    parent = parent_module(parent_dir, "kernels.ssd_scan.ops")
     rows = {}
     for (base, b, l, shape, init, dstate), dt_ in (
             (c, dt_) for c in SSD_BWD_CASES
             for dt_ in (torch.bfloat16, torch.float32)):
         case = base if dt_ == torch.bfloat16 else base + "_float32"
         rows[case] = ssd_bwd_row(torch, dev, g, case, b, l, shape, dt_,
-                                 init, dstate, flush)
+                                 init, dstate, flush, parent)
     return rows
 
 
-def train_ssm_phase(torch, dev, flush, full_hybrid: bool = False):
+def ssd_bwd_step_ab(torch, dev, arch: str, parent, rounds: int = 6) -> dict:
+    """``arch``'s full-width training step (as ``train_full_width`` builds
+    it) with this tree's ``ssd_backward`` and with an earlier tree's
+    (``parent``, its ``ssd_scan.ops``) in turn, in one process on one
+    batch: after a step of each, ``rounds`` rounds of change, parent,
+    parent, change.  Each step's wall (``Trainer`` ends a step in a device
+    sync), and in how many rounds the change's pair of steps took longer
+    than the parent's."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan import ops
+    mine = ops.ssd_backward
+    tr = trainer(get_config(arch), TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, dev)
+    batch = tr.batch(0)
+    walls = {"change": [], "parent": []}
+
+    def step(which):
+        ops.ssd_backward = mine if which == "change" else parent.ssd_backward
+        try:
+            ms = tr._one_step(batch)["step_time_s"] * 1e3
+        finally:
+            ops.ssd_backward = mine
+        walls[which].append(ms)
+        return ms
+    step("change")
+    step("parent")
+    for w in walls.values():
+        w.clear()
+    slower = 0
+    for _ in range(rounds):
+        change = step("change")
+        parent_pair = step("parent") + step("parent")
+        slower += change + step("change") > parent_pair
+    del tr
+    torch.cuda.empty_cache()
+    row = {"phase": "ssd_bwd_step_ab", "model": arch, "rounds": rounds,
+           "step_ms": walls, "change_slower_rounds": slower,
+           **{f"{w}_median_ms": statistics.median(v)
+              for w, v in walls.items()}}
+    emit(row)
+    return row
+
+
+def train_ssm_phase(torch, dev, flush, full_hybrid: bool = False,
+                    parent_dir=None):
     """The ssm and hybrid families' training: the ssd_scan backward rows,
     ``Trainer`` on mamba2-1.3b at full width and depth, the float32 cuts of
     mamba2-1.3b (2 layers) and zamba2-2.7b (one super-block: 6 Mamba2
     layers and the shared block) on card and CPU, a mamba2 restart; with
     ``full_hybrid`` (``--only train_ssm``) zamba2-2.7b at full width and
-    depth too.  Returns (the bf16 mamba2 training-shape row, the
-    ssd_scan_bwd launches of the mamba2 run)."""
+    depth too; ``parent_dir`` (``--parent-ssd-bwd``): an earlier
+    checkout's backward timed beside every backward row, and the two
+    training steps' walls with either backward in turn
+    (``ssd_bwd_step_ab``).  Returns (the bf16 mamba2 training-shape row,
+    the ssd_scan_bwd launches of the mamba2 run)."""
     from repro_torch.configs import get_config
-    rows = ssd_bwd_checks(torch, dev, flush)
+    rows = ssd_bwd_checks(torch, dev, flush, parent_dir)
     torch.cuda.empty_cache()
     launches = train_full_width(torch, dev, SSD_ARCH)
     train_cut(torch, dev, "float32", SSD_ARCH, CUT_LAYERS)
@@ -3437,6 +3572,10 @@ def train_ssm_phase(torch, dev, flush, full_hybrid: bool = False):
     if full_hybrid:
         train_full_width(torch, dev, HYBRID_ARCH)
     torch.cuda.empty_cache()
+    if parent_dir is not None:
+        parent = parent_module(parent_dir, "kernels.ssd_scan.ops")
+        for arch in (SSD_ARCH, HYBRID_ARCH):
+            ssd_bwd_step_ab(torch, dev, arch, parent)
     return rows["mamba2_train"], launches.get("ssd_scan_bwd", 0)
 
 
@@ -4165,6 +4304,13 @@ def main(argv=None) -> int:
                     help="a directory holding an earlier tree's "
                     "flash_attention_bwd.cu (and its header): built and "
                     "timed beside every backward row")
+    ap.add_argument("--parent-ssd-bwd", default=None, metavar="DIR",
+                    help="an earlier checkout of the repo: its port's "
+                    "ssd_backward (its own wrapper and library, built "
+                    "under DIR/build) timed beside every ssd_scan backward "
+                    "row, and with --only train_ssm or the whole run the "
+                    "ssm training steps' walls with either backward in "
+                    "turn")
     args = ap.parse_args(argv)
     if args.write_traces:
         return write_traces()
@@ -4237,9 +4383,10 @@ def main(argv=None) -> int:
         elif args.only == "bwd":
             bwd_checks(torch, dev, flush, args.parent_bwd)
         elif args.only == "train_ssm":
-            train_ssm_phase(torch, dev, flush, full_hybrid=True)
+            train_ssm_phase(torch, dev, flush, full_hybrid=True,
+                            parent_dir=args.parent_ssd_bwd)
         elif args.only == "ssd_bwd":
-            ssd_bwd_checks(torch, dev, flush)
+            ssd_bwd_checks(torch, dev, flush, args.parent_ssd_bwd)
         elif args.only == "lanes":
             scenario_baseline_checks(torch, T)
             runs = [(name, None) for name in sorted(T.WORKLOADS)] + [
@@ -4259,7 +4406,7 @@ def main(argv=None) -> int:
     summary["flash_attention_bwd"], train_bwd_launches = train_phase(
         torch, dev, flush, args.parent_bwd)
     summary["ssd_scan_bwd"], ssd_bwd_launches = train_ssm_phase(
-        torch, dev, flush)
+        torch, dev, flush, parent_dir=args.parent_ssd_bwd)
     paged_checks(torch, dev, flush)
     summary["ssd_scan"] = ssd_checks(torch, dev, flush)
     smoke_serve(torch)

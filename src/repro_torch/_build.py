@@ -74,11 +74,13 @@ _SIGNATURES = {
     # p, n, chunk, dtype
     "ssd_scan_blocks_per_sm": (_I, _I, _I, _I),
     # x, dt, A, B, C, bc_row, init, dy, dstate, dx, ddt, dA, dB, dC,
-    # dinit, states, part_bc, part_dt, part_a, b, l, h, g, p, n, chunk,
+    # dinit, states, dstates, part_bc, part_a, b, l, h, g, p, n, chunk,
     # dtype, stream
     "ssd_scan_bwd_launch": (_P, _P, _P, _P, _P, _L, _P, _P, _P, _P, _P, _P,
                             _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _I, _I, _I, _P),
+    # p, n, chunk, dtype, which (0 the chunk kernel, 1 the walk kernel)
+    "ssd_scan_bwd_blocks_per_sm": (_I, _I, _I, _I, _I),
     # page, flags, phase, n, row_stride, segs, n_phases, params, lanes,
     # n_pages, resident, dirty, pages_alloc, frames, frames_alloc, hotness,
     # ptr, counts, stream

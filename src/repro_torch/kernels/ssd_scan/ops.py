@@ -7,8 +7,9 @@ the plain version (``ref.ssd_plain``).  Any other placement raises.
 
 Training goes through :class:`SSD`, a ``torch.autograd.Function``: its
 forward is :func:`ssd`, its backward :func:`ssd_backward`, the kernels of
-``csrc/ssd_scan_bwd.cu`` (float32 on the FMA pipes, design ``fma``, for
-both types) on CUDA tensors and ``ref.ssd_plain_backward`` on CPU tensors.
+``csrc/ssd_scan_bwd.cu`` (on the tensor cores, designs by type as the
+forward's: :data:`BWD_DESIGNS`) on CUDA tensors and
+``ref.ssd_plain_backward`` on CPU tensors.
 Neither direction catches a refused shape or a failed launch.
 """
 
@@ -24,10 +25,10 @@ from .ref import ssd_plain, ssd_plain_backward
 # (ssm_head_dim, ssm_state, ssm_chunk) the kernels are built for: every SSM
 # config of ``repro_torch.configs``, full and smoke
 KERNEL_SHAPES = ((64, 128, 128), (64, 64, 128), (16, 16, 128))
-BWD_SLICE = 16      # the backward's head-dim slice a CTA (ssd_scan_bwd.cu)
 DESIGNS = {torch.bfloat16: "mma", torch.float32: "mma3"}
-# the backward's: float32 products on the FMA pipes for both types
-BWD_DESIGN = "fma"
+# the backward's (ssd_scan_bwd.cu): bf16 operands with the float32 factors
+# rounded to bf16, or every operand in three bf16 pieces
+BWD_DESIGNS = {torch.bfloat16: "mma", torch.float32: "mma3"}
 
 
 def check_kernel_shape(p: int, n: int, chunk: int, dtype: torch.dtype) -> str:
@@ -148,10 +149,11 @@ def ssd_backward(x, dt, A, B, C, chunk: int,
     inputs for the gradients ``dy`` of y and ``dstate`` of the final state
     (None: zero); dx, dB and dC in x's type (dB and dC dense), ddt, dA and
     dinit float32 (dinit None without an initial state).  On the card the
-    two launches of ``csrc/ssd_scan_bwd.cu`` (the chunks walked forward to
-    recompute the entering states, then in reverse; the fixed-order sums
-    over heads, head-dim slices and batch rows), no atomics; on the CPU the
-    plain version."""
+    launches of ``csrc/ssd_scan_bwd.cu`` (with more than one chunk or an
+    initial state, the walks over the chunks for the entering states and
+    the leaving state gradients; one CTA a chunk and head; the fixed-order
+    sums over the heads of a group and over chunks and batch rows), no
+    atomics.  On the CPU the plain version."""
     b, l, h, p, g, n = _check_shapes("ssd_backward", x, dt, A, B, C,
                                      initial_state)
     if dy.shape != x.shape or (dstate is not None
@@ -169,7 +171,6 @@ def ssd_backward(x, dt, A, B, C, chunk: int,
     if dy.dtype != x.dtype or not dy.is_contiguous():
         raise ValueError("ssd_backward: dy must be contiguous in x's type")
     dev, f32 = x.device, torch.float32
-    slices = p // BWD_SLICE
     nc = -(-l // chunk)
     dx = torch.empty_like(x)
     ddt = torch.empty(b, l, h, dtype=f32, device=dev)
@@ -178,11 +179,12 @@ def ssd_backward(x, dt, A, B, C, chunk: int,
     dC = torch.empty_like(dB)
     dinit = None if initial_state is None else \
         torch.empty(b, h, p, n, dtype=f32, device=dev)
-    states = torch.empty(b, h, nc, p, n, dtype=f32, device=dev) \
-        if nc > 1 else None
-    part_bc = torch.empty(2, h * slices, b, l, n, dtype=f32, device=dev)
-    part_dt = torch.empty(slices, b, l, h, dtype=f32, device=dev)
-    part_a = torch.empty(slices, b, h, dtype=f32, device=dev)
+    # the entering states and leaving state gradients of chunks 1 .. and
+    # 0 .. nc - 2; the heads' dB/dC partials; the chunks' dA partials
+    states, dstates = (torch.empty(b, h, nc - 1, p, n, dtype=f32, device=dev)
+                       if nc > 1 else None for _ in range(2))
+    part_bc = torch.empty(2, h, b, l, n, dtype=f32, device=dev)
+    part_a = torch.empty(nc, b, h, dtype=f32, device=dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -193,11 +195,11 @@ def ssd_backward(x, dt, A, B, C, chunk: int,
             C.data_ptr(), rs, ptr(initial_state), dy.data_ptr(),
             ptr(dstate), dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
             dB.data_ptr(), dC.data_ptr(), ptr(dinit), ptr(states),
-            part_bc.data_ptr(), part_dt.data_ptr(), part_a.data_ptr(), b, l,
-            h, g, p, n, chunk, code, _build.stream_ptr(x))
+            ptr(dstates), part_bc.data_ptr(), part_a.data_ptr(), b, l, h, g,
+            p, n, chunk, code, _build.stream_ptr(x))
     _build.check(err, "ssd_scan_bwd")
     _build.count("ssd_scan_bwd")
-    _build.count("ssd_scan_bwd." + BWD_DESIGN)
+    _build.count("ssd_scan_bwd." + BWD_DESIGNS[x.dtype])
     return dx, ddt, dA, dB, dC, dinit
 
 
@@ -233,3 +235,12 @@ def blocks_per_sm(p: int, n: int, chunk: int, dtype: torch.dtype) -> int:
     design = check_kernel_shape(p, n, chunk, dtype)
     return int(_build.library().ssd_scan_blocks_per_sm(
         p, n, chunk, 1 if design == "mma" else 0))
+
+
+def bwd_blocks_per_sm(p: int, n: int, chunk: int, dtype: torch.dtype) -> dict:
+    """CTAs per SM of the backward's chunk kernel and walk kernel for this
+    shape and type (CUDA's occupancy calculator); needs the card."""
+    code = 1 if check_kernel_shape(p, n, chunk, dtype) == "mma" else 0
+    lib = _build.library()
+    return {k: int(lib.ssd_scan_bwd_blocks_per_sm(p, n, chunk, code, w))
+            for k, w in (("chunk", 0), ("walk", 1))}
