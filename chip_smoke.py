@@ -5,7 +5,7 @@ every model family) on one card.
     python3 chip_smoke.py [--out DIR]
 
 Phases, each printed as one JSON line; any failure exits non-zero.  They
-run in the order 1, 2, 6 (its flash rows, then 6b, 6c), 7, 7b, 8, then 3-5d and
+run in the order 1, 2, 6 (its flash rows, then 6b, 6c), 7, 7b, 8, then 3-5e and
 9: the serving and training phases
 come first because late in a long process (from ~610 s on, on the
 H100 machines) the torch profiler's window now and then records one
@@ -26,8 +26,9 @@ window's kernel count and where the kernel kind sits among them.
                stream; hms_scan + ema_scan on the golden
                trace under all 8 policies (and 48 CTC ways of 64 and 96 of
                128: two and four a thread in the kernel) and on pathfnd
-               at a quarter of its default size (PLAIN_SCAN_N: there the
-               plain step loop runs once, timed and compared).  Each hms_scan row names its domains per
+               at a sixteenth of its default size (PLAIN_SCAN_N: there the
+               plain step loop runs once, timed and compared); the golden
+               trace is cut to GOLDEN_PLAIN_N requests.  Each hms_scan row names its domains per
                lane, its longest chain and both bounds (longest chain,
                and one chain per lane).  Times each kernel's wrapper call
                and its plain version, and hms_scan's kernel alone.
@@ -79,9 +80,9 @@ window's kernel count and where the kernel kind sits among them.
                counters against the host build of the kernel's step code
                (``ops.um_scan_host``), ``simulate_many`` against
                ``simulate`` config by config (bit for bit), um_scan against
-               its plain version at the main path's size (gpt_train's
-               default trace, fault and nvlink lanes in one call: counters
-               and final state exactly), and the kernel alone per paging
+               its plain version on llm_dec cut to UM_PLAIN_N requests
+               (fault and nvlink lanes in one call: counters and final
+               state exactly), and the kernel alone per paging
                workload beside its bounds (``um_bounds``).  Then
                um_step_costs: cycles a step of the kernel alone, one lane a
                launch, on synthetic hit and pure-migration streams (chunks
@@ -96,12 +97,14 @@ window's kernel count and where the kernel kind sits among them.
                config by config, its wall beside the six sequential
                calls'; the 12-point BENCH_sweep.json grid as one batch a
                workload, equal to the baseline; recorded main-path
-               launches against their plain versions, exactly: the sweep
-               grid's hms_scan launch at the planner's shape (per-lane CTC
-               ways and set counts), fig18's batch on pathfnd at a forced
-               (4, 16) with replay 64 (the warm-up round, cold with replay
-               steps live, and the next, seeded with them dead) and
-               llm_dec's UM run at T = 16 with replay 64 (the same two
+               launches against their plain versions, exactly, each on
+               its workload cut in depth (SWEEP_PLAIN_N, SPLIT_ROUND_N,
+               UM_PLAIN_N): the sweep grid's hms_scan launch at the
+               planner's shape (per-lane CTC ways and set counts), fig18's
+               batch on pathfnd at a forced (4, 16) with replay 64 (the
+               warm-up round, cold with replay steps live, and the next,
+               seeded with them dead) and llm_dec's UM run at T = 16 with
+               replay 64 (the same two
                rounds of um_scan: (T, L) streams, real/live gates, seeded
                carries); forced (S, T) in
                LANE_SHAPES at replay 0 and 64 on pathfnd and zipf at 10^6,
@@ -133,6 +136,28 @@ window's kernel count and where the kernel kind sits among them.
                markdown renders.  Prints pathfnd's median wall over
                OBS_REPS interleaved runs with collection off and on, and
                the per-span split of a call.
+  5e. memtier - the two-tier memory runtime (``memtier_phase``), the AMIL
+               probe's path: (a) ``memtier.access`` at 16 GiB of 2 MiB
+               slots over 64 GiB of blocks (MEMTIER_TIER), 64 rounds of
+               32,768 random writes then 32,768 sequential reads, on the
+               card and through the port's CPU path: every state entry
+               and decision bit-equal after each call, one amil_probe
+               launch a call (counts reset just before, read just after:
+               the kernels line's launches), one probe kernel node on the
+               stream of a ``probe_blocks`` call (``graph_nodes``), the
+               probe at this shape against its plain version, a table of
+               58,109 slots raising on the card; ms a call on the card and
+               the CPU, hit, fill and bypass rates.  (b) qwen2.5-3b at full
+               width and depth (bf16, seed-0 weights, 128 x 8 tokens, lr
+               3e-4) through ``launch.train_tiered.run`` at a 0.4 budget,
+               after 4 untiered steps of the same step function in this
+               process: MemAvailable printed first, losses, grad norms and
+               a streamed leaf's final weights bit-equal, bytes streamed
+               4 x ``slow_bytes`` each way, device memory after each
+               ``flush_out`` at least 0.9 x ``slow_bytes`` below the
+               untiered run's after its step, a round trip bit-equal, the
+               host buffer page-locked, the peak under the card's memory;
+               ``stage_in`` / ``flush_out`` ms and GB/s, step ms of both.
   6. serving kernels against their plain versions: flash_attention at the
                serving slice's shape (B 4, S = T = 1024, 16 heads over 2 KV
                heads, hd 128; ragged, non-causal, softcap 30, S = T = 1000,
@@ -261,7 +286,7 @@ window's kernel count and where the kernel kind sits among them.
                S 11 and S 1 over T 1500) in bf16 and float32, and
                paged_attention on phi's long-mix cache (32 over 8 heads, hd
                128), each against its plain version; then float32 and bf16
-               cuts on card and CPU as in phase 8: phi3.5-moe at 2 layers,
+               cuts on card and CPU as in phase 8: phi3.5-moe at 1 layer,
                pixtral at 1 decoder and 1 vision layer, whisper-tiny
                whole, their logit runs on seeded random frames and patches
                (the engine's zeros leave the encoders' output zero).
@@ -285,7 +310,7 @@ phases 1-2 and 5d, ``--only families`` phases 1-2 and 7b, ``--only train``
 phases 1-2 and 6b, ``--only bwd`` phases 1-2 and 6b's backward rows,
 ``--only train_ssm`` phases 1-2 and 6c with zamba2-2.7b at full width and
 depth, ``--only ssd_bwd`` phases 1-2 and 6c's backward rows,
-``--only
+``--only memtier`` phases 1-2 and 5e, ``--only
 bf16_spread`` the bf16 cuts' distances over 8 weight seeds,
 ``--only um_step_costs`` that phase alone, ``--only
 amil_probe`` the amil_probe rows and the out-of-range check (the one-launch
@@ -309,6 +334,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import math
 import statistics
@@ -696,7 +722,8 @@ def amil_checks(torch, dev, flush, judge: bool):
     version and the bytes bound (20 B a request and the table).
     ``judge``: a call must be one launch of the probe kernel and nothing
     else, read from the graph (and from ``split`` where the profiler saw
-    the call).  A copy of this script beside another checkout's ``src/``
+    every call: a window with fewer probe records than calls and nothing
+    else is profiled again, then left to the graph).  A copy of this script beside another checkout's ``src/``
     measures that checkout (``--only amil_probe``).  Returns the lanes_8192
     row."""
     from repro_torch.kernels.amil_probe import ops as probe_ops
@@ -719,19 +746,27 @@ def amil_checks(torch, dev, flush, judge: bool):
         ms = event_ms(torch, run, reps=20, flush=flush)
         kernel_ms = device_ms(torch, run, "amil_probe_kernel",
                               "amil_probe_launch", reps=5)
-        split = call_split(torch, run)
-        per_call = None if split is None else sum(
-            v[0] for v in split.values())
-        if split is None:
+        # a window whose records are all the probe's but fewer than its
+        # calls dropped a record (the tracer does, now and then): profiled
+        # again, twice at most, and then judged by the graph alone
+        for _ in range(3):
+            split = call_split(torch, run)
+            per_call = None if split is None else sum(
+                v[0] for v in split.values())
+            short = split is not None and per_call < 1 and all(
+                "amil_probe_kernel" in k for k in split)
+            if not short:
+                break
+        if split is None or short:
             emit({"phase": "profiler_miss", "kernel": "amil_probe_kernel",
-                  "case": case, "windows": 3})
+                  "case": case, "windows": 3, "kernels_per_call": per_call})
         nodes = graph_nodes(torch, run)
         if judge:
             need(len(nodes) == 1 and nodes[0][0] == "kernel"
                  and "amil_probe_kernel" in nodes[0][1],
                  f"amil_probe {case}: a call put {nodes} on its stream, "
                  "not one launch of the probe kernel")
-            need(split is None or (per_call == 1 and all(
+            need(split is None or short or (per_call == 1 and all(
                 "amil_probe_kernel" in k for k in split)),
                 f"amil_probe {case}: a call launched {split}, not one "
                 "launch of the probe kernel")
@@ -905,10 +940,19 @@ def scan_bounds(scan_ops, s, cycle_ms):
 
 # ---- the UM paging kernel ---------------------------------------------------
 
-# the default-size paging workload whose fault and nvlink lanes also run
-# through um_scan's plain version (its 6315 pages clip the last chunk)
-UM_PLAIN_WORKLOAD = "gpt_train"
-PLAIN_SCAN_N = 40_000            # pathfnd's requests for the plain hms_scan
+# the paging workload whose fault and nvlink lanes also run through
+# um_scan's plain version, cut to UM_PLAIN_N requests (its 6144 pages over
+# 4608 frames still page; the plain step loop takes ~0.4 ms a request)
+UM_PLAIN_WORKLOAD = "llm_dec"
+UM_PLAIN_N = 40_000
+PLAIN_SCAN_N = 10_000            # pathfnd's requests for the plain hms_scan
+# the golden trace's requests for the hms_scan rows of the 10 policy
+# configs (the plain step loop takes ~1 ms a request)
+GOLDEN_PLAIN_N = 1_500
+# pathfnd's requests for fig18's split rounds against the plain version,
+# and the sweep grid's first workload's for its recorded launch
+SPLIT_ROUND_N = 40_000
+SWEEP_PLAIN_N = 5_000
 
 def um_bounds(args, counts, cycle_ms):
     """um_scan's bounds on its arguments and its counts: the slowest lane's
@@ -1066,7 +1110,7 @@ def um_main_path(torch, T, dev, traces, cycle_ms):
     before and read just after.  Then, uncounted: every paging run's
     counters against the host build of the kernel's step code
     (``um_scan_host``), ``simulate_many`` against ``simulate`` config by
-    config, the plain version once on UM_PLAIN_WORKLOAD at its default size,
+    config, the plain version once on UM_PLAIN_WORKLOAD cut to UM_PLAIN_N,
     and the kernel alone per workload.  Returns the main path's launch
     counts."""
     from repro_torch import _build
@@ -1185,13 +1229,13 @@ def um_main_path(torch, T, dev, traces, cycle_ms):
                                                        for b in bad[:4]]})
     need(not bad, f"UM main path: {len(bad)} mismatches, first {bad[:2]}")
 
-    # the plain version at the main path's own size: fault and nvlink lanes
-    # of one default-size paging workload in one call, exactly
-    t = traces[(UM_PLAIN_WORKLOAD, None)]
+    # the plain version on a paging workload cut to UM_PLAIN_N requests:
+    # fault and nvlink lanes in one call, exactly
+    t = T.make_trace(UM_PLAIN_WORKLOAD, n=UM_PLAIN_N)
     specs = [um_engine.um_spec(hbm(t), nv) for nv in (False, True)]
     args = um_engine.scan_args(t, specs, dev)
     need(specs[0].n_frames < args["n_pages"],
-         f"{t.name} does not page at its default size")
+         f"{t.name} does not page at {t.n} requests")
     got = um_ops.um_scan(**args)
     plain = []
     plain_ms = event_ms(torch, lambda: plain.append(
@@ -1839,32 +1883,98 @@ def serve(torch, dev, model, cfg, scfg, traffic, name):
     return row, clock, outs
 
 
+# the utility ops the profiler leaves out of its events (torch's
+# profiler_util._filter_name)
+PROFILER_SKIPPED = {"[memory]", "[OutOfMemory]",
+                    "profiler::_record_function_enter",
+                    "profiler::_record_function_enter_new",
+                    "profiler::_record_function_exit", "aten::is_leaf",
+                    "aten::output_nr", "aten::_version"}
+
+
+def raw_events(prof) -> list:
+    """A profiler window's records as the profiler keeps them (its own
+    filter applied), read straight from its kineto results: the events
+    ``prof.events()`` would build, without building them (~80 us a
+    record in Python, seconds for a window of thousands of aten calls).
+    Cached on ``prof``."""
+    if not hasattr(prof, "_smoke_raw"):
+        prof._smoke_raw = [
+            e for e in prof.profiler.kineto_results.events()
+            if e.name() not in PROFILER_SKIPPED
+            and not getattr(e, "is_hidden_event", lambda: False)()]
+    return prof._smoke_raw
+
+
+def device_records(torch, prof) -> list:
+    """(name, start ns, ms) of each device record in a window."""
+    return [(e.name(), e.start_ns(), e.duration_ns() / 1e6)
+            for e in raw_events(prof)
+            if e.device_type() == torch.autograd.DeviceType.CUDA]
+
+
+def aten_ops(torch, prof) -> int:
+    """The window's aten calls as the profiler's event tree counts them
+    (torch's EventList._build_tree): the synchronous CPU records of a
+    thread nested by interval, and a record whose parent has the same
+    name and no other child merged into that parent."""
+    cpu = torch.autograd.DeviceType.CPU
+    nodes = [{"name": e.name(), "start": e.start_ns(), "end": e.end_ns(),
+              "thread": e.start_thread_id(), "parent": None, "kids": [],
+              "sync": e.device_type() == cpu and not e.is_async()
+              and e.start_thread_id() == e.end_thread_id(),
+              "cpu": e.device_type() == cpu} for e in raw_events(prof)]
+    by_thread = sorted((n for n in nodes if n["sync"]),
+                       key=lambda n: n["thread"])
+    for _, group in itertools.groupby(by_thread, key=lambda n: n["thread"]):
+        stack = []
+        for n in sorted(group, key=lambda n: (n["start"], -n["end"])):
+            while stack and (n["start"] >= stack[-1]["end"]
+                             or n["end"] > stack[-1]["end"]):
+                stack.pop()
+            if stack:
+                stack[-1]["kids"].append(n)
+                n["parent"] = stack[-1]
+            stack.append(n)
+    nodes.sort(key=lambda n: (n["start"], -n["end"]))
+    while True:
+        gone = set()
+        for i, n in enumerate(nodes):
+            up = n["parent"]
+            if up is not None and up["name"] == n["name"] \
+                    and len(up["kids"]) == 1:
+                up["kids"] = n["kids"]
+                for k in n["kids"]:
+                    k["parent"] = up
+                gone.add(i)
+        if not gone:
+            break
+        nodes = [n for i, n in enumerate(nodes) if i not in gone]
+    return sum(1 for n in nodes
+               if n["cpu"] and n["name"].startswith("aten::"))
+
+
 def kernel_ms(torch, prof):
     """{kernel name: device ms} summed over a profiler window."""
     kernels = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            kernels[e.name] = kernels.get(e.name, 0.0) \
-                + e.time_range.elapsed_us() / 1e3
+    for name, _, ms in device_records(torch, prof):
+        kernels[name] = kernels.get(name, 0.0) + ms
     return kernels
 
 
 def kernel_count(torch, prof, needle: str) -> int:
     """Device kernels in a profiler window whose name holds ``needle``."""
-    return sum(1 for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and needle in e.name)
+    return sum(1 for name, _, _ in device_records(torch, prof)
+               if needle in name)
 
 
 def window_records(torch, prof, needle: str) -> dict:
     """The device kernels a profiler window recorded and the positions of
     ``needle``'s among them in start order: where a record went missing."""
-    kern = sorted((e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA),
-                  key=lambda e: e.time_range.start)
+    kern = sorted(device_records(torch, prof), key=lambda r: r[1])
     return {"kernels": len(kern),
-            "needle_positions": [i for i, e in enumerate(kern)
-                                 if needle in e.name]}
+            "needle_positions": [i for i, r in enumerate(kern)
+                                 if needle in r[0]]}
 
 
 def decode_profile(torch, dev, model, cfg, scfg, traffic, name, steps=3,
@@ -1911,9 +2021,7 @@ def decode_profile(torch, dev, model, cfg, scfg, traffic, name, steps=3,
     kernels = kernel_ms(torch, prof)
     device_ms = sum(kernels.values()) if kernels else None
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
-    cpu_ops = sum(1 for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CPU
-                  and e.name.startswith("aten::"))
+    cpu_ops = aten_ops(torch, prof)
     pdev = sum(pkern.values()) if pkern else None
     # the device's own count of the attention kernels, where the profiler
     # saw kernels at all: prefill through the design of the model's type
@@ -2440,9 +2548,10 @@ def families_phase(torch, dev, flush):
     before the next is made.  Then flash_attention at the new shapes
     (FAMILY_FLASH, bf16 and float32) and paged_attention on the identity
     table of phi's long-mix cache (32 over 8 heads, hd 128), each against
-    its plain version; then the cuts on card and CPU: phi3.5-moe at 2
-    layers, pixtral at 1 decoder and 1 vision layer (its CPU path at 1024
-    patches and full width is the slowest of the cuts), whisper-tiny
+    its plain version; then the cuts on card and CPU: phi3.5-moe at 1
+    layer (its CPU path holds 16 experts at full width a layer), pixtral
+    at 1 decoder and 1 vision layer (its CPU path at 1024 patches and full
+    width is the slowest of the cuts), whisper-tiny
     whole, float32 and bf16.  Returns (the launches of the serving runs summed,
     the flash and paged rows)."""
     import dataclasses
@@ -2501,7 +2610,7 @@ def families_phase(torch, dev, flush):
              for dt, suffix in ((torch.bfloat16, ""),
                                 (torch.float32, "_float32"))]
     for dtype in ("float32", "bfloat16"):
-        serve_card_vs_cpu(torch, dev, "phi3.5-moe-42b", 2, dtype)
+        serve_card_vs_cpu(torch, dev, "phi3.5-moe-42b", 1, dtype)
         serve_card_vs_cpu(torch, dev, "pixtral-12b", 1, dtype,
                           ServeConfig(max_len=4096), n_vision_layers=1)
         serve_card_vs_cpu(torch, dev, "whisper-tiny",
@@ -2586,8 +2695,11 @@ TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 128, 8, 5, 3e-4
 CUT_SEQ, CUT_BATCH, CUT_LAYERS = 64, 2, 2
 CUT_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # steps of each cut on card and CPU (the CPU path takes 5-8 s a step at
-# full width: the 151,936 x 2048 embedding)
-CUT_STEPS = {"float32": 3, "bfloat16": 2}
+# full width: the 151,936 x 2048 embedding), and of a cut whose steps are
+# held to the CPU path's state one at a time (its one-ulp CPU run must
+# have parted from the CPU path by the last)
+CUT_STEPS = {"float32": 2, "bfloat16": 2}
+HELD_STEPS = 3
 
 
 def scaled_err(torch, got, want, tol, what) -> float:
@@ -2983,7 +3095,8 @@ def train_cut(torch, dev, dtype: str, arch: str = TRAIN_ARCH,
               n_layers: int = CUT_LAYERS, from_cpu_state: bool = False
               ) -> None:
     """``arch`` at ``n_layers`` layers and full width, TF32 off: the first
-    step's gradients and CUT_STEPS Trainer steps from the same seeded
+    step's gradients and CUT_STEPS (HELD_STEPS where ``from_cpu_state``)
+    Trainer steps from the same seeded
     weights on the card and through the port's CPU path.  float32: losses
     and grad norms to rtol 1e-4 and each gradient leaf within 1e-4 of its
     largest magnitude (floored at 1e-3 of the largest of all leaves: the
@@ -3002,9 +3115,10 @@ def train_cut(torch, dev, dtype: str, arch: str = TRAIN_ARCH,
            torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    n_steps = HELD_STEPS if from_cpu_state else CUT_STEPS[dtype]
     try:
-        host = trainer(cfg, CUT_SEQ, CUT_BATCH, CUT_STEPS[dtype], "cpu")
-        card = trainer(cfg, CUT_SEQ, CUT_BATCH, CUT_STEPS[dtype], dev)
+        host = trainer(cfg, CUT_SEQ, CUT_BATCH, n_steps, "cpu")
+        card = trainer(cfg, CUT_SEQ, CUT_BATCH, n_steps, dev)
         with torch.no_grad():
             for (n, a), b in zip(host.model.named_parameters(),
                                  card.model.parameters()):
@@ -3028,7 +3142,7 @@ def train_cut(torch, dev, dtype: str, arch: str = TRAIN_ARCH,
         stepwise = None
         if from_cpu_state:
             launches, stepwise = cut_steps_from_cpu(torch, cfg, host, card,
-                                                    CUT_STEPS[dtype])
+                                                    n_steps)
         else:
             _build.reset_counts()
             card.run()
@@ -3047,7 +3161,7 @@ def train_cut(torch, dev, dtype: str, arch: str = TRAIN_ARCH,
           "card_step_ms": [m["step_time_s"] * 1e3 for m in card.metrics_log],
           "cpu_step_ms": [m["step_time_s"] * 1e3 for m in host.metrics_log],
           "launches": launches})
-    check_launches(launches, train_launches(cfg, CUT_STEPS[dtype]),
+    check_launches(launches, train_launches(cfg, n_steps),
                    f"{dtype} cut")
     if stepwise is not None:
         judge_stepwise(stepwise)
@@ -3792,9 +3906,9 @@ def lanes_phase(torch, T, dev, traces, cycle_ms) -> None:
               "batched_kernel_ms": kernel_ms, "bit_equal": True})
 
     # the sweep grid at n = 20000: one batch a workload, against the
-    # committed counters; the first workload's launch is recorded and held
-    # against the plain version (the planner's shape, per-lane CTC ways
-    # and set counts)
+    # committed counters; then the grid's launch on the first workload cut
+    # to SWEEP_PLAIN_N requests is recorded and held against the plain
+    # version (the planner's shape, per-lane CTC ways and set counts)
     base = json.loads(BASELINE.read_text())
     sweep_traces = baseline_traces(T, base)
 
@@ -3806,14 +3920,11 @@ def lanes_phase(torch, T, dev, traces, cycle_ms) -> None:
                                     rel_tol=1e-9)
                    for i, r in enumerate(rs))
 
-    recorded = None
     for w in base["workloads"]:
         t = sweep_traces[w][0]
         cfgs = [T.HMSConfig(footprint=t.footprint, **kw)
                 for kw in base["grid"]]
-        with capture(torch, scan_ops, "hms_scan", 1) as rec:
-            rs, wall, launched, runs = batch(t, cfgs)
-        recorded = recorded or (w, runs[0], rec.calls[0])
+        rs, wall, launched, runs = batch(t, cfgs)
         need(len(runs) == 1 and sweep_equal(w, rs),
              f"{w}: the batched sweep grid differs from BENCH_sweep.json "
              f"or ran as {len(runs)} groups")
@@ -3822,17 +3933,23 @@ def lanes_phase(torch, T, dev, traces, cycle_ms) -> None:
               "t_segments": runs[0]["t_segments"],
               "rounds": runs[0]["rounds"], "hms_scan_launches": launched,
               "wall_s": wall, "equals_baseline": True})
-    w, run, call = recorded
-    scan_call_vs_plain(torch, scan_ops, scan_ref, call, {
-        "case": "sweep_grid_planned", "trace": w, "configs": 12,
-        "shards": run["shards"], "t_segments": run["t_segments"],
-        "round": 0}, cycle_ms)
+    t = T.make_trace(next(iter(base["workloads"])), n=SWEEP_PLAIN_N)
+    cfgs = [T.HMSConfig(footprint=t.footprint, **kw) for kw in base["grid"]]
+    with capture(torch, scan_ops, "hms_scan", 1) as rec:
+        _, _, _, runs = batch(t, cfgs)
+    need(len(runs) == 1, f"{t.name}: the sweep grid ran as {len(runs)} "
+         "groups")
+    scan_call_vs_plain(torch, scan_ops, scan_ref, rec.calls[0], {
+        "case": "sweep_grid_planned", "trace": t.name, "n": t.n,
+        "configs": len(cfgs), "shards": runs[0]["shards"],
+        "t_segments": runs[0]["t_segments"], "round": 0}, cycle_ms)
 
-    # a split round's inputs: fig18's batch on pathfnd at a forced (4, 16)
-    # with replay LANE_REPLAY; the warm-up round (cold state, replay steps
-    # live) and the next (seeded state, replay steps dead) against the
-    # plain version, the batch's counters against simulate's
-    t = traces[("pathfnd", None)]
+    # a split round's inputs: fig18's batch on pathfnd (cut to
+    # SPLIT_ROUND_N requests) at a forced (4, 16) with replay LANE_REPLAY;
+    # the warm-up round (cold state, replay steps live) and the next
+    # (seeded state, replay steps dead) against the plain version, the
+    # batch's counters against simulate's
+    t = T.make_trace("pathfnd", n=SPLIT_ROUND_N)
     cfgs = [T.HMSConfig(footprint=t.footprint, **kw) for kw in FIG18_GRID]
     undo = forced(4, 16, LANE_REPLAY)
     try:
@@ -3889,10 +4006,7 @@ def lanes_phase(torch, T, dev, traces, cycle_ms) -> None:
              f"{t.name}: counters differ across forced (S, T): {rows}")
 
     # UM segments: T in UM_SEGMENTS, both link modes in one call, each run
-    # on its forced rung, one um_scan launch a round; llm_dec's T = 16 run
-    # (replay LANE_REPLAY) records its warm-up and next rounds for the
-    # plain version
-    um_calls = None
+    # on its forced rung, one um_scan launch a round
     for w in ("llm_dec", "gpt_train"):
         t = traces[(w, None)]
         hbm = T.HMSConfig(footprint=t.footprint, organization="hbm")
@@ -3901,14 +4015,13 @@ def lanes_phase(torch, T, dev, traces, cycle_ms) -> None:
              f"{w} does not page at its default size")
         want, rows = None, []
         for Tt in UM_SEGMENTS:
-            keep = 2 if (w == "llm_dec" and Tt == UM_SEGMENTS[-1]) else 0
-            undo = forced(None, Tt, LANE_REPLAY if keep else 0)
+            undo = forced(None, Tt, LANE_REPLAY if Tt == UM_SEGMENTS[-1]
+                          else 0)
             try:
                 um_engine._RESULT_CACHE.pop(t, None)
                 before = _build.launches.get("um_scan", 0)
-                with capture(torch, um_ops, "um_scan", keep) as rec:
-                    res, wall = timed(
-                        lambda: um_engine.simulate_um_many(t, specs))
+                res, wall = timed(lambda: um_engine.simulate_um_many(t,
+                                                                     specs))
                 launched = _build.launches.get("um_scan", 0) - before
                 run = um_engine._RUNS[-1]
                 kernel_ms = device_ms(
@@ -3922,8 +4035,6 @@ def lanes_phase(torch, T, dev, traces, cycle_ms) -> None:
                  f"{w} T = {Tt}: rung {run['rung']}, T {run['t_segments']}, "
                  f"events {run['events']}, {launched} um_scan launches for "
                  f"{run['rounds']} rounds")
-            if keep:
-                um_calls = (w, Tt, run, rec.calls)
             got = [[getattr(r, f).tolist() for f in um_engine._FIELDS]
                    for r in res]
             want = got if want is None else want
@@ -3937,11 +4048,28 @@ def lanes_phase(torch, T, dev, traces, cycle_ms) -> None:
               "frames": specs[0].n_frames, "segments": rows})
         need(all(r["bit_equal"] for r in rows),
              f"{w}: UM counters differ across T: {rows}")
-    w, Tt, run, calls = um_calls
-    need(len(calls) == 2, f"{w}: {len(calls)} um_scan rounds recorded")
-    for i, call in enumerate(calls):
+    # llm_dec cut to UM_PLAIN_N requests (it still pages) at T = 16 with
+    # replay LANE_REPLAY: its warm-up and next um_scan rounds recorded and
+    # held against the plain version
+    t = T.make_trace(UM_PLAIN_WORKLOAD, n=UM_PLAIN_N)
+    hbm = T.HMSConfig(footprint=t.footprint, organization="hbm")
+    specs = [um_engine.um_spec(hbm, nv) for nv in (False, True)]
+    need(specs[0].n_frames < um_engine._page_stream(t)[1],
+         f"{t.name} does not page at {t.n} requests")
+    Tt = UM_SEGMENTS[-1]
+    undo = forced(None, Tt, LANE_REPLAY)
+    try:
+        with capture(torch, um_ops, "um_scan", 2) as rec:
+            um_engine.simulate_um_many(t, specs)
+        run = um_engine._RUNS[-1]
+    finally:
+        undo()
+    need(len(rec.calls) == 2, f"{t.name}: {len(rec.calls)} um_scan rounds "
+         "recorded")
+    for i, call in enumerate(rec.calls):
         row = um_call_vs_plain(torch, um_ops, um_ref, call, {
-            "case": "split_round", "trace": w, "t_segments": Tt,
+            "case": "split_round", "trace": t.name, "n": t.n,
+            "t_segments": Tt,
             "replay": LANE_REPLAY, "round": i, "rounds": run["rounds"]})
         need(row["seeded"] == (i > 0)
              and (row["live_steps"] > row["real_steps"]) == (i == 0),
@@ -4278,6 +4406,301 @@ def obs_phase(torch, T, dev) -> None:
     obs.clear_events()
 
 
+# ---- memtier: the block table and tiered training ---------------------------
+
+# 16 GiB of 2 MiB HBM slots over 64 GiB of host blocks (the sizing the
+# reference's amil_probe docstring names): 4 blocks a slot, so no two-bit
+# tag aliasing
+MEMTIER_TIER = {"block_bytes": 2 << 20, "num_slots": 8192,
+                "num_blocks": 32768}
+MEMTIER_ROUNDS, MEMTIER_N = 64, 32768
+TIERED_STEPS, TIERED_FRAC = 4, 0.4
+
+
+def memtier_traffic(np, cfg, seed=0):
+    """The write-filtering oracle's mix (tests/test_train_system.py:123)
+    at the card's size: MEMTIER_ROUNDS rounds, each MEMTIER_N random
+    writes (run 1) in the first quarter of the blocks, then MEMTIER_N
+    sequential reads (run 8) from a random start."""
+    rng = np.random.default_rng(seed)
+    n = MEMTIER_N
+    out = []
+    for _ in range(MEMTIER_ROUNDS):
+        out.append((rng.integers(0, cfg.num_blocks // 4, (n,)).astype(
+            np.int32), np.ones(n, bool), np.ones(n, np.float32)))
+        start = int(rng.integers(0, cfg.num_blocks * 3 // 4))
+        out.append((((np.arange(n) + start) % cfg.num_blocks).astype(
+            np.int32), np.zeros(n, bool), np.full(n, 8.0, np.float32)))
+    return out
+
+
+def block_table_phase(torch, dev, flush) -> dict:
+    """``memtier.access`` on the card against the port's CPU path: every
+    state entry and decision bit-equal after each round of
+    ``memtier_traffic``; amil_probe launches counted over the card's rounds
+    (reset just before, read just after: one a round); one
+    ``probe_blocks`` call's stream holds exactly one probe kernel node
+    (``graph_nodes``); the probe at the main path's shape against its
+    plain version; a table over the kernel's limit raises on the card.
+    Returns the probe's kernel row."""
+    import numpy as np
+    from repro_torch import _build
+    from repro_torch.kernels.amil_probe import ops as probe_ops
+    from repro_torch.kernels.amil_probe.ref import amil_probe_reference
+    from repro_torch.memtier import (TierConfig, access, init_state,
+                                     probe_blocks)
+    cfg = TierConfig(**MEMTIER_TIER)
+    rounds = memtier_traffic(np, cfg)
+    host = [tuple(torch.from_numpy(a) for a in r) for r in rounds]
+    card = [tuple(t.to(dev) for t in r) for r in host]
+    st_c, st_h = init_state(cfg, device=dev), init_state(cfg, device="cpu")
+    card_ms, host_ms, diffs = [], [], []
+    hits = fills = bypasses = 0
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    for r, (c, h) in enumerate(zip(card, host)):
+        t0 = time.perf_counter()
+        st_c, d_c = access(st_c, *c, cfg)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        st_h, d_h = access(st_h, *h, cfg)
+        t2 = time.perf_counter()
+        card_ms.append((t1 - t0) * 1e3)
+        host_ms.append((t2 - t1) * 1e3)
+        for what, a, b in ([("state " + k, st_c[k], st_h[k]) for k in st_h]
+                           + [("decision " + k, d_c[k], d_h[k])
+                              for k in d_h]):
+            a = a.cpu()
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                diffs.append(f"round {r} {what}")
+        hits += int(d_h["hit"].sum())
+        fills += int(d_h["fill"].sum())
+        bypasses += int(d_h["bypass"].sum())
+    launches = _build.launches.get("amil_probe", 0)
+    n_req = len(rounds) * MEMTIER_N
+    need(not diffs, f"block table: the card differs from the CPU path at "
+         f"{len(diffs)} entries, first {diffs[:4]}")
+    need(launches == len(rounds), f"block table: {launches} amil_probe "
+         f"launches over {len(rounds)} access calls")
+    need(int(st_h["fills"]) == fills > 0 and bypasses > 0,
+         f"block table: fills {fills}, bypasses {bypasses}")
+    blocks = card[-1][0]
+    nodes = graph_nodes(torch, lambda: probe_blocks(st_c, blocks, cfg))
+    probe_nodes = [n for n in nodes if n[1] and "amil_probe_kernel" in n[1]]
+    need(len(probe_nodes) == 1, f"probe_blocks put {nodes} on its stream, "
+         "not one launch of the probe kernel")
+    emit({"phase": "memtier_block_table", "tier": MEMTIER_TIER,
+          "rounds": MEMTIER_ROUNDS, "access_calls": len(rounds),
+          "requests": n_req,
+          "amil_probe_launches": launches,
+          "card_ms_per_round_median": statistics.median(card_ms),
+          "card_ms_per_round_first": card_ms[0],
+          "cpu_ms_per_round_median": statistics.median(host_ms),
+          "hit_rate": hits / n_req, "fill_rate": fills / n_req,
+          "bypass_rate": bypasses / n_req,
+          "writebacks": int(st_h["writebacks"]),
+          "bit_equal_access_calls": len(rounds),
+          "probe_blocks_graph_nodes": nodes})
+
+    # the probe at the main path's shape: the last round's table and blocks
+    meta = st_c["meta"]
+    slots, tags = blocks % cfg.num_slots, blocks // cfg.num_slots
+    run = lambda: probe_ops.amil_probe(meta, slots, tags)
+    err = max(same(torch, a, b) for a, b in zip(
+        run(), amil_probe_reference(meta, slots, tags)))
+    event_ms(torch, run, reps=5, flush=flush)              # warm-up
+    ms = event_ms(torch, run, reps=20, flush=flush)
+    plain_ms = event_ms(torch, lambda: amil_probe_reference(
+        meta, slots, tags), reps=5, flush=flush)
+    row = {"name": "amil_probe", "case": "memtier_round",
+           "table_lanes": cfg.num_slots, "requests": MEMTIER_N,
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": (20 * MEMTIER_N + 4 * cfg.num_slots)
+           / HBM_BYTES_PER_S * 1e3,
+           "bound_by": "bytes", "library_ms": None, "launches": launches}
+    emit({"phase": "kernel_vs_plain", **row})
+
+    # a table over the kernel's shared memory raises on the card
+    big = TierConfig(num_slots=probe_ops.MAX_LANES + 1,
+                     num_blocks=4 * (probe_ops.MAX_LANES + 1))
+    try:
+        probe_blocks(init_state(big, device=dev), blocks, big)
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    emit({"phase": "memtier_table_limit", "num_slots": big.num_slots,
+          "raised": raised})
+    need(raised is not None and str(probe_ops.MAX_LANES) in raised,
+         f"a {big.num_slots}-slot table did not raise naming the "
+         f"{probe_ops.MAX_LANES}-lane limit: {raised}")
+    return row
+
+
+def mem_available() -> int:
+    """MemAvailable of /proc/meminfo, in bytes."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) * 1024
+    raise SmokeFailure("no MemAvailable in /proc/meminfo")
+
+
+def tiered_phase(torch, dev) -> dict:
+    """Tiered training of TRAIN_ARCH at full width and depth (bf16, seed-0
+    weights, ``for_model(cfg, TRAIN_SEQ, TRAIN_BATCH)``, AdamW's default
+    lr 3e-4)
+    through ``launch.train_tiered.run`` at a fast-tier budget of
+    TIERED_FRAC of the state, against TIERED_STEPS untiered steps of the
+    same step function on the same batches in this process: losses and
+    grad norms bit-equal, the final weights of a streamed leaf bit-equal,
+    bytes streamed each way TIERED_STEPS x ``slow_bytes``, device memory
+    after each flush-out at least 0.9 x ``slow_bytes`` below the untiered
+    run's after its step, a streamed leaf's round trip bit-equal, the peak
+    under the card's memory, launches against ``train_launches``.  Returns
+    the tiered run's launches."""
+    from repro_torch import _build
+    from repro_torch.configs import get_config
+    from repro_torch.convert import jax_leaf_order
+    from repro_torch.data.synthetic import for_model
+    from repro_torch.launch import steps, train_tiered
+    from repro_torch.memtier import plan_placement
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw
+    cfg = get_config(TRAIN_ARCH)
+    total_mem = torch.cuda.get_device_properties(dev).total_memory
+
+    # untiered: the whole state on the card
+    t0 = time.perf_counter()
+    model = init_params(0, cfg, device=dev)
+    opt = adamw.init(dict(model.named_parameters()))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    nbytes = train_tiered.state_bytes(model, opt)
+    plan = plan_placement(model, opt, int(nbytes * TIERED_FRAC))
+    leaf = next(n for n in plan.streamed if n.startswith("params"))
+    step = steps.make_train_step(cfg)          # lr 3e-4, as run's
+    data = for_model(cfg, TRAIN_SEQ, TRAIN_BATCH)
+    base = {"losses": [], "grad_norms": [], "step_ms": [], "mem": []}
+    _build.reset_counts()
+    for i in range(TIERED_STEPS):
+        b = {k: torch.from_numpy(v).to(dev)
+             for k, v in data.batch_at(i).items()}
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        model, opt, m = step(model, opt, b)
+        torch.cuda.synchronize()
+        base["step_ms"].append((time.perf_counter() - t1) * 1e3)
+        base["mem"].append(torch.cuda.memory_allocated(dev))
+        base["losses"].append(float(m["loss"]))
+        base["grad_norms"].append(float(m["grad_norm"]))
+    check_launches(_build.launches, train_launches(cfg, TIERED_STEPS),
+                   "untiered steps")
+    params = dict(model.named_parameters())
+    groups = {"params" + "".join(f"['{k}']" for k in path): ns
+              for path, ns in jax_leaf_order(params, cfg)}
+    names = groups[leaf]
+    final = {n: params[n].detach().cpu() for n in names}
+    del model, opt, params, m, b
+    torch.cuda.empty_cache()
+
+    # tiered
+    avail = mem_available()
+    emit({"phase": "memtier_host", "mem_available_bytes": avail,
+          "slow_bytes": plan.slow_bytes, "fast_bytes": plan.fast_bytes,
+          "state_bytes": nbytes, "streamed_leaves": len(plan.streamed),
+          "pinned_leaves": len(plan.pinned)})
+    need(plan.slow_bytes < avail, f"the host cannot pin the slow tier: "
+         f"{plan.slow_bytes} bytes asked, MemAvailable {avail}")
+    model = init_params(0, cfg, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_counts()
+    lines = []
+    t1 = time.perf_counter()
+    try:
+        out = train_tiered.run(cfg, model, steps=TIERED_STEPS,
+                               seq=TRAIN_SEQ, batch=TRAIN_BATCH,
+                               fast_frac=TIERED_FRAC, log=lines.append)
+    except RuntimeError as e:
+        raise SmokeFailure(f"tiered training failed: {e} (MemAvailable "
+                           f"{avail} bytes)") from e
+    run_s = time.perf_counter() - t1
+    launches = dict(_build.launches)
+    peak = torch.cuda.max_memory_allocated(dev)
+    ws, model, opt = out["streamer"], out["model"], out["opt_state"]
+    pl = ws.placement
+    check_launches(launches, train_launches(cfg, TIERED_STEPS),
+                   "tiered steps")
+    in_out = (ws.bytes_streamed_in, ws.bytes_streamed_out)
+    # the round trip of a streamed leaf: staged copies equal the host
+    # copies, flushed host copies equal the staged ones
+    views = ws.host_views(leaf)
+    params = dict(model.named_parameters())
+    model, opt = ws.stage_in(model, opt)
+    staged = [params[n].detach().clone() for n in names]
+    trip_in = all(torch.equal(s.cpu(), v) for s, v in zip(staged, views))
+    ws.flush_out(model, opt)
+    trip_out = all(torch.equal(s.cpu(), v) for s, v in zip(staged, views))
+    same_final = all(torch.equal(final[n], v) for n, v in zip(names, views))
+    pinned_host = bool(ws.host_buffer.is_pinned())
+    mem_after = out["mem_after_flush"]
+    saved = [b - t for b, t in zip(base["mem"], mem_after)]
+    gbs_in = [pl.slow_bytes / s / 1e9 for s in out["stage_in_s"]]
+    gbs_out = [pl.slow_bytes / s / 1e9 for s in out["flush_out_s"]]
+    row = {"phase": "memtier_tiered_train", "model": cfg.name,
+           "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+           "params": sum(p.numel() for p in model.parameters()),
+           "seq": TRAIN_SEQ, "batch": TRAIN_BATCH, "lr": TRAIN_LR,
+           "steps": TIERED_STEPS, "fast_frac": TIERED_FRAC,
+           "state_bytes": nbytes, "fast_bytes": pl.fast_bytes,
+           "slow_bytes": pl.slow_bytes, "streamed_leaf_checked": leaf,
+           "host_buffer_pinned": pinned_host, "init_s": init_s,
+           "tiered_run_s": run_s, "lines": lines,
+           "losses": out["losses"], "grad_norms": out["grad_norms"],
+           "untiered_losses": base["losses"],
+           "untiered_grad_norms": base["grad_norms"],
+           "stage_in_ms": [s * 1e3 for s in out["stage_in_s"]],
+           "flush_out_ms": [s * 1e3 for s in out["flush_out_s"]],
+           "stage_in_gb_s": gbs_in, "flush_out_gb_s": gbs_out,
+           "step_ms": [s * 1e3 for s in out["step_s"]],
+           "untiered_step_ms": base["step_ms"],
+           "mem_after_flush_bytes": mem_after,
+           "untiered_mem_after_step_bytes": base["mem"],
+           "mem_saved_bytes": saved, "peak_mem_bytes": peak,
+           "card_mem_bytes": total_mem,
+           "bytes_streamed_in": in_out[0], "bytes_streamed_out": in_out[1],
+           "round_trip_in": trip_in, "round_trip_out": trip_out,
+           "final_leaf_equals_untiered": same_final, "launches": launches}
+    emit(row)
+    need(out["losses"] == base["losses"]
+         and out["grad_norms"] == base["grad_norms"],
+         f"tiered losses {out['losses']} / grad norms {out['grad_norms']} "
+         f"differ from untiered {base['losses']} / {base['grad_norms']}")
+    need(in_out == (TIERED_STEPS * pl.slow_bytes,) * 2,
+         f"streamed bytes {in_out}, expected {TIERED_STEPS} x "
+         f"{pl.slow_bytes} each way")
+    need(all(s >= 0.9 * pl.slow_bytes for s in saved),
+         f"device memory after flush_out {mem_after} is not 0.9 x "
+         f"{pl.slow_bytes} below the untiered run's {base['mem']}")
+    need(trip_in and trip_out and same_final,
+         f"streamed leaf {leaf}: round trip in {trip_in}, out {trip_out}, "
+         f"final weights equal the untiered run's {same_final}")
+    need(pinned_host, "the slow tier's host buffer is not page-locked")
+    need(peak < total_mem, f"peak {peak} over the card's {total_mem}")
+    del ws, model, opt, out, params, staged
+    torch.cuda.empty_cache()
+    return launches
+
+
+def memtier_phase(torch, dev, flush) -> dict:
+    """The two-tier memory runtime on the card (``--only memtier``): the
+    block table, then tiered training.  Returns the amil_probe row (its
+    launches those of the block table's rounds)."""
+    row = block_table_phase(torch, dev, flush)
+    torch.cuda.empty_cache()
+    tiered_phase(torch, dev)
+    return row
+
+
 def main(argv=None) -> int:
     global _OUT
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4287,7 +4710,7 @@ def main(argv=None) -> int:
                                        "ssd", "flash", "lanes", "hms_scan",
                                        "obs", "families", "bf16_spread",
                                        "train", "bwd", "train_ssm",
-                                       "ssd_bwd"],
+                                       "ssd_bwd", "memtier"],
                     default=None,
                     help="run the device and build phases, then only the "
                     "UM phases (4b, 5b and um_step_costs), um_step_costs, "
@@ -4299,7 +4722,9 @@ def main(argv=None) -> int:
                     "cuts' spread over weight seeds, the train phase "
                     "(6b), its backward rows alone, the ssm and hybrid "
                     "training (6c, with zamba2-2.7b at full width and "
-                    "depth) or its ssd_scan backward rows alone")
+                    "depth), its ssd_scan backward rows alone or the "
+                    "two-tier memory runtime (the block table and tiered "
+                    "training)")
     ap.add_argument("--parent-bwd", default=None, metavar="DIR",
                     help="a directory holding an earlier tree's "
                     "flash_attention_bwd.cu (and its header): built and "
@@ -4323,7 +4748,6 @@ def main(argv=None) -> int:
     import repro_torch.core as T
     from repro_torch import _build
     from repro_torch.core import simulator as sim
-    from repro_torch.kernels.amil_probe import ops as probe_ops
     from repro_torch.kernels.hms_scan import ops as scan_ops
     from repro_torch.kernels.hms_scan import ref as scan_ref
 
@@ -4387,6 +4811,8 @@ def main(argv=None) -> int:
                             parent_dir=args.parent_ssd_bwd)
         elif args.only == "ssd_bwd":
             ssd_bwd_checks(torch, dev, flush, args.parent_ssd_bwd)
+        elif args.only == "memtier":
+            memtier_phase(torch, dev, flush)
         elif args.only == "lanes":
             scenario_baseline_checks(torch, T)
             runs = [(name, None) for name in sorted(T.WORKLOADS)] + [
@@ -4420,11 +4846,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # ---- 3. kernels against their plain versions --------------------------
-    summary["amil_probe"] = amil_checks(torch, dev, flush, judge=True)
+    amil_checks(torch, dev, flush, judge=True)
     amil_out_of_range(torch, dev)
 
     for kw in GOLDEN_CONFIGS + WIDE_CTC:
-        t = golden_trace(T)
+        t = golden_trace(T, n=GOLDEN_PLAIN_N)
         cfg = T.HMSConfig(footprint=t.footprint, **kw).validate()
         s = sim.scan_inputs(t, cfg, dev)
         want = plain_scan(scan_ref, s)
@@ -4441,7 +4867,7 @@ def main(argv=None) -> int:
               "max_abs_err": err, "ema_max_abs_err": ema_err,
               "hits": int((got[0] & 1).sum())})
 
-    # one workload at a quarter of its default size (PLAIN_SCAN_N): the
+    # one workload at a sixteenth of its default size (PLAIN_SCAN_N): the
     # plain step loop at the full 160,000 requests took ~205 s, the run's
     # longest phase; the kernel's full-size times are the breakdown rows'
     t = T.make_trace("pathfnd", n=PLAIN_SCAN_N)
@@ -4676,19 +5102,10 @@ def main(argv=None) -> int:
     # ---- 5d. the run ledger, spans, sentinel and store on the main path --
     obs_phase(torch, T, dev)
 
-    # the AMIL probe's own path: its wrapper at the table sizes it names
-    _build.reset_counts()
-    g = torch.Generator(device=dev).manual_seed(3)
-    for n_slots in (256, 8192):
-        meta = torch.randint(0, 64, (n_slots,), generator=g, device=dev,
-                             dtype=torch.int32)
-        req = torch.randint(0, n_slots, (1 << 20,), generator=g, device=dev,
-                            dtype=torch.int32)
-        hit, _, _ = probe_ops.probe(meta, req, req & 3)
-        need(hit.shape == req.shape, "amil probe output shape")
-    torch.cuda.synchronize()
-    probe_launches = _build.launches.get("amil_probe", 0)
-    need(probe_launches > 0, "amil_probe was never launched on its path")
+    # ---- 5e. the AMIL probe's path: the memtier block table, then tiered
+    # training
+    summary["amil_probe"] = memtier_phase(torch, dev, flush)
+    probe_launches = summary["amil_probe"]["launches"]
 
     need(not deferred, "; ".join(deferred))
 

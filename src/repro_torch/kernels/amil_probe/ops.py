@@ -15,6 +15,8 @@ from .ref import amil_probe_reference
 
 _SMEM_LIMIT = 227 * 1024          # shared memory of one H100 block
 _TABLE_OFFSET = 16                # the kernel's mbarrier, ahead of the table
+# the largest table the kernel holds: 58,108 int32 lanes
+MAX_LANES = (_SMEM_LIMIT - _TABLE_OFFSET) // 4
 
 
 def amil_probe(meta, slots, tags):
@@ -31,9 +33,10 @@ def amil_probe(meta, slots, tags):
     if slots.shape != tags.shape:
         raise ValueError("amil_probe: slots and tags differ in shape")
     n_slots = meta.shape[0]
-    if not 0 < n_slots * 4 <= _SMEM_LIMIT - _TABLE_OFFSET:
+    if not 0 < n_slots <= MAX_LANES:
         raise ValueError(f"amil_probe: a {n_slots}-lane table does not fit "
-                         "one block's shared memory")
+                         f"one block's shared memory (at most {MAX_LANES} "
+                         "lanes on the card)")
     meta, slots, tags = (t.contiguous() for t in (meta, slots, tags))
     hit, dirty, aff = (torch.empty_like(slots) for _ in range(3))
     n = slots.shape[0]
