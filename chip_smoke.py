@@ -216,12 +216,22 @@ window's kernel count and where the kernel kind sits among them.
                36 backwards a step), peak memory, step time (median of
                steps 2-5), tokens/s, the forward/backward/optimizer split,
                a profiled step's busy share and top kernels, and one step
-               with remat; the 2-layer cut in float32 (TF32 off) on card and
+               with remat; then phase 6d (mesh): the same trainer on a
+               world-size-1 mesh (``mesh_phase``); the 2-layer cut in
+               float32 (TF32 off) on card and
                CPU from the same weights (first-step gradients leaf by leaf
                and 3 steps' losses and grad norms to 1e-4) and in bf16
                (2 steps' losses to 2e-2); and a restart on the card: 4
                steps, a checkpoint, a new Trainer resuming to 6, bit-equal
                to an uninterrupted run (losses and whole state).
+  6d. mesh   - (``mesh_phase``, inside 6b after its full-width trainer)
+               training on a ``torch.distributed`` device mesh at world
+               size 1 (NCCL takes one rank a card): qwen2.5-3b's
+               ``Trainer(mesh=...)`` bit-equal to 6b's first 3 steps with
+               the same launches and a peak within 10%, the MoE's "tp"
+               placement at a phi3.5-moe layer's widths bit-equal to the
+               meshless layer, ``quantized_allreduce`` and
+               ``ErrorFeedback`` on the card bit-equal to the CPU.
   6c. train_ssm - (``train_ssm_phase``, right after 6b) the ssd_scan
                backward (``csrc/ssd_scan_bwd.cu`` on the tensor cores: bf16
                design ``mma``, float32 ``mma3``; the walks where there is
@@ -303,6 +313,11 @@ window's kernel count and where the kernel kind sits among them.
                logit tolerance.
   9. the ``kernels`` summary line, then the ``ok`` line.
 
+The training cuts' free CPU runs (6b's two qwen2.5-3b cuts, 6c's
+mamba2-1.3b cut and the hybrid's one-ulp run), which take nothing from
+the card, run in a worker process (``HostRuns``) started right after the
+build, while the card works; with ``--only`` they run in place.
+
 ``--out DIR`` also writes every JSON line to DIR/chip_smoke.jsonl;
 ``--only um`` runs phases 1-2 and the UM phases (4b, 5b and
 um_step_costs), ``--only lanes`` phases 1-2, 4c and 5c, ``--only obs``
@@ -310,7 +325,9 @@ phases 1-2 and 5d, ``--only families`` phases 1-2 and 7b, ``--only train``
 phases 1-2 and 6b, ``--only bwd`` phases 1-2 and 6b's backward rows,
 ``--only train_ssm`` phases 1-2 and 6c with zamba2-2.7b at full width and
 depth, ``--only ssd_bwd`` phases 1-2 and 6c's backward rows,
-``--only memtier`` phases 1-2 and 5e, ``--only
+``--only memtier`` phases 1-2 and 5e, ``--only mesh`` phases 1-2, 6b's
+full-width trainer and 6d, ``--only mesh4`` (four cards) phases 1-2 and
+qwen2.5-3b on NCCL meshes of four ranks (``mesh4_phase``), ``--only
 bf16_spread`` the bf16 cuts' distances over 8 weight seeds,
 ``--only um_step_costs`` that phase alone, ``--only
 amil_probe`` the amil_probe rows and the out-of-range check (the one-launch
@@ -3016,14 +3033,14 @@ def profiled_step(torch, tr, batch) -> dict:
                 kernels.items(), key=lambda kv: -kv[1])[:10]]}
 
 
-def trainer(cfg, seq, batch, steps, dev, **kw):
+def trainer(cfg, seq, batch, steps, dev, mesh=None, **kw):
     from repro_torch.configs import ShapeSpec
     from repro_torch.data.synthetic import for_model
     from repro_torch.train import TrainConfig, Trainer
     return Trainer(cfg, ShapeSpec("chip_smoke", seq, batch, "train"),
                    for_model(cfg, seq, batch),
                    TrainConfig(total_steps=steps, lr=TRAIN_LR, **kw),
-                   seed=0, device=dev)
+                   mesh=mesh, seed=0, device=dev)
 
 
 def train_full_width(torch, dev, arch: str = TRAIN_ARCH) -> dict:
@@ -3072,6 +3089,7 @@ def train_full_width(torch, dev, arch: str = TRAIN_ARCH) -> dict:
            "peak_mem_bytes": peak, "card_mem_bytes": total_mem,
            "launches": launches, "profile": prof}
     emit(row)
+    TRAIN_ROWS[cfg.name] = row
     # one step with remat: each layer recomputed in the backward
     tr.tcfg.remat = True
     tr._build()
@@ -3146,8 +3164,9 @@ def train_cut(torch, dev, dtype: str, arch: str = TRAIN_ARCH,
         else:
             _build.reset_counts()
             card.run()
-            host.run()
             launches = dict(_build.launches)
+            host.metrics_log = HOST.get(
+                ("run", cfg.name, n_layers, dtype, n_steps))
     finally:
         torch.backends.cuda.matmul.allow_tf32, \
             torch.backends.cudnn.allow_tf32 = old
@@ -3172,6 +3191,103 @@ def train_cut(torch, dev, dtype: str, arch: str = TRAIN_ARCH,
         if dtype == "float32":
             need(math.isclose(gn, wn, rel_tol=tol),
                  f"{dtype} cut: grad norm {gn} on the card, {wn} on the CPU")
+
+
+def host_run(job) -> list:
+    """One free run of a training cut's CPU path: ``job`` = (kind, arch,
+    n_layers, dtype, steps), kind ``run`` from the seeded weights or
+    ``ulp`` from each weight moved one float32 ulp (up or down by a coin
+    of generator seed 0).  Returns the run's metrics log."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.optim import adamw
+    kind, arch, n_layers, dtype, n_steps = job
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers,
+                              dtype=dtype).validate()
+    tr = trainer(cfg, CUT_SEQ, CUT_BATCH, n_steps, "cpu")
+    if kind == "ulp":
+        g = torch.Generator().manual_seed(0)
+        with torch.no_grad():
+            for p in tr.model.parameters():
+                up = torch.rand(p.shape, generator=g) < 0.5
+                p.copy_(torch.nextafter(p, torch.where(
+                    up, torch.tensor(math.inf), torch.tensor(-math.inf))))
+        tr.opt_state = adamw.init(tr.params)
+    tr.run()
+    return tr.metrics_log
+
+
+def host_runs_worker(jobs, queue) -> None:
+    """The worker process of ``HostRuns``: each job's run in turn, put on
+    ``queue`` as (job, metrics log), or (job, the error's text)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    torch.set_num_threads(HOST_THREADS)
+    for job in jobs:
+        try:
+            queue.put((job, host_run(job)))
+        except Exception as e:              # reported by HostRuns.get
+            queue.put((job, f"{type(e).__name__}: {e}"))
+            return
+
+
+class HostRuns:
+    """The CPU path's free runs of the training cuts, which take nothing
+    from the card (``train_cut``'s CPU run, the hybrid's one-ulp run): the
+    whole script starts one worker process on them right after the build
+    (``start``), so they run while the card works and each cut reads its
+    run when it gets there; without a worker (``--only``) ``get`` runs the
+    job in place."""
+
+    def __init__(self):
+        self.proc, self.queue, self.done = None, None, {}
+
+    def start(self, jobs) -> None:
+        import multiprocessing
+        mp = multiprocessing.get_context("spawn")
+        self.queue = mp.Queue()
+        self.proc = mp.Process(target=host_runs_worker,
+                               args=(list(jobs), self.queue), daemon=True)
+        self.proc.start()
+
+    def get(self, job) -> list:
+        if self.proc is None:
+            return host_run(job)
+        import queue
+        while job not in self.done:
+            try:
+                key, out = self.queue.get(timeout=10)
+            except queue.Empty:
+                need(self.proc.is_alive(), f"the CPU worker ended (exit "
+                     f"code {self.proc.exitcode}) before {job}")
+                continue
+            self.done[key] = out
+        out = self.done.pop(job)
+        need(not isinstance(out, str), f"CPU run {job}: {out}")
+        return out
+
+    def stop(self) -> None:
+        if self.proc is not None:
+            self.proc.terminate()
+            self.proc.join()
+            self.proc = None
+
+
+HOST = HostRuns()
+HOST_THREADS = 4
+
+
+def host_jobs() -> list:
+    """The CPU runs the whole script's training cuts read, in the order
+    they read them."""
+    from repro_torch.configs import get_config
+    f32, bf16 = "float32", "bfloat16"
+    return [("run", TRAIN_ARCH, CUT_LAYERS, f32, CUT_STEPS[f32]),
+            ("run", TRAIN_ARCH, CUT_LAYERS, bf16, CUT_STEPS[bf16]),
+            ("run", SSD_ARCH, CUT_LAYERS, f32, CUT_STEPS[f32]),
+            ("ulp", HYBRID_ARCH, get_config(HYBRID_ARCH).attn_every, f32,
+             HELD_STEPS)]
 
 
 def _leaf_err(torch, got, want, floor: float = 1e-3):
@@ -3218,18 +3334,8 @@ def cut_steps_from_cpu(torch, cfg, host, card, n_steps: int) -> dict:
     card.run()
     card_free = [(m["loss"], m["grad_norm"]) for m in card.metrics_log]
     card.metrics_log.clear()
-    ulp = trainer(cfg, CUT_SEQ, CUT_BATCH, n_steps, "cpu")
-    g = torch.Generator().manual_seed(0)
-    with torch.no_grad():
-        for (_, a), b in zip(host.model.named_parameters(),
-                             ulp.model.parameters()):
-            up = torch.rand(a.shape, generator=g) < 0.5
-            b.copy_(torch.nextafter(a, torch.where(
-                up, torch.tensor(math.inf), torch.tensor(-math.inf))))
-    ulp.opt_state = adamw.init(ulp.params)
-    ulp.run()
-    ulp_free = [(m["loss"], m["grad_norm"]) for m in ulp.metrics_log]
-    del ulp
+    ulp_free = [(m["loss"], m["grad_norm"]) for m in HOST.get(
+        ("ulp", cfg.name, cfg.n_layers, cfg.dtype, n_steps))]
 
     opt = adamw.AdamWConfig(lr=TRAIN_LR)
     decay = steps.decay_mask(host.params, cfg)
@@ -3361,6 +3467,307 @@ def train_restart(torch, dev, arch: str = TRAIN_ARCH) -> None:
          f"restart: losses {got} vs {want}, state equal {same_state}")
 
 
+# the full-width training rows by model (``train_full_width``), which the
+# mesh phase holds its run against
+TRAIN_ROWS = {}
+MESH_STEPS = 3
+MOE_ARCH, MOE_B, MOE_S = "phi3.5-moe-42b", 4, 128
+
+
+def mesh_phase(torch, dev) -> None:
+    """6d. Training on a device mesh, at world size 1 (NCCL takes one rank
+    a card; the multi-rank numerics are the CPU tests' gloo worlds): the
+    default group from a ``file://`` rendezvous in a fresh directory
+    (gloo for CPU tensors, NCCL for the card's) and ``make_mesh_for(1, 1,
+    "cuda")``, destroyed at the end.  (a) ``Trainer(mesh=...)`` on
+    qwen2.5-3b at full width (as ``train_full_width``: 36 layers, bf16,
+    seed 0, 8 x 128 tokens) for MESH_STEPS steps: losses and grad norms
+    bit-equal to the first steps of the meshless run of 6b, the same
+    kernel launches (``train_launches``), peak memory within 10% of its;
+    the step time (median of steps 2-3), the NCCL kernels of a profiled
+    step, and 8 more steps of the same trainer with its step function
+    built for the mesh and for none in turn (the mesh's host cost).  (b)
+    ``moe_ffn``'s "tp" placement on the (1, 1) mesh at
+    one phi3.5-moe layer's widths (E 16, D 4096, F 6400, top-2, bf16, 4 x
+    128 tokens): y, aux and every gradient bit-equal to the meshless
+    layer.  (c) ``quantized_allreduce`` and two ``ErrorFeedback`` rounds
+    over the gradients of the 2-layer qwen2.5-3b cut on the card, bit-equal
+    to the same calls on CPU tensors (the group's gloo half); times."""
+    import datetime
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh_for
+    d = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    t0 = time.perf_counter()
+    dist.init_process_group(
+        "cpu:gloo,cuda:nccl", init_method=f"file://{d}/pg", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_mesh_for(1, 1, "cuda")
+        mesh_train(torch, dev, mesh)
+        mesh_moe(torch, dev, mesh)
+        mesh_compress(torch, dev, mesh)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(d, ignore_errors=True)
+        torch.cuda.empty_cache()
+    emit({"phase": "mesh_done", "wall_s": time.perf_counter() - t0})
+
+
+def mesh_train(torch, dev, mesh) -> None:
+    from repro_torch import _build
+    from repro_torch.configs import get_config
+    cfg = get_config(TRAIN_ARCH)
+    ref = TRAIN_ROWS[cfg.name]
+    t0 = time.perf_counter()
+    tr = trainer(cfg, TRAIN_SEQ, TRAIN_BATCH, MESH_STEPS, dev, mesh=mesh)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_counts()
+    out = tr.run()
+    launches = dict(_build.launches)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in tr.metrics_log]
+    norms = [m["grad_norm"] for m in tr.metrics_log]
+    need(out["steps"] == MESH_STEPS, f"meshed training: {out['steps']} "
+         "steps")
+    need(losses == ref["losses"][:MESH_STEPS]
+         and norms == ref["grad_norms"][:MESH_STEPS],
+         f"meshed training on (1, 1): losses {losses}, grad norms {norms}; "
+         f"meshless {ref['losses'][:MESH_STEPS]}, "
+         f"{ref['grad_norms'][:MESH_STEPS]}")
+    check_launches(launches, train_launches(cfg, MESH_STEPS),
+                   "meshed training")
+    need(peak <= 1.1 * ref["peak_mem_bytes"], f"meshed training: peak "
+         f"{peak} B against the meshless {ref['peak_mem_bytes']}")
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    batch = tr.batch(tr.step)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t1 = time.perf_counter()
+        tr._one_step(batch)
+        wall = (time.perf_counter() - t1) * 1e3
+    kernels = kernel_ms(torch, prof)
+    nccl = {k[:60]: v for k, v in kernels.items() if "nccl" in k.lower()}
+    # the mesh's own cost a step: at one rank the meshed and meshless
+    # trainers hold the same tensors, so one trainer's step function is
+    # built for either in turn and their steps alternate
+    ab = {"mesh": [], "none": []}
+    for which in ("mesh", "none", "none", "mesh") * 2:
+        tr.mesh = mesh if which == "mesh" else None
+        tr._build()
+        ab[which].append(tr._one_step(batch)["step_time_s"] * 1e3)
+    emit({"phase": "mesh_train", "model": cfg.name, "mesh": [1, 1],
+          "n_layers": cfg.n_layers, "dtype": cfg.dtype, "seq": TRAIN_SEQ,
+          "batch": TRAIN_BATCH, "steps": MESH_STEPS, "init_s": init_s,
+          "losses": losses, "grad_norms": norms,
+          "bit_equal_to_meshless": True,
+          "step_ms": [m["step_time_s"] * 1e3 for m in tr.metrics_log],
+          "step_ms_median_2_3": statistics.median(
+              m["step_time_s"] for m in tr.metrics_log[1:]) * 1e3,
+          "meshless_step_ms_median_2_5": ref["step_ms_median_2_5"],
+          "peak_mem_bytes": peak,
+          "meshless_peak_mem_bytes": ref["peak_mem_bytes"],
+          "launches": launches,
+          "profiled_step_wall_ms": wall,
+          "profiled_step_device_ms": sum(kernels.values()),
+          "nccl_kernels_a_step": len(nccl), "nccl_ms_a_step": nccl,
+          "alternated_step_ms": ab,
+          "alternated_median_ms": {k: statistics.median(v)
+                                   for k, v in ab.items()}})
+    del tr
+    torch.cuda.empty_cache()
+
+
+def mesh_moe(torch, dev, mesh) -> None:
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import MoE, moe_ffn
+    from repro_torch.parallel.mesh_ctx import make_ctx
+    cfg = get_config(MOE_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p = MoE(cfg, gen, device=dev)
+    x = torch.randn((MOE_B, MOE_S, cfg.d_model), generator=gen, device=dev,
+                    dtype=torch.float32).to(cfg.torch_dtype)
+    r = torch.randn(x.shape, generator=gen, device=dev,
+                    dtype=torch.float32).to(cfg.torch_dtype)
+    ctx = make_ctx(mesh)
+
+    def run(c):
+        xg = x.clone().requires_grad_()
+        y, aux = moe_ffn(p, xg, cfg, c)
+        ((y.float() * r.float()).sum() + aux).backward()
+        grads = [xg.grad] + [t.grad for t in p.parameters()]
+        p.zero_grad(set_to_none=True)
+        return [y.detach(), aux.detach()] + grads
+
+    want, got = run(None), run(ctx)
+    need(all(torch.equal(a, b) for a, b in zip(want, got)),
+         "moe_ffn's tp placement on (1, 1) differs from the meshless layer")
+    with torch.no_grad():
+        ms = event_ms(torch, lambda: moe_ffn(p, x, cfg, ctx), reps=3)
+        plain = event_ms(torch, lambda: moe_ffn(p, x, cfg), reps=3)
+    emit({"phase": "mesh_moe", "model": cfg.name, "impl": ctx.moe_impl,
+          "mesh": [1, 1], "experts": cfg.n_experts, "d_model": cfg.d_model,
+          "d_ff": cfg.d_ff, "top_k": cfg.top_k, "dtype": cfg.dtype,
+          "tokens": MOE_B * MOE_S, "bit_equal": True,
+          "forward_ms": ms, "meshless_forward_ms": plain})
+    del p, want, got
+    torch.cuda.empty_cache()
+
+
+def mesh_compress(torch, dev, mesh) -> None:
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.parallel.compress import (ErrorFeedback, quantize,
+                                               quantized_allreduce)
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              n_layers=CUT_LAYERS).validate()
+    tr = trainer(cfg, TRAIN_SEQ, TRAIN_BATCH, 1, dev)
+    grads, _, _ = steps.grads_of(tr.model, tr.batch(0), cfg, False)
+    grads = {k: v.detach() for k, v in grads.items()}
+    del tr
+    host = {k: v.cpu() for k, v in grads.items()}
+
+    def calls(g):
+        ef = ErrorFeedback()
+        return [quantized_allreduce(g, mesh, "data"), ef.apply(g),
+                ef.apply(g)]
+
+    t0 = time.perf_counter()
+    on_cpu = calls(host)
+    cpu_s = time.perf_counter() - t0
+    on_card = calls(grads)
+    for a, b in zip(on_card, on_cpu):
+        need(all(torch.equal(a[k].cpu(), b[k]) for k in b),
+             "quantized_allreduce / ErrorFeedback: card differs from CPU")
+    n = sum(v.numel() for v in grads.values())
+    flat = torch.cat([v.float().reshape(-1) for v in grads.values()])
+    emit({"phase": "mesh_compress", "model": cfg.name,
+          "n_layers": cfg.n_layers, "elements": n, "bit_equal": True,
+          "quantize_ms": event_ms(torch, lambda: quantize(flat), reps=3),
+          "quantized_allreduce_ms": event_ms(
+              torch, lambda: quantized_allreduce(grads, mesh, "data"),
+              reps=3),
+          "error_feedback_ms": event_ms(
+              torch, lambda: ErrorFeedback().apply(grads), reps=3),
+          "cpu_three_calls_s": cpu_s})
+    del grads, host, on_cpu, on_card, flat
+
+
+MESH4_SHAPES = ((2, 2), (4, 1))
+MESH4_TOL = 2e-2                # bf16: the cuts' loss tolerance
+
+
+def mesh4_phase(torch) -> None:
+    """``--only mesh4`` (four cards, a four-chip call): qwen2.5-3b at full
+    width (36 layers, bf16, seed 0, 8 x 128 tokens) on real NCCL meshes of
+    four ranks, one a card.  First the meshless trainer on card 0 for
+    MESH_STEPS steps (the reference), then, in four spawned processes (a
+    ``file://`` rendezvous), ``Trainer(mesh=...)`` on (2, 2) and (4, 1):
+    losses and grad norms within MESH4_TOL of the meshless run's (the
+    summation order of the reduce-scatters and all-reduces is not the
+    meshless one), every rank's peak memory, the step time (median of
+    steps 2-3) and, on rank 0, the NCCL kernels of a profiled step."""
+    import shutil
+    import tempfile
+    need(torch.cuda.device_count() >= 4, "--only mesh4 needs four cards")
+    from repro_torch.configs import get_config
+    cfg = get_config(TRAIN_ARCH)
+    tr = trainer(cfg, TRAIN_SEQ, TRAIN_BATCH, MESH_STEPS, torch.device(
+        "cuda:0"))
+    torch.cuda.reset_peak_memory_stats()
+    tr.run()
+    ref = {"losses": [m["loss"] for m in tr.metrics_log],
+           "grad_norms": [m["grad_norm"] for m in tr.metrics_log],
+           "step_ms_median_2_3": statistics.median(
+               m["step_time_s"] for m in tr.metrics_log[1:]) * 1e3,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    emit({"phase": "mesh4_meshless", "model": cfg.name, **ref})
+    del tr
+    torch.cuda.empty_cache()
+    d = tempfile.mkdtemp(prefix="chip_smoke_mesh4_")
+    try:
+        torch.multiprocessing.start_processes(
+            mesh4_rank, args=(d,), nprocs=4, start_method="spawn", join=True)
+        rows = json.loads(Path(d, "rows.json").read_text())
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    for row in rows:
+        for k in ("losses", "grad_norms"):
+            err = max(abs(a - b) / abs(b) for a, b in zip(row[k], ref[k]))
+            row[k + "_rel_err"] = err
+            need(err <= MESH4_TOL, f"mesh {row['mesh']}: {k} {row[k]} "
+                 f"against the meshless {ref[k]}")
+        row["meshless_step_ms_median_2_3"] = ref["step_ms_median_2_3"]
+        row["meshless_peak_mem_bytes"] = ref["peak_mem_bytes"]
+        emit({"phase": "mesh4_train", **row})
+
+
+def mesh4_rank(rank: int, d: str) -> None:
+    """One rank of ``mesh4_phase``: card ``rank``, NCCL."""
+    import datetime
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh_for
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"file://{d}/pg", rank=rank,
+                            world_size=4, device_id=dev,
+                            timeout=datetime.timedelta(seconds=300))
+    rows = []
+    try:
+        cfg = get_config(TRAIN_ARCH)
+        for shape in MESH4_SHAPES:
+            mesh = make_mesh_for(4, shape[1], "cuda")
+            tr = trainer(cfg, TRAIN_SEQ, TRAIN_BATCH, MESH_STEPS, dev,
+                         mesh=mesh)
+            torch.cuda.reset_peak_memory_stats(dev)
+            tr.run()
+            peak = torch.tensor([torch.cuda.max_memory_allocated(dev)],
+                                device=dev)
+            peaks = [torch.zeros_like(peak) for _ in range(4)]
+            dist.all_gather(peaks, peak)
+            batch = tr.batch(tr.step)
+            torch.cuda.synchronize(dev)
+            acts = [torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                tr._one_step(batch)
+                wall = (time.perf_counter() - t0) * 1e3
+            kernels = kernel_ms(torch, prof)
+            nccl = {k[:60]: v for k, v in kernels.items()
+                    if "nccl" in k.lower()}
+            rows.append({
+                "model": cfg.name, "mesh": list(shape), "ranks": 4,
+                "steps": MESH_STEPS,
+                "losses": [m["loss"] for m in tr.metrics_log],
+                "grad_norms": [m["grad_norm"] for m in tr.metrics_log],
+                "step_ms": [m["step_time_s"] * 1e3 for m in tr.metrics_log],
+                "step_ms_median_2_3": statistics.median(
+                    m["step_time_s"] for m in tr.metrics_log[1:]) * 1e3,
+                "peak_mem_bytes_by_rank": [int(p) for p in peaks],
+                "rank0_profiled_step_wall_ms": wall,
+                "rank0_profiled_step_device_ms": sum(kernels.values()),
+                "rank0_nccl_ms_a_step": sum(nccl.values()),
+                "rank0_nccl_kernels_a_step": sum(
+                    1 for name, _, _ in device_records(torch, prof)
+                    if "nccl" in name.lower()),
+                "rank0_nccl_ms_by_kernel": nccl})
+            del tr
+            torch.cuda.empty_cache()
+        if rank == 0:
+            Path(d, "rows.json").write_text(json.dumps(rows))
+    finally:
+        dist.destroy_process_group()
+
+
 def train_phase(torch, dev, flush, parent_dir=None):
     """The training phase: the backward rows, the full-width trainer, the
     float32 and bf16 cuts on card and CPU, the restart.  Returns (the
@@ -3368,6 +3775,7 @@ def train_phase(torch, dev, flush, parent_dir=None):
     rows = bwd_checks(torch, dev, flush, parent_dir)
     torch.cuda.empty_cache()
     launches = train_full_width(torch, dev)
+    mesh_phase(torch, dev)
     train_cut(torch, dev, "float32")
     train_cut(torch, dev, "bfloat16")
     train_restart(torch, dev)
@@ -4710,7 +5118,8 @@ def main(argv=None) -> int:
                                        "ssd", "flash", "lanes", "hms_scan",
                                        "obs", "families", "bf16_spread",
                                        "train", "bwd", "train_ssm",
-                                       "ssd_bwd", "memtier"],
+                                       "ssd_bwd", "memtier", "mesh",
+                                       "mesh4"],
                     default=None,
                     help="run the device and build phases, then only the "
                     "UM phases (4b, 5b and um_step_costs), um_step_costs, "
@@ -4724,7 +5133,9 @@ def main(argv=None) -> int:
                     "training (6c, with zamba2-2.7b at full width and "
                     "depth), its ssd_scan backward rows alone or the "
                     "two-tier memory runtime (the block table and tiered "
-                    "training)")
+                    "training), the full-width trainer and the mesh "
+                    "phase (6d), or qwen2.5-3b on meshes of four cards "
+                    "(a four-chip call)")
     ap.add_argument("--parent-bwd", default=None, metavar="DIR",
                     help="a directory holding an earlier tree's "
                     "flash_attention_bwd.cu (and its header): built and "
@@ -4813,6 +5224,11 @@ def main(argv=None) -> int:
             ssd_bwd_checks(torch, dev, flush, args.parent_ssd_bwd)
         elif args.only == "memtier":
             memtier_phase(torch, dev, flush)
+        elif args.only == "mesh":
+            train_full_width(torch, dev)
+            mesh_phase(torch, dev)
+        elif args.only == "mesh4":
+            mesh4_phase(torch)
         elif args.only == "lanes":
             scenario_baseline_checks(torch, T)
             runs = [(name, None) for name in sorted(T.WORKLOADS)] + [
@@ -4824,6 +5240,7 @@ def main(argv=None) -> int:
         emit({"phase": "done", "wall_s": time.perf_counter() - t_start})
         return 0
     summary = {}
+    HOST.start(host_jobs())
 
     # ---- 6-8. attention kernels and the serving path, run first: the
     # profiler's device kernel counts (decode_profile) come up one record
@@ -5161,6 +5578,7 @@ if __name__ == "__main__":
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         code = 1
     finally:
+        HOST.stop()
         if _OUT is not None:
             _OUT.close()
     sys.exit(code)

@@ -29,7 +29,7 @@ import json
 import os
 import shutil
 import threading
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -151,9 +151,13 @@ def state_leaves(params: Dict[str, torch.Tensor], opt_state: Dict[str, Any],
 @torch.no_grad()
 def load_state_leaves(leaves: Sequence[torch.Tensor],
                       params: Dict[str, torch.Tensor],
-                      opt_state: Dict[str, Any], cfg) -> None:
+                      opt_state: Dict[str, Any], cfg,
+                      place: Optional[Callable[[str, torch.Tensor],
+                                               torch.Tensor]] = None) -> None:
     """Copy :func:`state_leaves`-ordered ``leaves`` into the parameters and
-    the optimizer state in place (each to its tensor's device and type)."""
+    the optimizer state in place (each to its tensor's device and type).
+    ``place(name, whole)``: the part of a whole per-layer tensor that the
+    tensor ``name`` holds (a rank's shard on a mesh)."""
     it = iter(leaves)
 
     def fill(named):
@@ -163,7 +167,7 @@ def load_state_leaves(leaves: Sequence[torch.Tensor],
             parts = leaf.reshape((len(names),) + leaf.shape[len(lead):]) \
                 if lead else leaf[None]
             for n, part in zip(names, parts):
-                named[n].copy_(part)
+                named[n].copy_(part if place is None else place(n, part))
 
     fill(opt_state["m"])
     fill(opt_state["master"])

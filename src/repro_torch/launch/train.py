@@ -3,8 +3,15 @@ qwen2.5-3b --seq 128 --batch 8`` trains seeded random weights on the
 synthetic token stream on the CUDA card; ``--device cpu --smoke`` trains a
 smoke config through the kernels' plain versions on the host.  The
 reference's flags, plus ``--device`` and ``--dtype`` (the model's type,
-default the config's).  ``--model-parallel`` above 1 needs ``parallel/``,
-which is not ported yet."""
+default the config's).
+
+Under ``torchrun`` (``WORLD_SIZE`` > 1) each process joins the default
+group (gloo for ``--device cpu``, NCCL for ``cuda``, rank r on
+``cuda:LOCAL_RANK``) and trains on a (world / mp, mp) mesh of ``data`` x
+``model`` (``--model-parallel`` mp), e.g. ``torchrun --nproc-per-node 4 -m
+repro_torch.launch.train --device cpu --smoke --model-parallel 2``; rank 0
+prints the final line.  In one process it trains without a mesh whatever
+``--model-parallel`` says, as the reference does on one device."""
 
 from __future__ import annotations
 
@@ -25,14 +32,28 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--dtype", choices=["bfloat16", "float32"], default=None)
     args = ap.parse_args(argv)
-    if args.model_parallel > 1:
-        raise NotImplementedError(
-            "--model-parallel > 1 needs parallel/, which is not ported yet "
-            "(ROADMAP A10)")
+
+    import os
+
+    import torch.distributed as dist
 
     from ..configs import ShapeSpec, get_config
     from ..data.synthetic import for_model
+    from ..launch.mesh import make_mesh_for
     from ..train import TrainConfig, Trainer
+
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    device, mesh, rank = args.device, None, 0
+    if world > 1:
+        cpu = args.device == "cpu"
+        dist.init_process_group("gloo" if cpu else "nccl")
+        rank = dist.get_rank()
+        if not cpu:
+            device = f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
+            import torch
+            torch.cuda.set_device(device)
+        mesh = make_mesh_for(world, args.model_parallel,
+                             "cpu" if cpu else "cuda")
 
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.dtype is not None:
@@ -43,10 +64,16 @@ def main(argv=None):
                  TrainConfig(total_steps=args.steps,
                              ckpt_dir=args.ckpt_dir,
                              microbatches=args.microbatches),
-                 device=args.device)
-    out = tr.run()
-    print(f"final loss {out['final_loss']:.4f} after {out['steps']} steps "
-          f"(stragglers={out['stragglers']}, recoveries={out['recoveries']})")
+                 mesh=mesh, device=device)
+    try:
+        out = tr.run()
+    finally:
+        if world > 1:
+            dist.destroy_process_group()
+    if rank == 0:
+        print(f"final loss {out['final_loss']:.4f} after {out['steps']} "
+              f"steps (stragglers={out['stragglers']}, "
+              f"recoveries={out['recoveries']})")
 
 
 if __name__ == "__main__":

@@ -14,6 +14,14 @@ Conventions:
     kernel alone, and with gradients enabled it goes through the
     autograd Function of ``kernels/flash_attention/ops.py`` (the forward
     kernel with its log-sum-exp, then the backward kernels);
+  * on a mesh (``ctx``, a ``parallel.MeshCtx``; training only) each
+    weight is read through ``collectives.weight`` (its FSDP dims gathered)
+    and a block runs tensor-parallel over ``model`` where its weights are
+    split there (``collectives.tp_region``): column-parallel ``wq``/``wk``/
+    ``wv``, ``w_gate``/``w_up`` on local heads or columns behind
+    ``copy_to``, row-parallel ``wo``/``w_down`` summed by ``reduce_from``,
+    the vocabulary split for ``tok`` and ``unembed``; elsewhere the weights
+    are gathered whole and the op is the meshless one;
   * KV caches are dicts ``{"k": (B, max_len, KV, hd), "v": ...}`` per
     layer.  Decode writes the new token's K/V into the cache in place (the
     JAX code returns an updated copy; the values are the same) and reads it
@@ -33,6 +41,7 @@ from torch import nn
 from ..kernels.flash_attention.ops import (flash_attention,
                                            flash_attention_trainable)
 from ..kernels.paged_attention.ops import paged_decode_attention
+from ..parallel import collectives as C
 from .config import ModelConfig
 
 DECODE_PAGE = 16          # tokens per page of the decode view of a cache
@@ -45,7 +54,10 @@ DECODE_PAGE = 16          # tokens per page of the decode view of a cache
 def _dense_init(gen: torch.Generator, shape, dtype, device,
                 scale: Optional[float] = None) -> nn.Parameter:
     """Normal x 1/sqrt(fan_in) (or ``scale``), drawn in float32 on the
-    generator's device, cast to ``dtype`` and placed on ``device``."""
+    generator's device, cast to ``dtype`` and placed on ``device``; no
+    generator: an empty tensor (the meta device's shapes)."""
+    if gen is None:
+        return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
     fan_in = shape[0] if len(shape) >= 2 else 1
     scale = scale if scale is not None else float(1.0 / np.sqrt(fan_in))
     w = torch.randn(shape, generator=gen, device=gen.device,
@@ -68,6 +80,15 @@ def rms_norm(x, p: RMSNorm, eps: float = 1e-5):
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * p.scale).to(x.dtype)
+
+
+def rms_norm_split(x, scale, eps: float, group, d: int):
+    """``rms_norm`` of a tensor whose last dim (``d`` wide) is split over
+    ``group``: ``x`` and ``scale`` this rank's slices, the sum of squares
+    summed over the group."""
+    xf = x.float()
+    var = C.reduce_shared(xf.square().sum(dim=-1, keepdim=True), group) / d
+    return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -145,7 +166,8 @@ def attention(p: Attention, x, cfg: ModelConfig, *,
               pages: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
               x_kv=None,
               use_rope: bool = True,
-              hd: Optional[int] = None):
+              hd: Optional[int] = None,
+              ctx=None):
     """General attention (GQA, optional bias and softcap).
 
     * training / prefill (``pos`` None): the flash attention kernel over the
@@ -162,16 +184,27 @@ def attention(p: Attention, x, cfg: ModelConfig, *,
     dim).  ``rope`` (:func:`rope_tables` of the positions, at this head
     dim) and ``pages`` (:func:`decode_pages`' table and lengths) are built
     here when not given; a forward pass builds them once for all its
-    layers.
+    layers.  ``ctx``: the mesh (training), on which the block runs on its
+    local heads when ``wq``/``wk``/``wv`` (columns) and ``wo`` (rows) are
+    split over ``model`` at head boundaries.
     """
     B, S, _ = x.shape
-    src = x if x_kv is None else x_kv
-    q = x @ p.wq
-    k = src @ p.wk
-    v = src @ p.wv
-    if p.bq is not None:
-        q, k, v = q + p.bq, k + p.bk, v + p.bv
     hd = hd or cfg.hd
+    tp = C.tp_region(ctx, (p.wq, 1), (p.wk, 1), (p.wv, 1), (p.wo, 0),
+                     (p.bq, 0), (p.bk, 0), (p.bv, 0)) \
+        and p.wq.shape[1] % hd == 0 and p.wk.shape[1] % hd == 0
+    col, row = (1, 0) if tp else (None, None)
+    if tp:
+        group = ctx.group(ctx.tp)
+        x = C.copy_to(x, group)
+        x_kv = None if x_kv is None else C.copy_to(x_kv, group)
+    src = x if x_kv is None else x_kv
+    q = x @ C.weight(ctx, p.wq, col)
+    k = src @ C.weight(ctx, p.wk, col)
+    v = src @ C.weight(ctx, p.wv, col)
+    if p.bq is not None:
+        q, k, v = (q + C.weight(ctx, p.bq, row), k + C.weight(ctx, p.bk, row),
+                   v + C.weight(ctx, p.bv, row))
     H = q.shape[-1] // hd
     KV = k.shape[-1] // hd
     q = q.reshape(B, S, H, hd)
@@ -206,7 +239,10 @@ def attention(p: Attention, x, cfg: ModelConfig, *,
     attend = flash_attention_trainable if torch.is_grad_enabled() \
         else flash_attention
     out = attend(q, k, v, causal=causal, softcap=cfg.logit_softcap)
-    return out.reshape(B, S, H * hd) @ p.wo, new_cache
+    out = out.reshape(B, S, H * hd) @ C.weight(ctx, p.wo, row)
+    if tp:
+        out = C.reduce_from(out, group)
+    return out, new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -238,12 +274,27 @@ def silu(x):
     return x * (1.0 / (1.0 + torch.exp(-x)))
 
 
-def mlp(p: MLP, x, cfg: ModelConfig):
+def mlp(p: MLP, x, cfg: ModelConfig, ctx=None):
+    """The FFN; on a mesh column-parallel ``w_gate``/``w_up`` (``b_up``)
+    and row-parallel ``w_down`` where they are split over ``model``."""
+    b_up = getattr(p, "b_up", None)
+    tp = C.tp_region(ctx, (p.w_gate, 1), (p.w_up, 1), (b_up, 0),
+                     (p.w_down, 0))
+    col, row = (1, 0) if tp else (None, None)
+    if tp:
+        group = ctx.group(ctx.tp)
+        x = C.copy_to(x, group)
+    w_up, w_down = C.weight(ctx, p.w_up, col), C.weight(ctx, p.w_down, row)
     if p.w_gate is not None:
-        g = x @ p.w_gate
-        return (silu(g) * (x @ p.w_up)) @ p.w_down
-    h = F.gelu(x @ p.w_up + p.b_up, approximate="tanh")   # jax.nn.gelu
-    return h @ p.w_down + p.b_down
+        g = x @ C.weight(ctx, p.w_gate, col)
+        out = (silu(g) * (x @ w_up)) @ w_down
+        return C.reduce_from(out, group) if tp else out
+    h = F.gelu(x @ w_up + C.weight(ctx, b_up, row),
+               approximate="tanh")                       # jax.nn.gelu
+    out = h @ w_down
+    if tp:
+        out = C.reduce_from(out, group)
+    return out + p.b_down
 
 
 # ---------------------------------------------------------------------------
@@ -264,10 +315,30 @@ class Embed(nn.Module):
                                        device, scale=0.02)
 
 
-def embed(p: Embed, tokens):
-    return p.tok[tokens]
+def embed(p: Embed, tokens, ctx=None):
+    """Token rows of ``tok``; on a mesh with the vocabulary split over
+    ``model``, each rank looks up the tokens of its rows (zeros for the
+    others) and the ranks' rows are summed."""
+    if not C.tp_region(ctx, (p.tok, 0)):
+        return C.weight(ctx, p.tok)[tokens]
+    w = C.weight(ctx, p.tok, 0)
+    n = w.shape[0]
+    local = tokens - ctx.coord(ctx.tp) * n
+    inside = (local >= 0) & (local < n)
+    rows = w[local.clamp(0, n - 1)]
+    rows = torch.where(inside[..., None], rows, torch.zeros_like(rows))
+    return C.reduce_from(rows, ctx.group(ctx.tp))
 
 
-def unembed(p: Embed, x):
-    w = p.unembed if p.unembed is not None else p.tok.T
-    return (x @ w).float()
+def unembed(p: Embed, x, ctx=None):
+    """Float32 logits; on a mesh with the vocabulary split over ``model``,
+    each rank's columns all-gathered (the gradient keeps its own)."""
+    tied = p.unembed is None
+    tp = C.tp_region(ctx, (p.tok, 0) if tied else (p.unembed, 1))
+    if not tp:
+        w = C.weight(ctx, p.tok).T if tied else C.weight(ctx, p.unembed)
+        return (x @ w).float()
+    group = ctx.group(ctx.tp)
+    w = C.weight(ctx, p.tok, 0).T if tied else C.weight(ctx, p.unembed, 1)
+    logits = (C.copy_to(x, group) @ w).float()
+    return C.gather(logits, logits.dim() - 1, group, grad="slice")

@@ -9,6 +9,15 @@ prefill run the SSD scan through the autograd Function
 ``ops.ssd_backward``: the CUDA kernels on the card, their plain versions
 on the CPU); decode runs the one-token recurrence ``ssd_decode_step`` as
 torch ops, as the reference does.
+
+On a mesh (``ctx``; training) the block runs on its local heads where
+``z_proj``, ``x_proj``, ``conv_x`` (channels) and ``out_proj`` (rows) are
+split over ``model`` at head boundaries: the replicated ``bc_proj`` and
+``dt_proj`` streams are computed whole, their heads (``dt``, ``A``, ``D``)
+and groups sliced, B and C read through ``copy_to`` (one group) or
+sliced (groups split evenly), the gate norm taken over the whole
+``d_inner`` (its sum of squares summed over ``model``) and ``out_proj``'s
+partial rows summed by ``reduce_from``.
 """
 
 from __future__ import annotations
@@ -21,8 +30,10 @@ from torch import nn
 
 from ..kernels.ssd_scan.ops import SSD
 from ..kernels.ssd_scan.ref import ssd_decode_step
+from ..parallel import collectives as C
 from .config import ModelConfig
-from .layers import RMSNorm, _dense_init, _zeros, rms_norm, silu
+from .layers import (RMSNorm, _dense_init, _zeros, rms_norm, rms_norm_split,
+                     silu)
 
 Cache = Dict[str, torch.Tensor]
 
@@ -76,8 +87,8 @@ def _conv_step(win, w, b):
 
 
 def mamba_block(p: MambaBlock, x, cfg: ModelConfig,
-                cache: Optional[Cache] = None, pos: Optional[int] = None
-                ) -> Tuple[torch.Tensor, Optional[Cache]]:
+                cache: Optional[Cache] = None, pos: Optional[int] = None,
+                ctx=None) -> Tuple[torch.Tensor, Optional[Cache]]:
     """x: (B, S, D).  Training/prefill when ``pos`` is None; decode
     otherwise.
 
@@ -86,29 +97,47 @@ def mamba_block(p: MambaBlock, x, cfg: ModelConfig,
     and writes the final state and the last K-1 raw conv inputs into it;
     decode takes one token against it and updates the state and the conv
     windows.  Both update the cache in place and return it (the reference
-    returns a new one with the same values)."""
+    returns a new one with the same values).  ``ctx``: the mesh
+    (training only)."""
     B, S, _ = x.shape
     di, g, n, h = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
     hp, K = cfg.ssm_head_dim, cfg.ssm_conv
+    tp = C.tp_region(ctx, (p.z_proj, 1), (p.x_proj, 1), (p.conv_x_w, 1),
+                     (p.conv_x_b, 0), (p.out_proj, 0)) \
+        and h % ctx.tp_size == 0 and (g == 1 or g % ctx.tp_size == 0)
+    col, row = (1, 0) if tp else (None, None)
+    xt = x
+    if tp:
+        group = ctx.group(ctx.tp)
+        xt = C.copy_to(x, group)
+        h = h // ctx.tp_size
 
-    z = x @ p.z_proj
-    xr = x @ p.x_proj
-    bc = x @ p.bc_proj
-    dtp = x @ p.dt_proj
+    z = xt @ C.weight(ctx, p.z_proj, col)
+    xr = xt @ C.weight(ctx, p.x_proj, col)
+    bc = x @ C.weight(ctx, p.bc_proj)
+    dtp = x @ C.weight(ctx, p.dt_proj)
     A = -torch.exp(p.A_log)
 
     if pos is None:
-        xc = silu(_causal_conv(xr, p.conv_x_w, p.conv_x_b))
-        bcc = silu(_causal_conv(bc, p.conv_bc_w, p.conv_bc_b))
+        xc = silu(_causal_conv(xr, C.weight(ctx, p.conv_x_w, col),
+                               C.weight(ctx, p.conv_x_b, row)))
+        bcc = silu(_causal_conv(bc, C.weight(ctx, p.conv_bc_w),
+                                C.weight(ctx, p.conv_bc_b)))
         xs = xc.reshape(B, S, h, hp)
         Bm = bcc[..., :g * n].reshape(B, S, g, n)          # strided views
         Cm = bcc[..., g * n:].reshape(B, S, g, n)
         dtv = _softplus(dtp.float() + p.dt_bias)
+        Dv = p.D
+        if tp:
+            dtv, A, Dv = (C.split(dtv, 2, group), C.split(A, 0, group),
+                          C.split(Dv, 0, group))
+            Bm, Cm = ((C.copy_to(Bm, group), C.copy_to(Cm, group)) if g == 1
+                      else (C.split(Bm, 2, group), C.split(Cm, 2, group)))
         init = None if cache is None else cache["state"]
         # the Function's backward writes dense dB and dC; autograd places
         # them into bcc's gradient through the views
         y, state = SSD.apply(xs, dtv, A, Bm, Cm, init, cfg.ssm_chunk)
-        y = (y + xs * p.D[None, None, :, None]).reshape(B, S, di)
+        y = (y + xs * Dv[None, None, :, None]).reshape(B, S, h * hp)
         if cache is not None:
             cache["state"].copy_(state)
             cache["conv_x"].copy_(F.pad(xr, (0, 0, K - 1, 0))[:, -(K - 1):])
@@ -132,8 +161,13 @@ def mamba_block(p: MambaBlock, x, cfg: ModelConfig,
         cache["conv_bc"].copy_(win_bc[:, 1:])
 
     y = y.to(x.dtype)
+    if tp:
+        y = rms_norm_split(y * silu(z), C.split(p.gate_norm.scale, 0, group),
+                           cfg.norm_eps, group, di)
+        out = C.reduce_from(y @ C.weight(ctx, p.out_proj, row), group)
+        return out.to(x.dtype), cache
     y = rms_norm(y * silu(z), p.gate_norm, cfg.norm_eps)
-    return (y @ p.out_proj).to(x.dtype), cache
+    return (y @ C.weight(ctx, p.out_proj)).to(x.dtype), cache
 
 
 def init_mamba_cache(cfg: ModelConfig, batch: int, *, device=None) -> Cache:

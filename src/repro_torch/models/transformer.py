@@ -4,7 +4,7 @@ for every family: dense, moe, ssm, hybrid, encdec and vlm.
 Public API, as in the reference, with a :class:`Transformer` module in the
 place of the parameter tree:
     init_params(generator, cfg, device=None)         -> Transformer
-    train_logits(model, batch, cfg, remat=False)     -> (logits, aux)
+    train_logits(model, batch, cfg, remat=False, ctx=None) -> (logits, aux)
     prefill(model, batch, cfg, max_len)              -> (logits, cache)
     decode_step(model, tokens, cache, pos, cfg)      -> (logits, cache)
     init_cache(cfg, batch, max_len, device=None)     -> cache
@@ -42,8 +42,11 @@ kernel), and ``remat`` recomputes each layer's block in the backward pass
 (``torch.utils.checkpoint``; the reference's ``jax.checkpoint`` on its
 layer-scan body): a dense layer, a Mamba2 block, or the hybrid's
 super-block (its Mamba2 layers and the shared attention block's
-application).  ``prefill`` and ``decode_step`` run under
-``torch.no_grad()``.
+application).  On a mesh (``ctx``, a ``parallel.MeshCtx``) the batch is
+this rank's data shard and every block reads its weights through
+``parallel.collectives`` (FSDP gathers, tensor-parallel regions; see
+``layers``).  ``prefill`` and ``decode_step`` run under
+``torch.no_grad()``, without a mesh.
 """
 
 from __future__ import annotations
@@ -56,6 +59,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
+from ..parallel import collectives as C
 from . import layers as L
 from .config import ModelConfig
 from .mamba2 import MambaBlock, init_mamba_cache, mamba_block
@@ -129,15 +133,19 @@ class Transformer(nn.Module):
     and ``enc_blocks.{i}.*`` and ``vision_blocks.{i}.*`` as ``blocks``;
     the hybrid's ``blocks.{s}.{j}.mamba.x_proj`` is ``params["blocks"]
     ["mamba"]["x_proj"][s, j]`` for super-block ``s`` and its ``j``-th
-    Mamba2 layer, and its one shared attention block is ``shared.*``."""
+    Mamba2 layer, and its one shared attention block is ``shared.*``.
+    ``device="meta"`` builds the shapes alone (no weights drawn)."""
 
     def __init__(self, cfg: ModelConfig, *,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
         cfg = cfg.validate()
-        dev = resolve_device(device, "Transformer")
-        gen = generator if generator is not None else \
-            torch.Generator(device=dev).manual_seed(0)
+        if str(device) == "meta":          # shapes only (sharding specs)
+            dev, gen = torch.device("meta"), None
+        else:
+            dev = resolve_device(device, "Transformer")
+            gen = generator if generator is not None else \
+                torch.Generator(device=dev).manual_seed(0)
         self.cfg = cfg
         self.embed = L.Embed(cfg, gen, device=dev)
         self.final_norm = L.RMSNorm(cfg.d_model, device=dev)
@@ -189,7 +197,8 @@ def init_params(generator: Union[int, torch.Generator], cfg: ModelConfig, *,
 # ---------------------------------------------------------------------------
 
 def _dense_block(p: DenseBlock, x, cfg: ModelConfig, *, cache=None,
-                 pos=None, rope=None, pages=None, enc_out=None, cross=None):
+                 pos=None, rope=None, pages=None, enc_out=None, cross=None,
+                 ctx=None):
     """Attention (+ cross-attention) + MLP/MoE block.  Returns (x, kv,
     cross_kv, aux): ``kv`` as ``L.attention`` returns it; ``cross_kv`` the
     cross-attention's K/V over ``enc_out`` (prefill with a cache), else
@@ -197,22 +206,23 @@ def _dense_block(p: DenseBlock, x, cfg: ModelConfig, *, cache=None,
     cross-attention reads ``cross``, the layer's cached K/V."""
     h, kv_new = L.attention(p.attn, L.rms_norm(x, p.norm1, cfg.norm_eps),
                             cfg, kv_cache=cache, pos=pos, rope=rope,
-                            pages=pages)
+                            pages=pages, ctx=ctx)
     x = x + h
     cross_kv = None
     if enc_out is not None:
         h, cross_kv = L.attention(
             p.cross, L.rms_norm(x, p.norm_x, cfg.norm_eps), cfg,
-            kv_cache=cache, causal=False, x_kv=enc_out, use_rope=False)
+            kv_cache=cache, causal=False, x_kv=enc_out, use_rope=False,
+            ctx=ctx)
         x = x + h
     elif cross is not None:
         x = x + _cross_decode(p.cross, L.rms_norm(x, p.norm_x, cfg.norm_eps),
                               cross, cfg)
     xin = L.rms_norm(x, p.norm2, cfg.norm_eps)
     if hasattr(p, "moe"):
-        h, aux = moe_ffn(p.moe, xin, cfg)
+        h, aux = moe_ffn(p.moe, xin, cfg, ctx)
     else:
-        h, aux = L.mlp(p.mlp, xin, cfg), None
+        h, aux = L.mlp(p.mlp, xin, cfg, ctx), None
     return x + h, kv_new, cross_kv, aux
 
 
@@ -227,9 +237,10 @@ def _cross_decode(p: L.Attention, x, cross, cfg: ModelConfig):
     return out.reshape(B, S, -1) @ p.wo
 
 
-def _ssm_block(p: SSMBlock, x, cfg: ModelConfig, *, cache=None, pos=None):
+def _ssm_block(p: SSMBlock, x, cfg: ModelConfig, *, cache=None, pos=None,
+               ctx=None):
     h, _ = mamba_block(p.mamba, L.rms_norm(x, p.norm, cfg.norm_eps), cfg,
-                       cache=cache, pos=pos)
+                       cache=cache, pos=pos, ctx=ctx)
     return x + h
 
 
@@ -246,7 +257,7 @@ def _layers(fn, x, remat: bool):
 
 
 def _encoder(blocks: nn.ModuleList, x, cfg: ModelConfig, heads: int,
-             remat: bool = False):
+             remat: bool = False, ctx=None):
     """The encoder (or vision tower) stack: non-causal attention with rope
     at the stack's head dim, the model's softcap and mlp kind."""
     hd = x.shape[-1] // heads
@@ -256,44 +267,45 @@ def _encoder(blocks: nn.ModuleList, x, cfg: ModelConfig, heads: int,
         def layer(x, blk=blk):
             a, _ = L.attention(blk.attn,
                                L.rms_norm(x, blk.norm1, cfg.norm_eps), cfg,
-                               causal=False, rope=rope, hd=hd)
+                               causal=False, rope=rope, hd=hd, ctx=ctx)
             x = x + a
             return x + L.mlp(blk.mlp, L.rms_norm(x, blk.norm2, cfg.norm_eps),
-                             cfg)
+                             cfg, ctx)
         x = _layers(layer, x, remat)
     return x
 
 
 def _input_embeds(model: Transformer, batch, cfg: ModelConfig,
-                  remat: bool = False):
+                  remat: bool = False, ctx=None):
     """The token embeddings; for the vlm ``[image, text]``, the image
     through the vision tower, its norm and the projector."""
-    txt = L.embed(model.embed, batch["tokens"])
+    txt = L.embed(model.embed, batch["tokens"], ctx)
     if cfg.family != "vlm":
         return txt
     v = _encoder(model.vision_blocks,
                  batch["patches"].to(cfg.torch_dtype), cfg, cfg.vision_heads,
-                 remat)
+                 remat, ctx)
     v = L.rms_norm(v, model.vision_norm, cfg.norm_eps)
-    img = (v @ model.projector).to(cfg.torch_dtype)
+    img = (v @ C.weight(ctx, model.projector)).to(cfg.torch_dtype)
     return torch.cat([img, txt], dim=1)
 
 
 def _encode(model: Transformer, batch, cfg: ModelConfig,
-            remat: bool = False):
+            remat: bool = False, ctx=None):
     """The encdec's encoder states (B, T_enc, D)."""
-    x = batch["enc_frames"].to(cfg.torch_dtype) @ model.enc_in
-    x = _encoder(model.enc_blocks, x, cfg, cfg.n_heads, remat)
+    x = batch["enc_frames"].to(cfg.torch_dtype) @ C.weight(ctx, model.enc_in)
+    x = _encoder(model.enc_blocks, x, cfg, cfg.n_heads, remat, ctx)
     return L.rms_norm(x, model.enc_norm, cfg.norm_eps)
 
 
 def _forward(model: Transformer, batch, cfg: ModelConfig, make_cache: bool,
              max_len: Optional[int] = None, last_only: bool = False,
-             remat: bool = False):
-    """(logits, aux, cache); ``remat`` (no cache) checkpoints each layer."""
-    x = _input_embeds(model, batch, cfg, remat)
+             remat: bool = False, ctx=None):
+    """(logits, aux, cache); ``remat`` (no cache) checkpoints each layer;
+    ``ctx`` (no cache) the mesh."""
+    x = _input_embeds(model, batch, cfg, remat, ctx)
     B, S, _ = x.shape
-    enc_out = _encode(model, batch, cfg, remat) \
+    enc_out = _encode(model, batch, cfg, remat, ctx) \
         if cfg.family == "encdec" else None
     cache = _alloc_cache(cfg, B, max(S, max_len or S), x.device,
                          None if enc_out is None else enc_out.shape[1]) \
@@ -304,7 +316,7 @@ def _forward(model: Transformer, batch, cfg: ModelConfig, make_cache: bool,
     if cfg.family == "ssm":
         for i, blk in enumerate(model.blocks):
             def layer(x, blk=blk, c=_layer(cache, i) if make_cache else None):
-                return _ssm_block(blk, x, cfg, cache=c)
+                return _ssm_block(blk, x, cfg, cache=c, ctx=ctx)
             x = _layers(layer, x, remat)
     elif cfg.family == "hybrid":
         mstack, kvs = cache if make_cache else (None, None)
@@ -312,10 +324,10 @@ def _forward(model: Transformer, batch, cfg: ModelConfig, make_cache: bool,
             def super_block(x, s=s, sup=sup):
                 for j, blk in enumerate(sup):
                     x = _ssm_block(blk, x, cfg, cache=_layer(mstack, s, j)
-                                   if make_cache else None)
+                                   if make_cache else None, ctx=ctx)
                 x, kv, _, _ = _dense_block(model.shared, x, cfg,
                                            cache={} if make_cache else None,
-                                           rope=rope)
+                                           rope=rope, ctx=ctx)
                 if make_cache:
                     kvs["kv"]["k"][s, :, :S] = kv["k"]
                     kvs["kv"]["v"][s, :, :S] = kv["v"]
@@ -325,7 +337,7 @@ def _forward(model: Transformer, batch, cfg: ModelConfig, make_cache: bool,
         for blk in model.blocks:
             def layer(x, blk=blk):
                 x, _, _, a = _dense_block(blk, x, cfg, rope=rope,
-                                          enc_out=enc_out)
+                                          enc_out=enc_out, ctx=ctx)
                 return x, a
             x, a = _layers(layer, x, remat)
             if a is not None:
@@ -342,19 +354,19 @@ def _forward(model: Transformer, batch, cfg: ModelConfig, make_cache: bool,
     if last_only:
         x = x[:, -1:]
     x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
-    return L.unembed(model.embed, x), aux, cache
+    return L.unembed(model.embed, x, ctx), aux, cache
 
 
 def train_logits(model: Transformer, batch, cfg: ModelConfig, *,
-                 remat: bool = False):
+                 remat: bool = False, ctx=None):
     """Full-sequence logits (float32) and the auxiliary loss: the sum of
     the MoE layers' load-balance terms, 0 for the other families.  With
     gradients enabled it records the graph for ``backward``; ``remat``
     recomputes each layer in the backward pass instead of keeping its
-    activations."""
+    activations; ``ctx``: the mesh, ``batch`` then this rank's shard."""
     cfg = cfg.validate()
     logits, aux, _ = _forward(model, batch, cfg, make_cache=False,
-                              remat=remat)
+                              remat=remat, ctx=ctx)
     return logits, aux
 
 
@@ -433,5 +445,8 @@ def _alloc_cache(cfg: ModelConfig, batch: int, max_len: int, dev,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None):
-    return _alloc_cache(cfg.validate(), batch, max_len,
-                        resolve_device(device, "init_cache"))
+    """Zeros of the family's cache layout (``device="meta"``: the shapes
+    alone)."""
+    dev = torch.device("meta") if str(device) == "meta" else \
+        resolve_device(device, "init_cache")
+    return _alloc_cache(cfg.validate(), batch, max_len, dev)

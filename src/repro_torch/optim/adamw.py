@@ -21,6 +21,7 @@ import dataclasses
 from typing import Callable, Dict, Mapping, Optional
 
 import torch
+import torch.distributed as dist
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,23 +52,38 @@ def init(params: Mapping[str, torch.Tensor]) -> Dict[str, object]:
 
 
 @torch.no_grad()
-def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
+def global_norm(tree: Mapping[str, torch.Tensor],
+                counted: Optional[Mapping[str, bool]] = None,
+                group=None) -> torch.Tensor:
+    """The norm of every leaf together.  On a mesh each rank passes its
+    shards, ``counted`` (name -> bool) says which it counts (a leaf
+    replicated over some mesh axes only on one rank of them) and the
+    squared sums are summed over ``group`` (the whole mesh)."""
     leaves = [x.float().square().sum() for x in tree.values()]
-    return torch.sqrt(torch.stack(leaves).sum())
+    if counted is not None:
+        leaves = [s if counted[n] else torch.zeros_like(s)
+                  for n, s in zip(tree, leaves)]
+    total = torch.stack(leaves).sum()
+    if group is not None and dist.get_world_size(group) > 1:
+        dist.all_reduce(total, group=group)
+    return torch.sqrt(total)
 
 
 @torch.no_grad()
 def update(grads: Mapping[str, torch.Tensor], state: Dict[str, object],
            params: Mapping[str, torch.Tensor], cfg: AdamWConfig,
-           decay: Mapping[str, bool]):
+           decay: Mapping[str, bool],
+           counted: Optional[Mapping[str, bool]] = None, group=None):
     """One step: ``state`` and ``params`` (the model's own tensors) are
     updated in place, leaf by leaf; ``decay`` (name -> bool) says which
     leaves take weight decay.  Returns (params, state, metrics) with
-    ``metrics = {"grad_norm", "lr"}``, as the reference returns them."""
+    ``metrics = {"grad_norm", "lr"}``, as the reference returns them.  On
+    a mesh the tensors are this rank's shards and the clipping norm is
+    the global one (``global_norm``'s ``counted`` and ``group``)."""
     step = state["step"] + 1
     lr = cfg.schedule(step) if cfg.schedule is not None else cfg.lr
 
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, counted, group)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0) if cfg.clip_norm > 0 else None
 

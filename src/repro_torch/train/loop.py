@@ -14,12 +14,22 @@ checkpointing, fault recovery, straggler accounting.
     implementation;
   * stragglers: a step longer than ``straggler_factor`` x the rolling
     median is counted;
-  * ``remesh(None)``: the single-device round trip of the whole state to
-    host memory and back.  A mesh waits for ``parallel/`` (ROADMAP A10).
+  * a mesh (``mesh``: a ``torch.distributed`` ``DeviceMesh`` with dims
+    ``data`` and ``model``, ``launch.mesh.make_mesh_for``): every rank
+    builds the whole seeded weights, as the meshless path does, and keeps
+    its shards (``parallel.sharding.param_pspecs``; at one rank the
+    tensors themselves, no copy); the step gathers, reduces and clips over
+    the mesh (``launch.steps``);
+  * elastic re-mesh: ``remesh(mesh)`` gathers the whole state to host
+    memory and re-slices it for the new mesh (or keeps it whole for
+    ``None``); ``save`` gathers the whole leaves and writes them in the
+    reference's layout from rank 0, ``restore`` re-slices them for the
+    current mesh, so a checkpoint restores on any mesh and in either
+    package.
 
 The model and its optimizer state live on ``device`` (the card unless the
-caller asks for the CPU); ``step_time_s`` ends in
-``torch.cuda.synchronize()`` on the card.
+caller asks for the CPU; on a NCCL mesh each rank's card); ``step_time_s``
+ends in ``torch.cuda.synchronize()`` on the card.
 """
 
 from __future__ import annotations
@@ -39,9 +49,9 @@ from ..launch import steps as steps_lib
 from ..models import init_params
 from ..models.config import ModelConfig
 from ..optim import adamw
-
-NO_MESH = ("a device mesh needs parallel/, which is not ported yet "
-           "(ROADMAP A10)")
+from ..parallel import collectives as coll
+from ..parallel import sharding as shard_rules
+from ..parallel.mesh_ctx import make_ctx
 
 
 @dataclasses.dataclass
@@ -63,8 +73,6 @@ class Trainer:
                  mesh=None, seed: int = 0,
                  fault_hook: Optional[Callable[[int], None]] = None,
                  device=None):
-        if mesh is not None:
-            raise NotImplementedError(NO_MESH)
         self.cfg = cfg
         self.shape = shape
         self.data = data
@@ -80,60 +88,133 @@ class Trainer:
         self._durations: List[float] = []
 
         self._init_state()
-        self._build()
         self.ckpt = (ckpt_lib.AsyncCheckpointer(tcfg.ckpt_dir)
                      if tcfg.ckpt_dir else None)
 
     # -- construction ---------------------------------------------------------
     def _init_state(self):
+        """Seeded whole weights, kept as this rank's shards, and AdamW's
+        state of the shards."""
         self.model = init_params(self.seed, self.cfg, device=self.device)
+        self._build()
+        with torch.no_grad():
+            for name, p in self.model.named_parameters():
+                p.data = self._place(name, p.data)
         self.opt_state = adamw.init(self.params)
 
     def _build(self):
+        """The mesh context, each parameter's spec and the step function
+        for ``self.mesh``."""
+        self.ctx = make_ctx(self.mesh)
+        self.specs = None
+        named = dict(self.model.named_parameters())
+        if self.mesh is not None:
+            whole = {n: getattr(p, "_whole", p) for n, p in named.items()}
+            self.specs = shard_rules.param_pspecs(
+                whole, shard_rules.make_parallel_cfg(self.mesh), self.cfg)
+        for name, p in named.items():
+            if not hasattr(p, "_whole"):
+                p._whole = torch.empty(p.shape, dtype=p.dtype,
+                                       device="meta")
+            p._spec = None if self.specs is None else self.specs[name]
         opt_cfg = adamw.AdamWConfig(lr=self.tcfg.lr)
         self._step_fn = steps_lib.make_train_step(
             self.cfg, opt_cfg, microbatches=self.tcfg.microbatches,
-            remat=self.tcfg.remat)
+            remat=self.tcfg.remat, ctx=self.ctx, specs=self.specs)
+
+    def _place(self, name: str, whole: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of the whole tensor ``whole`` of parameter
+        ``name`` (or of its optimizer state), on the trainer's device:
+        ``whole`` itself where nothing is split over more than one rank."""
+        spec = None if self.specs is None else self.specs[name]
+        part = coll.local_slice(whole, spec, self.ctx)
+        if part is not whole:
+            part = part.contiguous().clone()
+        return part.to(self.device)
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
         return dict(self.model.named_parameters())
 
+    def _whole(self, named: Dict[str, torch.Tensor]):
+        if self.specs is None:
+            return named
+        return {n: coll.gather_whole(t, self.specs[n], self.ctx)
+                for n, t in named.items()}
+
     def state_leaves(self) -> List[torch.Tensor]:
-        """The whole training state as the reference's flattened leaves."""
-        return ckpt_lib.state_leaves(self.params, self.opt_state, self.cfg)
+        """The whole training state as the reference's flattened leaves (on
+        a mesh every rank takes part in the gathers)."""
+        opt = {k: self._whole(self.opt_state[k])
+               for k in ("master", "m", "v")}
+        opt["step"] = self.opt_state["step"]
+        return ckpt_lib.state_leaves(self._whole(self.params), opt, self.cfg)
+
+    def _like(self) -> List[torch.Tensor]:
+        """Meta tensors shaped and typed as :meth:`state_leaves`."""
+        whole = {n: p._whole for n, p in self.model.named_parameters()}
+        f32 = {n: t.to(torch.float32) for n, t in whole.items()}
+        opt = {"master": f32, "m": f32, "v": f32,
+               "step": self.opt_state["step"].to("meta")}
+        return ckpt_lib.state_leaves(whole, opt, self.cfg)
+
+    def _load(self, leaves: List[torch.Tensor]) -> None:
+        """Whole leaves (in :meth:`state_leaves`' order) into this rank's
+        shards, in place; a tensor whose shard shape the mesh changed is
+        re-made first, one at a time."""
+        with torch.no_grad():
+            for name, p in self.model.named_parameters():
+                spec = None if self.specs is None else self.specs[name]
+                shape = coll.local_slice(p._whole, spec, self.ctx).shape
+                if p.shape != shape:
+                    p.data = torch.empty(shape, dtype=p.dtype,
+                                         device=self.device)
+                for key in ("master", "m", "v"):
+                    if self.opt_state[key][name].shape != shape:
+                        self.opt_state[key][name] = torch.empty(
+                            shape, dtype=torch.float32, device=self.device)
+        ckpt_lib.load_state_leaves(leaves, self.params, self.opt_state,
+                                   self.cfg, place=self._place)
+
+    def _rank0(self) -> bool:
+        return self.mesh is None or torch.distributed.get_rank() == 0
+
+    def _barrier(self):
+        if self.mesh is not None:
+            torch.distributed.barrier()
 
     # -- checkpoint/restore ---------------------------------------------------
     def save(self):
         if self.ckpt is None:
             return
-        self.ckpt.save(self.step, self.state_leaves(),
-                       extra={"data": self.data.state_dict(),
-                              "step": self.step})
+        leaves = self.state_leaves()
+        if self._rank0():
+            self.ckpt.save(self.step, leaves,
+                           extra={"data": self.data.state_dict(),
+                                  "step": self.step})
+        if self.mesh is not None:
+            # every rank restores what rank 0 wrote
+            self.ckpt.wait()
+            self._barrier()
 
     def restore(self) -> bool:
         if self.tcfg.ckpt_dir is None:
             return False
         if ckpt_lib.latest_step(self.tcfg.ckpt_dir) is None:
             return False
-        leaves, _, extra = ckpt_lib.restore(self.tcfg.ckpt_dir,
-                                            self.state_leaves())
-        ckpt_lib.load_state_leaves(leaves, self.params, self.opt_state,
-                                   self.cfg)
+        leaves, _, extra = ckpt_lib.restore(self.tcfg.ckpt_dir, self._like())
+        self._load(leaves)
         self.step = int(extra["step"])
         self.data.load_state_dict(extra["data"])
         return True
 
     def remesh(self, mesh) -> None:
-        """Elastic scaling: the state to host memory and back onto the
-        (single) device."""
-        if mesh is not None:
-            raise NotImplementedError(NO_MESH)
+        """Elastic scaling: the whole state to host memory, re-sliced for
+        ``mesh`` (kept whole for ``None``)."""
         host = [t.detach().to("cpu", copy=True) for t in self.state_leaves()]
         self.mesh = mesh
         self._build()
-        ckpt_lib.load_state_leaves(host, self.params, self.opt_state,
-                                   self.cfg)
+        self._load(host)
 
     # -- the loop ---------------------------------------------------------------
     def _sync(self):

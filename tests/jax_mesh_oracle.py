@@ -1,0 +1,139 @@
+"""The JAX package on 4 forced host devices: the oracle of the port's mesh
+tests, run in a subprocess (the test process has started JAX with one
+device).  ``python tests/jax_mesh_oracle.py <request.pkl> <answer.pkl>``:
+the request is a dict of jobs, the answer a dict of numpy results.
+
+Jobs:
+  * ``train``: [(arch, (dp, tp), step-0 checkpoint dir, TrainConfig
+    options)], seq, batch, lr: the reference ``Trainer`` on that mesh, 3
+    steps from a copy of the checkpoint (float32 smoke configs): losses,
+    grad norms, aux;
+  * ``moe``: the phi3.5-moe smoke layer's params, x, r, coef and
+    [(dp, tp), impl]: ``moe_ffn`` on the mesh, y, aux and the gradients of
+    ``sum(y * r) + coef * aux``;
+  * ``compress``: per-rank gradients: ``_ar_body`` with each device on its
+    own gradient (the public ``quantized_allreduce`` replicates its
+    input), the public call on rank 0's gradients, and ``ErrorFeedback``.
+"""
+
+import os
+import sys
+
+# one thread a device: the suite runs this beside other test workers
+os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=4 "
+                           "--xla_cpu_multi_thread_eigen=false "
+                           "intra_op_parallelism_threads=1")
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+
+import dataclasses  # noqa: E402
+import pickle  # noqa: E402
+import shutil  # noqa: E402
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+
+def _cfg(arch):
+    from repro.configs import get_config
+    return dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+
+
+def train(jobs, seq, batch, lr):
+    from repro.configs import ShapeSpec
+    from repro.data.synthetic import for_model
+    from repro.launch.mesh import make_mesh_for
+    from repro.train import TrainConfig, Trainer
+    out = {}
+    for arch, shape, src, kw in jobs:
+        cfg = _cfg(arch)
+        d = f"{src}_jax_{shape[0]}x{shape[1]}" + "".join(
+            f"_{k}{v}" for k, v in sorted(kw.items()))
+        shutil.copytree(src, d)
+        tr = Trainer(cfg, ShapeSpec("mesh", seq, batch, "train"),
+                     for_model(cfg, seq, batch),
+                     TrainConfig(total_steps=3, ckpt_dir=d, lr=lr, **kw),
+                     mesh=make_mesh_for(4, shape[1]))
+        tr.run()
+        out[(arch, tuple(shape), tuple(sorted(kw.items())))] = {
+            k: [m[k] for m in tr.metrics_log]
+            for k in ("loss", "grad_norm", "aux")}
+    return out
+
+
+def moe(params, x, r, coef, runs):
+    from repro.launch.mesh import make_mesh_for
+    from repro.models import moe as M
+    from repro.parallel.mesh_ctx import make_ctx
+    cfg = _cfg("phi3.5-moe-42b")
+    p = {k: jnp.asarray(v) for k, v in params.items()}
+    x, r = jnp.asarray(x), jnp.asarray(r)
+    out = {}
+    for shape, impl in runs:
+        ctx = make_ctx(make_mesh_for(4, shape[1]))
+        ctx = dataclasses.replace(ctx, use_shard_map_moe=False) \
+            if impl == "global" else dataclasses.replace(ctx, moe_impl=impl)
+
+        def f(p, x):
+            y, aux = M.moe_ffn(p, x, cfg, ctx)
+            return jnp.sum(y * r) + coef * aux, (y, aux)
+
+        (_, (y, aux)), (gp, gx) = jax.jit(jax.value_and_grad(
+            f, argnums=(0, 1), has_aux=True))(p, x)
+        out[(tuple(shape), impl)] = {
+            "y": np.asarray(y), "aux": float(aux), "x": np.asarray(gx),
+            "grads": {k: np.asarray(v) for k, v in gp.items()}}
+    return out
+
+
+def compress(grads_by_rank, rounds):
+    from functools import partial
+
+    from jax.sharding import PartitionSpec as P
+
+    from repro.launch.mesh import make_mesh_for
+    from repro.parallel import compress as Q
+    mesh = make_mesh_for(4, 1)
+    names = list(grads_by_rank[0])
+    flats = [np.concatenate([g[k].reshape(-1) for k in names])
+             for g in grads_by_rank]
+    size = flats[0].shape[0]
+    pad = (-size) % 4
+    stacked = np.concatenate([np.pad(f, (0, pad)) for f in flats])
+    each = jax.shard_map(partial(Q._ar_body, axis_name="data", n=4),
+                         mesh=mesh, in_specs=P("data"), out_specs=P("data"),
+                         check_vma=False)(jnp.asarray(stacked))
+    each = np.asarray(each).reshape(4, -1)[:, :size]
+    summed, off = {}, 0
+    for k in names:
+        n = grads_by_rank[0][k].size
+        summed[k] = each[0, off:off + n].reshape(grads_by_rank[0][k].shape)
+        off += n
+    g0 = {k: jnp.asarray(v) for k, v in grads_by_rank[0].items()}
+    public = Q.quantized_allreduce(g0, mesh, "data")
+    ef, fed = Q.ErrorFeedback(), []
+    for i in range(rounds):
+        fed.append({k: np.asarray(v) for k, v in ef.apply(
+            {k: g * (i + 1) for k, g in g0.items()}).items()})
+    return {"summed": summed, "ranks_agree": bool(
+        all(np.array_equal(each[0], e) for e in each)),
+        "public": {k: np.asarray(v) for k, v in public.items()},
+        "fed": fed}
+
+
+def main(req_path, out_path):
+    with open(req_path, "rb") as f:
+        req = pickle.load(f)
+    ans = {}
+    if "train" in req:
+        ans["train"] = train(*req["train"])
+    if "moe" in req:
+        ans["moe"] = moe(*req["moe"])
+    if "compress" in req:
+        ans["compress"] = compress(*req["compress"])
+    with open(out_path, "wb") as f:
+        pickle.dump(ans, f)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1], sys.argv[2])

@@ -15,13 +15,15 @@
 * The reference's system tests on the port's ``Trainer``: the loss falls
   over 25 steps at lr 1e-3, a checkpoint restart is bit-exact, an injected
   fault recovers, the async checkpointer round-trips, a partial step
-  directory is ignored, ``remesh(None)`` keeps the state.
+  directory is ignored, ``remesh(None)`` and a remesh onto a gloo (1, 1)
+  mesh keep the state.
 * Across packages: a checkpoint the JAX ``Trainer`` writes at step 4
   (float32 smoke) restores in the port's ``Trainer``, whose steps 5-6 match
   the reference's 6-step run at rtol 1e-4; the reference's
   ``ckpt.restore`` reads the port's checkpoint.
 * ``python -m repro_torch.launch.train --smoke --device cpu`` runs (and
-  with ``--arch mamba2-1.3b``); the training modules import without JAX;
+  with ``--arch mamba2-1.3b``, and with ``--model-parallel 2`` in one
+  process, without a mesh); the training modules import without JAX;
   the ssm and hybrid families train on the port's ``Trainer`` with a
   falling loss; ``chip_smoke.train_launches`` counts a step's attention
   and SSD scan calls.
@@ -418,14 +420,32 @@ def test_checkpoint_atomicity(tmp_path):
         ckpt.restore(str(tmp_path), [torch.zeros(5)])
 
 
-def test_elastic_remesh_single_device():
+def test_elastic_remesh_single_device(tmp_path):
+    """``remesh(None)`` and onto a gloo (1, 1) mesh keep every leaf, and
+    the trainer steps on after it."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh_for
     tr = _trainer(None, steps_=2)
     tr.run()
     before = [t.detach().clone() for t in tr.state_leaves()]
     tr.remesh(None)
     assert all(torch.equal(a, b) for a, b in zip(before, tr.state_leaves()))
-    with pytest.raises(NotImplementedError):
-        tr.remesh(object())
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        tr.remesh(make_mesh_for(1, 1, "cpu"))
+        assert tr.mesh is not None
+        assert all(torch.equal(a, b)
+                   for a, b in zip(before, tr.state_leaves()))
+        tr.tcfg.total_steps = 3
+        tr.run()
+        assert tr.step == 3 and np.isfinite(tr.metrics_log[-1]["loss"])
+    finally:
+        dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------
@@ -567,11 +587,8 @@ def test_launcher_trains_without_jax():
         "            '--steps', '3', '--seq', '16', '--batch', '2'])",
         "train.main(['--arch', 'mamba2-1.3b', '--smoke', '--device', 'cpu',",
         "            '--steps', '3', '--seq', '16', '--batch', '2'])",
-        "try:",
-        "    train.main(['--smoke', '--device', 'cpu',",
-        "                '--model-parallel', '2'])",
-        "except NotImplementedError:",
-        "    print('mesh refused')",
+        "train.main(['--smoke', '--device', 'cpu', '--model-parallel', '2',",
+        "            '--steps', '3', '--seq', '16', '--batch', '2'])",
         "bad = [m for m in sys.modules if m == 'repro' or",
         "       m.startswith(('repro.', 'jax.', 'jaxlib'))]",
         "assert not bad, bad",
@@ -583,7 +600,9 @@ def test_launcher_trains_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     lines = out.stdout.splitlines()
-    for line in lines[:2]:
+    # one process: --model-parallel 2 trains without a mesh, as the
+    # reference does on one device
+    assert len(lines) == 3
+    for line in lines:
         assert line.startswith("final loss ") and \
             line.endswith("after 3 steps (stragglers=0, recoveries=0)")
-    assert lines[2] == "mesh refused"
