@@ -231,7 +231,14 @@ window's kernel count and where the kernel kind sits among them.
                the same launches and a peak within 10%, the MoE's "tp"
                placement at a phi3.5-moe layer's widths bit-equal to the
                meshless layer, ``quantized_allreduce`` and
-               ``ErrorFeedback`` on the card bit-equal to the CPU.
+               ``ErrorFeedback`` on the card bit-equal to the CPU; then
+               serving on the same (1, 1) mesh (``mesh_serve``):
+               qwen2.5-3b at full width through ``Engine(ctx=...)`` on the
+               launcher's traffic, tokens and kernel launches equal to the
+               meshless engine's, the steps' caches bit-equal; and the dry
+               run of whisper-tiny x decode_32k (``python -m
+               repro_torch.launch.dryrun``, a fake process group of 256
+               ranks) in a subprocess that sees no card.
   6c. train_ssm - (``train_ssm_phase``, right after 6b) the ssd_scan
                backward (``csrc/ssd_scan_bwd.cu`` on the tensor cores: bf16
                design ``mma``, float32 ``mma3``; the walks where there is
@@ -3492,7 +3499,9 @@ def mesh_phase(torch, dev) -> None:
     128 tokens): y, aux and every gradient bit-equal to the meshless
     layer.  (c) ``quantized_allreduce`` and two ``ErrorFeedback`` rounds
     over the gradients of the 2-layer qwen2.5-3b cut on the card, bit-equal
-    to the same calls on CPU tensors (the group's gloo half); times."""
+    to the same calls on CPU tensors (the group's gloo half); times.  (d)
+    serving on the mesh (``mesh_serve``) and the dry run of one cell in a
+    subprocess, started first (``dryrun_start``)."""
     import datetime
     import shutil
     import tempfile
@@ -3505,9 +3514,12 @@ def mesh_phase(torch, dev) -> None:
         world_size=1, timeout=datetime.timedelta(seconds=120))
     try:
         mesh = make_mesh_for(1, 1, "cuda")
+        dry = dryrun_start()
         mesh_train(torch, dev, mesh)
         mesh_moe(torch, dev, mesh)
         mesh_compress(torch, dev, mesh)
+        mesh_serve(torch, dev, mesh)
+        dryrun_check(dry)
     finally:
         dist.destroy_process_group()
         shutil.rmtree(d, ignore_errors=True)
@@ -3658,8 +3670,230 @@ def mesh_compress(torch, dev, mesh) -> None:
     del grads, host, on_cpu, on_card, flat
 
 
+# the serving path's kernel launches on the (1, 1) mesh (``mesh_serve``),
+# added to the serving phases' in the kernels line
+MESH_SERVE_LAUNCHES = {}
+DRYRUN_CELL = ("whisper-tiny", "decode_32k")
+# the reference's figure for DRYRUN_CELL on 16 x 16: the cache's shard
+DRYRUN_ALIASED = 105_271_296
+
+
+def dryrun_start():
+    """The dry run of DRYRUN_CELL in a subprocess with no card visible
+    (``CUDA_VISIBLE_DEVICES`` empty): (process, its JSON path, start)."""
+    import os
+    import tempfile
+    out = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_")) / "cell.json"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         DRYRUN_CELL[0], "--shape", DRYRUN_CELL[1], "--json", str(out)],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    return proc, out, time.perf_counter()
+
+
+def dryrun_check(dry) -> None:
+    """The dry run's exit code 0, its 256 devices and the reference's
+    aliased bytes; emits its figures."""
+    import shutil
+    proc, out, t0 = dry
+    try:
+        log, _ = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise SmokeFailure("the dry run took more than 300 s")
+    wall = time.perf_counter() - t0
+    need(proc.returncode == 0, f"the dry run exited {proc.returncode}: "
+         f"{log[-2000:]}")
+    (r,) = json.loads(out.read_text())
+    shutil.rmtree(out.parent, ignore_errors=True)
+    d = r["deploy"]
+    need(r["n_devices"] == 256 and d["per_device_bytes"]["aliased"]
+         == DRYRUN_ALIASED, f"dry run: {r['n_devices']} devices, aliased "
+         f"{d['per_device_bytes']['aliased']}")
+    emit({"phase": "mesh_dryrun", "arch": r["arch"], "shape": r["shape"],
+          "n_devices": r["n_devices"], "mesh": r["mesh"],
+          "per_device_bytes": d["per_device_bytes"],
+          "collective_bytes": d["collective_bytes"],
+          "collective_counts": d["collective_counts"], "flops": d["flops"],
+          "fake_run_s": d["compile_s"], "subprocess_wall_s": wall,
+          "last_line": log.strip().splitlines()[-1]})
+
+
+def mesh_serve(torch, dev, mesh) -> None:
+    """Serving on the (1, 1) mesh: qwen2.5-3b at full width (36 layers,
+    bf16, seed 0) placed on the mesh (``place_model``: nothing sliced at
+    one rank), ``Engine(ctx=...)`` on the launcher's traffic against the
+    meshless ``Engine`` on the same requests (the counts reset just before
+    each run and read just after): every token equal and the same
+    launches of each kernel; ``make_prefill_step`` and 3
+    ``make_serve_step``s on 2 prompts of 128 tokens with and without the
+    mesh: tokens and every cache leaf bit-equal.  The meshed run's
+    launches go to MESH_SERVE_LAUNCHES."""
+    import numpy as np
+    from repro_torch import _build
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import init_params
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel.mesh_ctx import make_ctx
+    from repro_torch.parallel.sharding import map_leaves
+    from repro_torch.serving import Engine, Request, ServeConfig
+    cfg = get_config(TRAIN_ARCH)
+    t0 = time.perf_counter()
+    model = init_params(0, cfg, device=dev)
+    ctx = make_ctx(mesh)
+    rows = {}
+    for name, c in (("meshless", None), ("mesh", ctx)):
+        if c is not None:
+            coll.place_model(model, cfg, c)
+        eng = Engine(cfg, model, ServeConfig(), device=dev, ctx=c)
+        for r in launcher_traffic(Request, cfg.vocab):
+            eng.submit(r)
+        torch.cuda.synchronize()
+        _build.reset_counts()
+        t1 = time.perf_counter()
+        outs = eng.run()
+        torch.cuda.synchronize()
+        rows[name] = {"wall_s": time.perf_counter() - t1,
+                      "launches": dict(_build.launches),
+                      "tokens": {k: v.tolist() for k, v in outs.items()}}
+    launches = rows["mesh"]["launches"]
+    need(rows["mesh"]["tokens"] == rows["meshless"]["tokens"],
+         "Engine on the (1, 1) mesh: tokens differ from the meshless run")
+    need(launches == rows["meshless"]["launches"]
+         and launches.get("flash_attention", 0) > 0
+         and launches.get("paged_attention", 0) > 0,
+         f"Engine on the (1, 1) mesh launched {launches}, the meshless "
+         f"engine {rows['meshless']['launches']}")
+    MESH_SERVE_LAUNCHES.update(launches)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        1, cfg.vocab, size=(2, 128)).astype(np.int32)).to(dev)
+    got = []
+    for c in (None, ctx):
+        tok, cache = steps.make_prefill_step(cfg, c, 256)(
+            model, {"tokens": toks})
+        out = [tok]
+        for i in range(3):
+            tok, cache = steps.make_serve_step(cfg, c)(model, tok, cache,
+                                                       128 + i)
+            out.append(tok)
+        leaves = []
+        map_leaves(leaves.append, cache)
+        got.append(out + leaves)
+    need(all(torch.equal(a, b) for a, b in zip(*got)),
+         "the serving steps on the (1, 1) mesh: tokens or caches differ "
+         "from the meshless steps")
+    emit({"phase": "mesh_serve", "model": cfg.name, "mesh": [1, 1],
+          "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+          "requests": len(rows["mesh"]["tokens"]),
+          "tokens_bit_equal": True, "steps_caches_bit_equal": True,
+          "launches": launches, "wall_s": rows["mesh"]["wall_s"],
+          "meshless_wall_s": rows["meshless"]["wall_s"],
+          "phase_s": time.perf_counter() - t0})
+    del model, got
+    torch.cuda.empty_cache()
+
+
 MESH4_SHAPES = ((2, 2), (4, 1))
 MESH4_TOL = 2e-2                # bf16: the cuts' loss tolerance
+# meshed serving on four cards: B prompts of PROMPT tokens, a cache of
+# MAX_LEN, STEPS teacher-forced decode steps; float32 logits within
+# LOGIT_TOL of one card's meshless run, relative to the logit scale
+MESH4_B, MESH4_PROMPT, MESH4_MAX_LEN, MESH4_STEPS = 4, 64, 128, 16
+MESH4_LOGIT_TOL = 1e-4
+
+
+def mesh4_tokens(vocab: int):
+    """The prompts (B, PROMPT) and the forced decode inputs (B, STEPS)."""
+    import numpy as np
+    rng = np.random.default_rng(4)
+    return (rng.integers(1, vocab, size=(MESH4_B, MESH4_PROMPT)),
+            rng.integers(1, vocab, size=(MESH4_B, MESH4_STEPS)))
+
+
+def mesh4_serve(torch, dev, dtype: str, ctx=None) -> dict:
+    """qwen2.5-3b at full width in ``dtype`` (seed 0), placed on ``ctx``'s
+    mesh: a prefill of the prompts into a MAX_LEN cache, then STEPS decode
+    steps fed the forced tokens.  Every step's logits (all rows, gathered
+    over the data axes, float32 numpy), and this rank's bytes of its
+    weight and cache shards: as tensors (and their number), and as the
+    growth over building the shards and the prefill of the caching
+    allocator's requested bytes and of ``torch.cuda.memory_allocated()``
+    (whole blocks)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import local_batch
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel.sharding import map_leaves
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), dtype=dtype).validate()
+    prompts, forced = mesh4_tokens(cfg.vocab)
+    meshed = ctx is not None and ctx.active
+
+    def rows(t):
+        return local_batch({"t": t}, ctx)["t"] if meshed else t
+
+    def whole(t):
+        return coll.gathered(t, 0, ctx.group(ctx.dp)) if meshed else t
+
+    for dt in (torch.float32, torch.bfloat16):      # the cuBLAS workspaces
+        torch.ones(8, 8, device=dev, dtype=dt) @ torch.ones(
+            8, 8, device=dev, dtype=dt)
+    def mem():
+        torch.cuda.synchronize(dev)
+        return (torch.cuda.memory_stats(dev)["requested_bytes.all.current"],
+                torch.cuda.memory_allocated(dev))
+
+    m0 = mem()
+    model = init_params(0, cfg, device=dev)
+    if meshed:
+        coll.place_model(model, cfg, ctx)
+    m1 = mem()
+    batch = {"tokens": rows(torch.from_numpy(prompts).to(
+        device=dev, dtype=torch.int32))}
+    logits, cache = prefill(model, batch, cfg, max_len=MESH4_MAX_LEN, ctx=ctx)
+    out = [whole(logits).float().cpu().numpy()]
+    del logits, batch
+    m2 = mem()
+    leaves = []
+    map_leaves(leaves.append, cache)
+    held = list(model.parameters()) + leaves
+    n_held = len(held)
+    held = sum(t.numel() * t.element_size() for t in held)
+    forced_dev = rows(torch.from_numpy(forced).to(device=dev,
+                                                  dtype=torch.int32))
+    for i in range(MESH4_STEPS):
+        lg, cache = decode_step(model, forced_dev[:, i:i + 1], cache,
+                                MESH4_PROMPT + i, cfg, ctx=ctx)
+        out.append(whole(lg).float().cpu().numpy())
+    del model, cache, leaves, lg
+    torch.cuda.empty_cache()
+    return {"logits": out, "shards": n_held, "shard_bytes": held,
+            "requested_bytes": m2[0] - m0[0],
+            "allocated_bytes": m2[1] - m0[1],
+            "weights_allocated_bytes": m1[1] - m0[1]}
+
+
+def mesh4_dry_arguments(shape) -> dict:
+    """The dry run of the float32 qwen2.5-3b decode step (B, MAX_LEN) on a
+    ``shape`` mesh, rank 0, over a fake group in this process (destroyed
+    after): its per_device_bytes and input bytes."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch import dryrun
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), dtype="float32")
+    try:
+        r = dryrun.lower_cell(
+            cfg, ShapeSpec("mesh4_decode", MESH4_MAX_LEN, MESH4_B, "decode"),
+            False, verbose=False, mesh_shape=shape)
+    finally:
+        dist.destroy_process_group()
+    return {k: r["deploy"][k] for k in ("per_device_bytes", "input_bytes")}
 
 
 def mesh4_phase(torch) -> None:
@@ -3671,7 +3905,13 @@ def mesh4_phase(torch) -> None:
     losses and grad norms within MESH4_TOL of the meshless run's (the
     summation order of the reduce-scatters and all-reduces is not the
     meshless one), every rank's peak memory, the step time (median of
-    steps 2-3) and, on rank 0, the NCCL kernels of a profiled step."""
+    steps 2-3) and, on rank 0, the NCCL kernels of a profiled step.  Then
+    serving (``mesh4_serve``), float32 and bf16, one card meshless and the
+    four ranks on (2, 2) and (4, 1): the float32 logits of the prefill and
+    of 16 teacher-forced decode steps within MESH4_LOGIT_TOL
+    (``mesh4_serve_checks``), and each rank's weight and cache shards
+    equal to the dry run's arguments for that mesh and the decode shape
+    (``mesh4_dry_arguments``), less the token and pos bytes."""
     import shutil
     import tempfile
     need(torch.cuda.device_count() >= 4, "--only mesh4 needs four cards")
@@ -3689,13 +3929,18 @@ def mesh4_phase(torch) -> None:
     emit({"phase": "mesh4_meshless", "model": cfg.name, **ref})
     del tr
     torch.cuda.empty_cache()
+    serve_ref = {dt: mesh4_serve(torch, torch.device("cuda:0"), dt)
+                 for dt in ("float32", "bfloat16")}
+    dry = {shape: mesh4_dry_arguments(shape) for shape in MESH4_SHAPES}
     d = tempfile.mkdtemp(prefix="chip_smoke_mesh4_")
     try:
         torch.multiprocessing.start_processes(
             mesh4_rank, args=(d,), nprocs=4, start_method="spawn", join=True)
         rows = json.loads(Path(d, "rows.json").read_text())
+        served = torch.load(Path(d, "served.pt"), weights_only=False)
     finally:
         shutil.rmtree(d, ignore_errors=True)
+    mesh4_serve_checks(serve_ref, served, dry)
     for row in rows:
         for k in ("losses", "grad_norms"):
             err = max(abs(a - b) / abs(b) for a, b in zip(row[k], ref[k]))
@@ -3762,10 +4007,75 @@ def mesh4_rank(rank: int, d: str) -> None:
                 "rank0_nccl_ms_by_kernel": nccl})
             del tr
             torch.cuda.empty_cache()
+        served = mesh4_rank_serve(torch, dev)
         if rank == 0:
             Path(d, "rows.json").write_text(json.dumps(rows))
+            torch.save(served, Path(d, "served.pt"))
     finally:
         dist.destroy_process_group()
+
+
+def mesh4_rank_serve(torch, dev) -> dict:
+    """One rank's meshed serving (``mesh4_serve``) on each mesh shape in
+    float32 and bf16: {(dtype, shape): the logits, and every rank's bytes
+    (gathered)}."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.parallel.mesh_ctx import make_ctx
+    out = {}
+    for shape in MESH4_SHAPES:
+        ctx = make_ctx(make_mesh_for(4, shape[1], "cuda"))
+        for dt in ("float32", "bfloat16"):
+            r = mesh4_serve(torch, dev, dt, ctx)
+            sizes = torch.tensor([r["shard_bytes"], r["requested_bytes"],
+                                  r["allocated_bytes"],
+                                  r["weights_allocated_bytes"],
+                                  r["shards"]],
+                                 dtype=torch.int64, device=dev)
+            every = [torch.zeros_like(sizes) for _ in range(4)]
+            dist.all_gather(every, sizes)
+            r["by_rank"] = [t.tolist() for t in every]
+            out[(dt, shape)] = r
+    return out
+
+
+def mesh4_serve_checks(ref: dict, served: dict, dry: dict) -> None:
+    """Every step's float32 logits on each mesh within MESH4_LOGIT_TOL of
+    one card's meshless run, relative to its logit scale (the bf16
+    distance reported), and every rank's weight and cache shards, as
+    tensors and as the allocator's requested bytes, equal to the dry
+    run's arguments less the token and pos bytes.  The growth of
+    ``memory_allocated`` counts whole blocks: the allocator rounds a
+    request up to 512 bytes and leaves a cached block unsplit when the
+    rest would be 1 MiB or less, so it may exceed that by as much a
+    tensor, and no more."""
+    import numpy as np
+    for (dt, shape), r in sorted(served.items()):
+        errs = [float(np.abs(a - b).max() / np.abs(b).max())
+                for a, b in zip(r["logits"], ref[dt]["logits"])]
+        args = dry[shape]["input_bytes"]
+        want = args["params"] + args["cache"]
+        row = {"phase": "mesh4_serve", "model": TRAIN_ARCH, "dtype": dt,
+               "mesh": list(shape), "ranks": 4, "batch": MESH4_B,
+               "prompt": MESH4_PROMPT, "max_len": MESH4_MAX_LEN,
+               "decode_steps": MESH4_STEPS,
+               "logit_rel_err_by_step": errs, "logit_rel_err_max": max(errs),
+               "by_rank_shard_requested_allocated_weights_shards":
+                   r["by_rank"],
+               "dry_run_per_device_bytes": dry[shape]["per_device_bytes"],
+               "dry_run_input_bytes": args,
+               "dry_run_arguments_less_tokens_pos": want}
+        emit(row)
+        if dt == "float32":
+            need(max(errs) <= MESH4_LOGIT_TOL,
+                 f"meshed serving on {shape}: logits {max(errs)} from the "
+                 f"meshless run's, relative to their scale")
+            need(all(b[0] == b[1] == want
+                     and 0 <= b[2] - want <= b[4] * (2**20 + 512)
+                     for b in r["by_rank"]),
+                 f"meshed serving on {shape}: shard, requested and "
+                 f"allocated bytes by rank {r['by_rank']}, the dry run's "
+                 f"arguments less tokens and pos {want}")
 
 
 def train_phase(torch, dev, flush, parent_dir=None):
@@ -5259,6 +5569,8 @@ def main(argv=None) -> int:
         serve_launches[k] = serve_launches.get(k, 0) + n
     family_launches, _ = families_phase(torch, dev, flush)
     for k, n in family_launches.items():
+        serve_launches[k] = serve_launches.get(k, 0) + n
+    for k, n in MESH_SERVE_LAUNCHES.items():
         serve_launches[k] = serve_launches.get(k, 0) + n
     torch.cuda.empty_cache()
 

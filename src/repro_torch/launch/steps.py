@@ -1,17 +1,21 @@
-"""The training step and the sharding of a cell (the port of the JAX
-package's ``launch/steps.py``): the loss, ``make_train_step``, the input
-specs (meta tensors in the reference's tree layout) and
-``shardings_for``.
+"""The step builders and the sharding of a cell (the port of the JAX
+package's ``launch/steps.py``): the loss, ``make_train_step``,
+``make_prefill_step`` and ``make_serve_step``, the input specs (meta
+tensors in the reference's tree layout), ``shardings_for`` and each
+rank's shard of the inputs (``local_inputs``).
 
-On a mesh (``ctx``, a ``parallel.MeshCtx``) a step takes the global batch,
-keeps this rank's rows (split over the data axes where they divide it,
-else whole on every rank), and each rank's objective is its mean loss over
-the data ranks plus the aux term; the gradients of leaves replicated over
-the data axes are summed over them (those split over ``data`` were summed
-by their gathers' reduce-scatter), the global norm counts each replicated
-leaf once, AdamW updates the local shards, and the metrics are the same on
-every rank.  At a mesh of one rank every collective is skipped and the
-step is the meshless one bit for bit.
+On a mesh (``ctx``, a ``parallel.MeshCtx``) the train step takes the
+global batch, keeps this rank's rows (split over the data axes where they
+divide it, else whole on every rank), and each rank's objective is its
+mean loss over the data ranks plus the aux term; the gradients of leaves
+replicated over the data axes are summed over them (those split over
+``data`` were summed by their gathers' reduce-scatter), the global norm
+counts each replicated leaf once, AdamW updates the local shards, and the
+metrics are the same on every rank.  The serving steps take this rank's
+shards (the batch's rows, the tokens, the cache: ``local_inputs``'
+shapes) and return this rank's argmax tokens and cache.  At a mesh of one
+rank every collective is skipped and each step is the meshless one bit
+for bit.
 """
 
 from __future__ import annotations
@@ -23,7 +27,8 @@ import torch.distributed as dist
 
 from ..configs import ShapeSpec
 from ..convert import jax_leaf_order, stack_shape
-from ..models import Transformer, init_cache, train_logits
+from ..models import (Transformer, decode_step, init_cache, prefill,
+                      train_logits)
 from ..models.config import ModelConfig
 from ..optim import adamw
 from ..parallel import collectives as coll
@@ -146,8 +151,32 @@ def shardings_for(cfg: ModelConfig, shape: ShapeSpec, mesh,
     raise ValueError(shape.kind)
 
 
+def local_inputs(cfg: ModelConfig, shape: ShapeSpec, mesh,
+                 pcfg: Optional[shard_rules.ParallelConfig] = None
+                 ) -> Dict[str, Any]:
+    """Each rank's shard of every input of the cell's step, as meta
+    tensors in ``input_specs``' trees: each leaf's shape divided as its
+    spec in ``shardings_for`` splits it (the same on every rank).
+    ``mesh``: a ``DeviceMesh`` or ``{axis: size}``."""
+    specs = input_specs(cfg, shape)
+    in_sh, _ = shardings_for(cfg, shape, mesh, pcfg)
+    sizes = shard_rules.axis_sizes(mesh)
+    return {name: shard_rules.map_leaves(
+        lambda t, named: _meta(shard_rules.shard_shape(
+            t.shape, named.spec, sizes), t.dtype), specs[name], sh)
+        for name, sh in zip(specs, in_sh)}
+
+
+def tree_bytes(tree) -> int:
+    """The bytes of every tensor of a tree (meta tensors included)."""
+    out = []
+    shard_rules.map_leaves(
+        lambda t: out.append(t.numel() * t.element_size()), tree)
+    return sum(out)
+
+
 # ---------------------------------------------------------------------------
-# Loss and step.
+# Loss and steps.
 # ---------------------------------------------------------------------------
 
 def loss_fn(model, batch, cfg: ModelConfig, *, remat: bool = False,
@@ -271,3 +300,25 @@ def make_train_step(cfg: ModelConfig,
         return model, opt_state, {"loss": loss, "aux": aux, **om}
 
     return train_step
+
+
+def make_prefill_step(cfg: ModelConfig, ctx=None,
+                      max_len: Optional[int] = None):
+    """``prefill_step(model, batch) -> (tokens (B, 1) int32, cache)``: the
+    argmax of the last position's logits and the cache padded to
+    ``max_len``; on a mesh (``ctx``) ``batch`` is this rank's rows and the
+    tokens and cache this rank's shards."""
+    def prefill_step(model, batch):
+        logits, cache = prefill(model, batch, cfg, max_len=max_len, ctx=ctx)
+        return logits.argmax(dim=-1, keepdim=True).to(torch.int32), cache
+    return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig, ctx=None):
+    """``serve_step(model, tokens, cache, pos) -> (tokens, cache)``: one
+    decode step at write position ``pos`` and the argmax of its logits;
+    on a mesh ``tokens`` and ``cache`` are this rank's shards."""
+    def serve_step(model, tokens, cache, pos):
+        logits, cache = decode_step(model, tokens, cache, pos, cfg, ctx=ctx)
+        return logits.argmax(dim=-1, keepdim=True).to(torch.int32), cache
+    return serve_step

@@ -14,14 +14,20 @@ Conventions:
     kernel alone, and with gradients enabled it goes through the
     autograd Function of ``kernels/flash_attention/ops.py`` (the forward
     kernel with its log-sum-exp, then the backward kernels);
-  * on a mesh (``ctx``, a ``parallel.MeshCtx``; training only) each
-    weight is read through ``collectives.weight`` (its FSDP dims gathered)
-    and a block runs tensor-parallel over ``model`` where its weights are
-    split there (``collectives.tp_region``): column-parallel ``wq``/``wk``/
-    ``wv``, ``w_gate``/``w_up`` on local heads or columns behind
-    ``copy_to``, row-parallel ``wo``/``w_down`` summed by ``reduce_from``,
-    the vocabulary split for ``tok`` and ``unembed``; elsewhere the weights
-    are gathered whole and the op is the meshless one;
+  * on a mesh (``ctx``, a ``parallel.MeshCtx``; training and serving)
+    each weight is read through ``collectives.weight`` (its FSDP dims
+    gathered) and a block runs tensor-parallel over ``model`` where its
+    weights are split there (``collectives.tp_region``): column-parallel
+    ``wq``/``wk``/``wv``, ``w_gate``/``w_up`` on local heads or columns
+    behind ``copy_to``, row-parallel ``wo``/``w_down`` summed by
+    ``reduce_from``, the vocabulary split for ``tok`` and ``unembed``;
+    elsewhere the weights are gathered whole and the op is the meshless
+    one.  A serving cache on a mesh is this rank's shard in the layout
+    ``sharding.kv_layout`` gives (``ctx.kv_mode``): split by KV heads, the
+    attention runs on the local heads (tensor-parallel) against it; split
+    by head dim, or replicated, the attention computes every head (its
+    weights gathered whole), writes its part of the new K/V and, split,
+    all-gathers the layer's cache before the kernel reads it;
   * KV caches are dicts ``{"k": (B, max_len, KV, hd), "v": ...}`` per
     layer.  Decode writes the new token's K/V into the cache in place (the
     JAX code returns an updated copy; the values are the same) and reads it
@@ -42,6 +48,7 @@ from ..kernels.flash_attention.ops import (flash_attention,
                                            flash_attention_trainable)
 from ..kernels.paged_attention.ops import paged_decode_attention
 from ..parallel import collectives as C
+from ..parallel.sharding import kv_layout
 from .config import ModelConfig
 
 DECODE_PAGE = 16          # tokens per page of the decode view of a cache
@@ -184,15 +191,15 @@ def attention(p: Attention, x, cfg: ModelConfig, *,
     dim).  ``rope`` (:func:`rope_tables` of the positions, at this head
     dim) and ``pages`` (:func:`decode_pages`' table and lengths) are built
     here when not given; a forward pass builds them once for all its
-    layers.  ``ctx``: the mesh (training), on which the block runs on its
-    local heads when ``wq``/``wk``/``wv`` (columns) and ``wo`` (rows) are
-    split over ``model`` at head boundaries.
+    layers.  ``ctx``: the mesh, on which the block runs on its local heads
+    when ``wq``/``wk``/``wv`` (columns) and ``wo`` (rows) are split over
+    ``model`` at head boundaries and a cache, if any, is split by heads;
+    a cache is this rank's shard (``kv_split``).
     """
     B, S, _ = x.shape
     hd = hd or cfg.hd
-    tp = C.tp_region(ctx, (p.wq, 1), (p.wk, 1), (p.wv, 1), (p.wo, 0),
-                     (p.bq, 0), (p.bk, 0), (p.bv, 0)) \
-        and p.wq.shape[1] % hd == 0 and p.wk.shape[1] % hd == 0
+    tp, cdim = kv_split(ctx, cfg, kv_cache is not None,
+                        heads_split(ctx, p, hd))
     col, row = (1, 0) if tp else (None, None)
     if tp:
         group = ctx.group(ctx.tp)
@@ -225,17 +232,28 @@ def attention(p: Attention, x, cfg: ModelConfig, *,
         if S != 1:
             raise ValueError(f"decode takes one token per step, got {S}")
         kc, vc = kv_cache["k"], kv_cache["v"]
-        kc[:, pos] = k[:, 0]
-        vc[:, pos] = v[:, 0]
+        if cdim is None:
+            kc[:, pos] = k[:, 0]
+            vc[:, pos] = v[:, 0]
+        else:       # write this rank's part, read the layer's whole cache
+            tg = ctx.group(ctx.tp)
+            kc[:, pos] = C.own_chunk(k[:, 0], cdim - 1, tg)
+            vc[:, pos] = C.own_chunk(v[:, 0], cdim - 1, tg)
+            kc, vc = C.gathered(kc, cdim, tg), C.gathered(vc, cdim, tg)
         Bc, max_len = kc.shape[:2]
         table, lengths = pages if pages is not None else decode_pages(
             Bc, max_len, pos, x.device)
         pool = (Bc * max_len // DECODE_PAGE, DECODE_PAGE, KV, hd)
         out = paged_decode_attention(q, kc.view(pool), vc.view(pool), table,
                                      lengths, softcap=cfg.logit_softcap)
-        return out.reshape(B, S, H * hd) @ p.wo, kv_cache
+        out = out.reshape(B, S, H * hd) @ C.weight(ctx, p.wo, row)
+        return (C.reduce_from(out, group) if tp else out), kv_cache
 
-    new_cache = {"k": k, "v": v} if kv_cache is not None else None
+    new_cache = None
+    if kv_cache is not None:
+        new_cache = {"k": k, "v": v} if cdim is None else {
+            "k": C.own_chunk(k, cdim, ctx.group(ctx.tp)),
+            "v": C.own_chunk(v, cdim, ctx.group(ctx.tp))}
     attend = flash_attention_trainable if torch.is_grad_enabled() \
         else flash_attention
     out = attend(q, k, v, causal=causal, softcap=cfg.logit_softcap)
@@ -243,6 +261,28 @@ def attention(p: Attention, x, cfg: ModelConfig, *,
     if tp:
         out = C.reduce_from(out, group)
     return out, new_cache
+
+
+def heads_split(ctx, p: Attention, hd: int) -> bool:
+    """Whether ``p``'s weights are split over ``model`` at head
+    boundaries (columns of ``wq``/``wk``/``wv``, rows of ``wo``)."""
+    return C.tp_region(ctx, (p.wq, 1), (p.wk, 1), (p.wv, 1), (p.wo, 0),
+                       (p.bq, 0), (p.bk, 0), (p.bv, 0)) \
+        and p.wq.shape[1] % hd == 0 and p.wk.shape[1] % hd == 0
+
+
+def kv_split(ctx, cfg: ModelConfig, cached: bool, tp_ok: bool):
+    """(tp, cdim) of an attention on a mesh: whether it runs on its local
+    heads (``tp_ok``: its weights allow it; a cache, if ``cached``, split
+    by heads too), and the dim of a (B, T, KV, hd) cache that is split
+    over ``model`` while the attention computes every head (2 for heads,
+    3 for the head dim), else None."""
+    if not cached or ctx is None or not ctx.active or ctx.tp_size == 1:
+        return tp_ok, None
+    layout = kv_layout(cfg, ctx.kv_mode, ctx.tp_size)
+    if tp_ok and layout == "heads":
+        return True, None
+    return False, {"heads": 2, "head_dim": 3}.get(layout)
 
 
 # ---------------------------------------------------------------------------

@@ -10,14 +10,14 @@ prefill run the SSD scan through the autograd Function
 on the CPU); decode runs the one-token recurrence ``ssd_decode_step`` as
 torch ops, as the reference does.
 
-On a mesh (``ctx``; training) the block runs on its local heads where
-``z_proj``, ``x_proj``, ``conv_x`` (channels) and ``out_proj`` (rows) are
-split over ``model`` at head boundaries: the replicated ``bc_proj`` and
-``dt_proj`` streams are computed whole, their heads (``dt``, ``A``, ``D``)
-and groups sliced, B and C read through ``copy_to`` (one group) or
-sliced (groups split evenly), the gate norm taken over the whole
-``d_inner`` (its sum of squares summed over ``model``) and ``out_proj``'s
-partial rows summed by ``reduce_from``.
+On a mesh (``ctx``; training and serving) the block runs on its local
+heads where ``z_proj``, ``x_proj``, ``conv_x`` (channels) and
+``out_proj`` (rows) are split over ``model`` at head boundaries: the
+replicated ``bc_proj`` and ``dt_proj`` streams are computed whole, their
+heads (``dt``, ``A``, ``D``) and groups sliced, B and C read through
+``copy_to`` (one group) or sliced (groups split evenly), the gate norm
+taken over the whole ``d_inner`` (its sum of squares summed over
+``model``) and ``out_proj``'s partial rows summed by ``reduce_from``.
 """
 
 from __future__ import annotations
@@ -97,8 +97,10 @@ def mamba_block(p: MambaBlock, x, cfg: ModelConfig,
     and writes the final state and the last K-1 raw conv inputs into it;
     decode takes one token against it and updates the state and the conv
     windows.  Both update the cache in place and return it (the reference
-    returns a new one with the same values).  ``ctx``: the mesh
-    (training only)."""
+    returns a new one with the same values).  ``ctx``: the mesh, where a
+    cache is this rank's shard: its heads (``state``) and channels
+    (``conv_x``) split over ``model`` as the block's tensor-parallel
+    region splits them."""
     B, S, _ = x.shape
     di, g, n, h = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
     hp, K = cfg.ssm_head_dim, cfg.ssm_conv
@@ -111,6 +113,10 @@ def mamba_block(p: MambaBlock, x, cfg: ModelConfig,
         group = ctx.group(ctx.tp)
         xt = C.copy_to(x, group)
         h = h // ctx.tp_size
+    if cache is not None and cache["state"].shape[1] != h:
+        raise NotImplementedError(
+            f"a cache of {cache['state'].shape[1]} heads for a block of "
+            f"{h}: the cache is split over model where the block is not")
 
     z = xt @ C.weight(ctx, p.z_proj, col)
     xr = xt @ C.weight(ctx, p.x_proj, col)
@@ -148,14 +154,22 @@ def mamba_block(p: MambaBlock, x, cfg: ModelConfig,
             raise ValueError(f"decode takes one token per step, got {S}")
         win_x = torch.cat([cache["conv_x"], xr], dim=1)
         win_bc = torch.cat([cache["conv_bc"], bc], dim=1)
-        xc = silu(_conv_step(win_x, p.conv_x_w, p.conv_x_b))
-        bcc = silu(_conv_step(win_bc, p.conv_bc_w, p.conv_bc_b))
+        xc = silu(_conv_step(win_x, C.weight(ctx, p.conv_x_w, col),
+                             C.weight(ctx, p.conv_x_b, row)))
+        bcc = silu(_conv_step(win_bc, C.weight(ctx, p.conv_bc_w),
+                              C.weight(ctx, p.conv_bc_b)))
         xs = xc.reshape(B, h, hp)
         Bm = bcc[:, :g * n].reshape(B, g, n)
         Cm = bcc[:, g * n:].reshape(B, g, n)
         dtv = _softplus(dtp[:, 0].float() + p.dt_bias)
+        Dv = p.D
+        if tp:
+            dtv, A, Dv = (C.split(dtv, 1, group), C.split(A, 0, group),
+                          C.split(Dv, 0, group))
+            if g > 1:
+                Bm, Cm = C.split(Bm, 1, group), C.split(Cm, 1, group)
         y_t, state = ssd_decode_step(cache["state"], xs, dtv, A, Bm, Cm)
-        y = (y_t + xs * p.D[None, :, None]).reshape(B, 1, di)
+        y = (y_t + xs * Dv[None, :, None]).reshape(B, 1, h * hp)
         cache["state"].copy_(state)
         cache["conv_x"].copy_(win_x[:, 1:])
         cache["conv_bc"].copy_(win_bc[:, 1:])

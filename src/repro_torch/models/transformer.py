@@ -5,8 +5,8 @@ Public API, as in the reference, with a :class:`Transformer` module in the
 place of the parameter tree:
     init_params(generator, cfg, device=None)         -> Transformer
     train_logits(model, batch, cfg, remat=False, ctx=None) -> (logits, aux)
-    prefill(model, batch, cfg, max_len)              -> (logits, cache)
-    decode_step(model, tokens, cache, pos, cfg)      -> (logits, cache)
+    prefill(model, batch, cfg, max_len, ctx=None)    -> (logits, cache)
+    decode_step(model, tokens, cache, pos, cfg, ctx=None) -> (logits, cache)
     init_cache(cfg, batch, max_len, device=None)     -> cache
 
 ``batch`` holds ``tokens`` (B, S), and for encdec ``enc_frames`` (B, T_enc,
@@ -46,7 +46,10 @@ application).  On a mesh (``ctx``, a ``parallel.MeshCtx``) the batch is
 this rank's data shard and every block reads its weights through
 ``parallel.collectives`` (FSDP gathers, tensor-parallel regions; see
 ``layers``).  ``prefill`` and ``decode_step`` run under
-``torch.no_grad()``, without a mesh.
+``torch.no_grad()``; on a mesh their batch, tokens and cache are this
+rank's shards (the cache split over ``model`` as
+``parallel.sharding.kv_cache_pspecs`` splits it), and at a mesh of one
+rank they are the meshless path bit for bit.
 """
 
 from __future__ import annotations
@@ -60,6 +63,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..parallel import collectives as C
+from ..parallel import sharding as shard_rules
 from . import layers as L
 from .config import ModelConfig
 from .mamba2 import MambaBlock, init_mamba_cache, mamba_block
@@ -217,7 +221,7 @@ def _dense_block(p: DenseBlock, x, cfg: ModelConfig, *, cache=None,
         x = x + h
     elif cross is not None:
         x = x + _cross_decode(p.cross, L.rms_norm(x, p.norm_x, cfg.norm_eps),
-                              cross, cfg)
+                              cross, cfg, ctx)
     xin = L.rms_norm(x, p.norm2, cfg.norm_eps)
     if hasattr(p, "moe"):
         h, aux = moe_ffn(p.moe, xin, cfg, ctx)
@@ -226,15 +230,26 @@ def _dense_block(p: DenseBlock, x, cfg: ModelConfig, *, cache=None,
     return x + h, kv_new, cross_kv, aux
 
 
-def _cross_decode(p: L.Attention, x, cross, cfg: ModelConfig):
+def _cross_decode(p: L.Attention, x, cross, cfg: ModelConfig, ctx=None):
     """Decode cross-attention over the cached encoder K/V, as the
     reference computes it (its ``_sdpa`` with no mask and no softcap): the
     query without bias or rope, through the flash attention kernel (one
-    query a row over the ``enc_seq`` keys, not causal)."""
+    query a row over the ``enc_seq`` keys, not causal).  On a mesh the
+    cache is this rank's shard, read as ``layers.attention`` reads a
+    decode cache (``layers.kv_split``)."""
     B, S, _ = x.shape
-    q = (x @ p.wq).reshape(B, S, -1, cfg.hd)
-    out = L.flash_attention(q, cross["k"], cross["v"], causal=False)
-    return out.reshape(B, S, -1) @ p.wo
+    tp, cdim = L.kv_split(ctx, cfg, True, L.heads_split(ctx, p, cfg.hd))
+    col, row = (1, 0) if tp else (None, None)
+    k, v = cross["k"], cross["v"]
+    if tp:
+        x = C.copy_to(x, ctx.group(ctx.tp))
+    elif cdim is not None:
+        k = C.gathered(k, cdim, ctx.group(ctx.tp))
+        v = C.gathered(v, cdim, ctx.group(ctx.tp))
+    q = (x @ C.weight(ctx, p.wq, col)).reshape(B, S, -1, cfg.hd)
+    out = L.flash_attention(q, k, v, causal=False)
+    out = out.reshape(B, S, -1) @ C.weight(ctx, p.wo, row)
+    return C.reduce_from(out, ctx.group(ctx.tp)) if tp else out
 
 
 def _ssm_block(p: SSMBlock, x, cfg: ModelConfig, *, cache=None, pos=None,
@@ -308,8 +323,8 @@ def _forward(model: Transformer, batch, cfg: ModelConfig, make_cache: bool,
     enc_out = _encode(model, batch, cfg, remat, ctx) \
         if cfg.family == "encdec" else None
     cache = _alloc_cache(cfg, B, max(S, max_len or S), x.device,
-                         None if enc_out is None else enc_out.shape[1]) \
-        if make_cache else None
+                         None if enc_out is None else enc_out.shape[1],
+                         ctx) if make_cache else None
     rope = None if cfg.family == "ssm" else L.rope_tables(
         torch.arange(S, device=x.device), cfg.hd, cfg.rope_theta)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -345,7 +360,7 @@ def _forward(model: Transformer, batch, cfg: ModelConfig, make_cache: bool,
     else:
         for i, blk in enumerate(model.blocks):
             x, kv, cross, _ = _dense_block(
-                blk, x, cfg, cache={}, rope=rope, enc_out=enc_out)
+                blk, x, cfg, cache={}, rope=rope, enc_out=enc_out, ctx=ctx)
             cache["kv"]["k"][i, :, :S] = kv["k"]
             cache["kv"]["v"][i, :, :S] = kv["v"]
             if cross is not None:
@@ -372,26 +387,33 @@ def train_logits(model: Transformer, batch, cfg: ModelConfig, *,
 
 @torch.no_grad()
 def prefill(model: Transformer, batch, cfg: ModelConfig,
-            max_len: Optional[int] = None):
+            max_len: Optional[int] = None, ctx=None):
     """Last-position logits (B, vocab) and the cache padded to
     ``max_len``.  Only the last position is unembedded; the reference
-    unembeds every position and keeps the last."""
+    unembeds every position and keeps the last.  On a mesh (``ctx``) the
+    model holds this rank's shards (``collectives.place_model``), ``batch``
+    is this rank's rows and the cache comes back as this rank's shard
+    (``sharding.kv_cache_pspecs`` with ``ctx.kv_mode``); the logits are
+    the rows' whole vocabulary."""
     logits, _, cache = _forward(model, batch, cfg.validate(),
                                 make_cache=True, max_len=max_len,
-                                last_only=True)
+                                last_only=True, ctx=ctx)
     return logits[:, -1], cache
 
 
 @torch.no_grad()
 def decode_step(model: Transformer, tokens, cache, pos: int,
-                cfg: ModelConfig):
-    """tokens: (B, 1); pos: the write position (a Python int)."""
-    x = L.embed(model.embed, tokens)
+                cfg: ModelConfig, ctx=None):
+    """tokens: (B, 1); pos: the write position (a Python int).  On a mesh
+    ``tokens`` and ``cache`` are this rank's shards, as ``prefill`` left
+    them."""
+    x = L.embed(model.embed, tokens, ctx)
     B = x.shape[0]
     pos = int(pos)
     if cfg.family == "ssm":
         for i, blk in enumerate(model.blocks):
-            x = _ssm_block(blk, x, cfg, cache=_layer(cache, i), pos=pos)
+            x = _ssm_block(blk, x, cfg, cache=_layer(cache, i), pos=pos,
+                           ctx=ctx)
     else:
         kv = cache[1]["kv"] if cfg.family == "hybrid" else cache["kv"]
         kc, vc = kv["k"], kv["v"]
@@ -402,25 +424,39 @@ def decode_step(model: Transformer, tokens, cache, pos: int,
             for s, sup in enumerate(model.blocks):
                 for j, blk in enumerate(sup):
                     x = _ssm_block(blk, x, cfg, cache=_layer(cache[0], s, j),
-                                   pos=pos)
+                                   pos=pos, ctx=ctx)
                 x, _, _, _ = _dense_block(
                     model.shared, x, cfg, cache={"k": kc[s], "v": vc[s]},
-                    pos=pos, rope=rope, pages=pages)
+                    pos=pos, rope=rope, pages=pages, ctx=ctx)
         else:
             cross = cache.get("cross")
             for i, blk in enumerate(model.blocks):
                 x, _, _, _ = _dense_block(
                     blk, x, cfg, cache={"k": kc[i], "v": vc[i]}, pos=pos,
                     rope=rope, pages=pages,
-                    cross=None if cross is None else _layer(cross, i))
+                    cross=None if cross is None else _layer(cross, i),
+                    ctx=ctx)
     x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
-    return L.unembed(model.embed, x)[:, 0], cache
+    return L.unembed(model.embed, x, ctx)[:, 0], cache
 
 
 def _alloc_cache(cfg: ModelConfig, batch: int, max_len: int, dev,
-                 enc_len: Optional[int] = None):
+                 enc_len: Optional[int] = None, ctx=None):
     """Zeros of the family's cache layout; the encdec's cross K/V at
-    ``enc_len`` encoder positions (default ``cfg.enc_seq``)."""
+    ``enc_len`` encoder positions (default ``cfg.enc_seq``).  On a mesh
+    (``ctx``) each leaf is this rank's part of its split over ``model``
+    (``batch`` is already this rank's rows)."""
+    if ctx is not None and ctx.active and ctx.tp_size > 1:
+        whole = _alloc_cache(cfg, batch, max_len, torch.device("meta"),
+                             enc_len)
+        specs = shard_rules.kv_cache_pspecs(
+            whole, cfg, shard_rules.make_parallel_cfg(
+                {ctx.tp: ctx.tp_size}, kv_mode=ctx.kv_mode), ctx.tp_size)
+        return shard_rules.map_leaves(
+            lambda t, spec: torch.zeros(
+                shard_rules.shard_shape(t.shape, spec,
+                                        {ctx.tp: ctx.tp_size}),
+                dtype=t.dtype, device=dev), whole, specs)
     dt = cfg.torch_dtype
 
     def kv(n: int, length: int):

@@ -176,6 +176,18 @@ def all_to_all(x, group):
     return x if group_size(group) == 1 else _AllToAll.apply(x, group)
 
 
+def own_chunk(x, dim: int, group):
+    """This rank's chunk of dim ``dim`` (no collective, no gradient pair:
+    serving writes its part of a cache split over ``group``)."""
+    return x if group_size(group) == 1 else _chunk(x, dim, group)
+
+
+def gathered(x, dim: int, group):
+    """The ranks' chunks of dim ``dim`` all-gathered, without a gradient
+    pair (serving reads a cache split over ``group`` whole)."""
+    return x if group_size(group) == 1 else _gather_raw(x, dim, group)
+
+
 # ---------------------------------------------------------------------------
 # Parameters on a mesh.
 # ---------------------------------------------------------------------------
@@ -226,27 +238,26 @@ def weight(mctx, t, keep: Optional[int] = None, summed: bool = False):
         out = gather(out, d, g, grad)
     live = mctx.state["regather"]
     if live is not None:
-        live.gathered[out.data_ptr()] = (weakref.ref(out), t, steps)
+        live.gathered[id(out)] = (weakref.ref(out), t, steps)
     return out
 
 
 class _Regather:
-    """The weights one forward gathered, by data pointer, each with its
-    parameter and its gathers: ``saved_tensors_hooks`` keep the parameter
-    in place of a gathered weight that autograd saves, and gather it again
-    when the backward reads it."""
+    """The weights one forward gathered, by the identity of the tensor
+    (``id``, checked against a weak reference, so a freed tensor's reused
+    id never matches: the same for real and fake tensors, whose data
+    pointers say nothing), each with its parameter and its gathers:
+    ``saved_tensors_hooks`` keep the parameter in place of a gathered
+    weight that autograd saves, and gather it again when the backward
+    reads it."""
 
     def __init__(self, mctx):
         self.mctx, self.gathered = mctx, {}
 
     def pack(self, x):
-        entry = self.gathered.get(x.data_ptr()) \
-            if x.layout == torch.strided else None
-        if entry is not None:
-            out = entry[0]()        # alive, so its memory is still x's
-            if out is not None and out.shape == x.shape \
-                    and out.stride() == x.stride():
-                return (entry[1], entry[2])
+        entry = self.gathered.get(id(x))
+        if entry is not None and entry[0]() is x:
+            return (entry[1], entry[2])
         return x
 
     def unpack(self, packed):
@@ -309,6 +320,28 @@ def gather_whole(t: torch.Tensor, spec: Optional[P], mctx) -> torch.Tensor:
             if mctx.axis_size(axis) > 1:
                 t = _gather_raw(t, d, mctx.group(axis))
     return t
+
+
+@torch.no_grad()
+def place_model(model, cfg, mctx):
+    """Keep this rank's shards of the whole parameters of ``model``, as
+    ``Trainer(mesh=...)`` places them: each parameter's spec
+    (``sharding.param_pspecs`` on the mesh) as its ``_spec``, the whole
+    shape as its ``_whole`` (a meta tensor) and its local slice as its
+    data.  Returns the specs by name (None without a mesh, where nothing
+    changes)."""
+    from .sharding import make_parallel_cfg, param_pspecs
+    if mctx is None or not mctx.active:
+        return None
+    named = dict(model.named_parameters())
+    specs = param_pspecs(named, make_parallel_cfg(mctx.mesh), cfg)
+    for name, p in named.items():
+        p._whole = torch.empty(p.shape, dtype=p.dtype, device="meta")
+        p._spec = specs[name]
+        part = local_slice(p.data, specs[name], mctx)
+        if part is not p.data:
+            p.data = part.contiguous().clone()
+    return specs
 
 
 def counted(mctx, spec: Optional[P]) -> bool:

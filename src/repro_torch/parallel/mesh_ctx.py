@@ -5,7 +5,9 @@ Decouples model definitions from the concrete mesh: models only see axis
 *roles* (dp/tp).  ``MeshCtx(None)`` is the single-device path — every
 collective becomes a no-op and the MoE dispatch runs unplaced.  The mesh is
 a ``torch.distributed.device_mesh.DeviceMesh`` with named dims (``data``,
-``model``; ``launch.mesh.make_mesh_for``).
+``model``, and ``pod`` on the multi-pod mesh; ``launch.mesh``).  Its rank
+layout is read once, as plain Python, when the context is made, so a
+context serves under ``FakeTensorMode`` too (the dry run).
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ from __future__ import annotations
 import dataclasses
 import math
 from typing import Any, Optional, Tuple, Union
+
+import numpy as np
 
 Axis = Union[str, Tuple[str, ...]]
 
@@ -31,17 +35,23 @@ class MeshCtx:
     sp_prenorm: bool = False             # gather the raw bf16 residual
                                          # before the norm (not after)
     pure_dp: bool = False                # ZeRO-3: no TP constraints
+    kv_mode: str = "auto"                # serving caches: auto | heads |
+                                         # head_dim | replicate
 
     def __post_init__(self):
         # axis sizes, this rank's coordinates and the groups, looked up once
         # (the model reads them for every weight of every step)
-        sizes, coords = {}, {}
+        sizes, coords, ranks = {}, {}, None
         if self.mesh is not None:
             for i, name in enumerate(self.mesh.mesh_dim_names):
                 sizes[name] = int(self.mesh.shape[i])
                 coords[name] = int(self.mesh.get_local_rank(name))
+            from torch.utils._python_dispatch import _disable_current_modes
+            with _disable_current_modes():
+                ranks = np.asarray(self.mesh.mesh.tolist(), dtype=np.int64)
         object.__setattr__(self, "_sizes", sizes)
         object.__setattr__(self, "_coords", coords)
+        object.__setattr__(self, "_ranks", ranks)
         object.__setattr__(self, "_groups", {})
         # the training forward's gathered weights
         # (``collectives.regather_saved``) and how many weights backwards
@@ -89,21 +99,36 @@ class MeshCtx:
             self._groups[axes] = self._make_group(axes)
         return self._groups[axes]
 
+    def group_ranks(self, axes: Tuple[str, ...]):
+        """Every group over mesh dims ``axes``: a list of rank lists, one
+        for each coordinate of the other dims, each in the order of the
+        tuple's flattened index (outermost first)."""
+        names = list(self.mesh.mesh_dim_names)
+        if len(set(axes)) != len(axes) or not set(axes) <= set(names):
+            raise ValueError(f"mesh dims {axes} of a {tuple(names)} mesh")
+        rest = [names.index(a) for a in names if a not in axes]
+        order = rest + [names.index(a) for a in axes]
+        n = math.prod(self._sizes[a] for a in axes)
+        return self._ranks.transpose(order).reshape(-1, n).tolist()
+
     def _make_group(self, axes):
+        import torch.distributed as dist
         if len(axes) == 1:
             return self.mesh.get_group(axes[0])
-        names = tuple(self.mesh.mesh_dim_names)
-        if axes == names:
-            import torch.distributed as dist
-            ranks = self.mesh.mesh.flatten().tolist()
-            if ranks == list(range(dist.get_world_size())):
-                return dist.group.WORLD
-        raise NotImplementedError(
-            f"a process group over mesh dims {axes} of a {names} mesh")
+        groups = self.group_ranks(axes)
+        if len(groups) == 1 and groups[0] == list(
+                range(dist.get_world_size())):
+            return dist.group.WORLD
+        # every rank makes every group (``new_group`` is collective), in
+        # the same order on every rank, and keeps its own
+        mine, _ = dist.new_subgroups_by_enumeration(groups)
+        return mine
 
 
-def make_ctx(mesh) -> MeshCtx:
+def make_ctx(mesh, **kw) -> MeshCtx:
+    """The context of ``mesh``: the batch over every dim but ``model``;
+    ``kw``: the other fields."""
     if mesh is None:
-        return MeshCtx(None)
+        return MeshCtx(None, **kw)
     dp = tuple(a for a in mesh.mesh_dim_names if a != "model")
-    return MeshCtx(mesh=mesh, dp=dp, tp="model")
+    return MeshCtx(mesh=mesh, dp=dp, tp="model", **kw)

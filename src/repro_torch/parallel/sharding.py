@@ -163,6 +163,20 @@ def _map(tree, fn, name=None):
     return fn(name, tree)
 
 
+def map_leaves(fn, tree, *others):
+    """``fn(leaf, *the same leaf of each of others)`` over the leaves of
+    ``tree`` (dicts, tuples and lists of tensors), into a tree of its
+    structure; ``others`` share it (a tree of specs: each spec one
+    leaf)."""
+    if isinstance(tree, Mapping):
+        return {k: map_leaves(fn, v, *(o[k] for o in others))
+                for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)) and not _is_leaf(tree):
+        return type(tree)(map_leaves(fn, v, *(o[i] for o in others))
+                          for i, v in enumerate(tree))
+    return fn(tree, *others)
+
+
 def _named_layout(tree) -> bool:
     return (isinstance(tree, Mapping) and bool(tree)
             and all(_is_leaf(v) for v in tree.values())
@@ -200,17 +214,28 @@ def param_pspecs(params_shape, pcfg: ParallelConfig,
         name, tuple(leaf.shape), pcfg))
 
 
+def kv_layout(cfg: ModelConfig, kv_mode: str, tp_size: int) -> str:
+    """The KV caches' split over ``model`` ("heads", "head_dim" or
+    "replicate"): ``kv_mode`` where its dim divides ``tp_size`` (else
+    "replicate"), or for "auto" the KV heads where they divide it, else
+    the head dim where it does, else none."""
+    if kv_mode != "auto":
+        if kv_mode not in ("heads", "head_dim", "replicate"):
+            raise ValueError(f"kv_mode {kv_mode!r}")
+        # a dim the axis does not divide stays whole (``_guard``)
+        dim = {"heads": cfg.n_kv_heads, "head_dim": cfg.hd}.get(kv_mode)
+        return kv_mode if dim is None or dim % tp_size == 0 else "replicate"
+    if cfg.n_kv_heads and cfg.n_kv_heads % tp_size == 0:
+        return "heads"
+    if cfg.hd % tp_size == 0:
+        return "head_dim"
+    return "replicate"
+
+
 def kv_cache_pspecs(cache_shape, cfg: ModelConfig, pcfg: ParallelConfig,
                     tp_size: int):
     """Specs for a decode cache tree (leading layer-stack dims)."""
-    mode = pcfg.kv_mode
-    if mode == "auto":
-        if cfg.n_kv_heads and cfg.n_kv_heads % tp_size == 0:
-            mode = "heads"
-        elif cfg.hd % tp_size == 0:
-            mode = "head_dim"
-        else:
-            mode = "replicate"
+    mode = kv_layout(cfg, pcfg.kv_mode, tp_size)
     dp = pcfg.dp_axes
     tp = pcfg.tp_axis
 
@@ -281,6 +306,19 @@ def spec_axes(entry) -> Tuple[str, ...]:
     if entry is None:
         return ()
     return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def shard_shape(shape, spec: P, sizes: Mapping[str, int]) -> Tuple[int, ...]:
+    """Each rank's shard of a tensor of ``shape`` with ``spec`` on a mesh of
+    axis ``sizes``: every dim divided by the product of its axes' sizes
+    (the rules only split dims those sizes divide)."""
+    out = []
+    for d, e in zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec))):
+        n = math.prod(sizes.get(a, 1) for a in spec_axes(e))
+        if d % n:
+            raise ValueError(f"dim {d} does not split over {e} ({n} ranks)")
+        out.append(d // n)
+    return tuple(out)
 
 
 def placements(spec: P, mesh) -> tuple:

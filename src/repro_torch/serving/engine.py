@@ -17,6 +17,15 @@ write-filtering and bypass behaviour shows in the engine stats.  It is
 sized from the config as the reference sizes it, for every family (an
 attention-free model gets one KV head of ``d_model`` values, so its stats
 count pages that no attention reads, as the reference's do).
+
+On a device mesh (``ctx``, a ``parallel.MeshCtx``) every rank runs the
+engine on the same requests: the model holds this rank's shards
+(``parallel.collectives.place_model``), each batch's rows are split over
+the data axes where their number divides them (else every rank takes
+every row), the caches are this rank's shards (``ctx.kv_mode``), and each
+step's tokens are all-gathered over the data axes, so every rank returns
+every request's tokens.  At a mesh of one rank every collective is
+skipped and the engine is the meshless one bit for bit.
 """
 
 from __future__ import annotations
@@ -28,8 +37,10 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..launch.steps import local_batch
 from ..memtier.paged_kv import PagedKVConfig, PagedKVManager
 from ..models import decode_step, prefill
+from ..parallel import collectives as coll
 from ..models.config import ModelConfig
 from ..models.transformer import Transformer
 
@@ -68,8 +79,9 @@ class ServeConfig:
 
 
 class Engine:
-    """Single-device engine: per-slot caches (KV, SSM state or both), with
-    the paged pool's bookkeeping kept in parallel by the memtier manager.
+    """The engine: per-slot caches (KV, SSM state or both), with the
+    paged pool's bookkeeping kept in parallel by the memtier manager; on a
+    mesh (``ctx``) this rank's part of it (the module docstring).
 
     ``device=None`` serves on the CUDA card and raises if there is none;
     the model must already lie on the engine's device.  As in the
@@ -80,8 +92,9 @@ class Engine:
     batch."""
 
     def __init__(self, cfg: ModelConfig, model: Transformer,
-                 scfg: ServeConfig, *, device=None):
+                 scfg: ServeConfig, *, device=None, ctx=None):
         cfg = cfg.validate()
+        self.ctx = ctx if ctx is not None and ctx.active else None
         self.device = resolve_device(device, "Engine")
         wdev = model.embed.tok.device
         if (wdev.type, wdev.index or 0) != (self.device.type,
@@ -113,12 +126,24 @@ class Engine:
             toks[i, S - r.prompt.shape[0]:] = r.prompt   # left-pad
         batch = {"tokens": torch.from_numpy(toks).to(self.device),
                  **stub_inputs(cfg, B, self.device)}
+        if self.ctx is not None:
+            batch = local_batch(batch, self.ctx)
         logits, cache = prefill(self.model, batch, cfg,
-                                max_len=self.scfg.max_len)
+                                max_len=self.scfg.max_len, ctx=self.ctx)
         for i in range(B):
             for _ in range(S + self.n_image):
                 self.kv_mgr.append_token(i)
         return logits, cache, S
+
+    def _tokens(self, logits, B: int):
+        """This rank's argmax tokens (its rows, (b, 1)) and all B rows' as
+        a list (gathered over the data axes where the rows are split)."""
+        tok = logits.argmax(dim=-1, keepdim=True).to(torch.int32)
+        rows = tok
+        if self.ctx is not None and self.ctx.dp_size > 1 \
+                and B % self.ctx.dp_size == 0:
+            rows = coll.gathered(tok, 0, self.ctx.group(self.ctx.dp))
+        return tok, rows[:, 0].tolist()
 
     @property
     def n_image(self) -> int:
@@ -134,8 +159,8 @@ class Engine:
                     for _ in range(min(self.scfg.max_batch,
                                        len(self.queue)))]
             logits, cache, S = self._prefill_batch(reqs)
-            tok = logits.argmax(dim=-1, keepdim=True).to(torch.int32)
-            outs = [[int(t)] for t in tok[:, 0].tolist()]
+            tok, first = self._tokens(logits, len(reqs))
+            outs = [[t] for t in first]
             pos = S + self.n_image
             max_new = max(r.max_new for r in reqs)
             for stepi in range(max_new - 1):
@@ -144,9 +169,8 @@ class Engine:
                 # fast hits / slow fetches (the paper's probe path)
                 self.kv_mgr.plan_step(list(range(len(reqs))))
                 lg, cache = decode_step(self.model, tok, cache, pos,
-                                        self.cfg)
-                tok = lg.argmax(dim=-1, keepdim=True).to(torch.int32)
-                step = tok[:, 0].tolist()
+                                        self.cfg, ctx=self.ctx)
+                tok, step = self._tokens(lg, len(reqs))
                 for i in range(len(reqs)):
                     if stepi < reqs[i].max_new - 1:
                         outs[i].append(step[i])

@@ -13,7 +13,13 @@ Jobs:
     ``sum(y * r) + coef * aux``;
   * ``compress``: per-rank gradients: ``_ar_body`` with each device on its
     own gradient (the public ``quantized_allreduce`` replicates its
-    input), the public call on rank 0's gradients, and ``ErrorFeedback``.
+    input), the public call on rank 0's gradients, and ``ErrorFeedback``;
+  * ``serve``: [(arch, (dp, tp), kv_mode)], the parameters by arch (numpy
+    trees), the prompt tokens (B, S), max_len and the decode steps: the
+    reference's ``make_prefill_step`` and ``make_serve_step`` on that
+    mesh, jitted with ``shardings_for``'s shardings (the cache's by
+    ``kv_mode``), each beside ``prefill`` / ``decode_step`` for the
+    logits: every step's logits and tokens, and the final cache (whole).
 """
 
 import os
@@ -121,6 +127,51 @@ def compress(grads_by_rank, rounds):
         "fed": fed}
 
 
+def serve(jobs, params_by_arch, tokens, max_len, steps):
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from repro.configs import ShapeSpec
+    from repro.launch import steps as S
+    from repro.launch.mesh import make_mesh_for
+    from repro.models import decode_step, prefill
+    from repro.parallel import sharding as rules
+    from repro.parallel.mesh_ctx import make_ctx
+    B, L = tokens.shape
+    out = {}
+    for arch, shape, kv_mode in jobs:
+        cfg = _cfg(arch)
+        mesh = make_mesh_for(4, shape[1])
+        ctx = make_ctx(mesh)
+        pcfg = rules.make_parallel_cfg(mesh, kv_mode=kv_mode)
+        (p_sh, b_sh), (tok_sh, kv_sh) = S.shardings_for(
+            cfg, ShapeSpec("serve", max_len, B, "prefill"), mesh, pcfg)
+        (_, _, c_sh, pos_sh), _ = S.shardings_for(
+            cfg, ShapeSpec("serve", max_len, B, "decode"), mesh, pcfg)
+        lg_sh = NamedSharding(mesh, P(tok_sh.spec[0], None))
+        pre_step = S.make_prefill_step(cfg, ctx, max_len)
+        dec_step = S.make_serve_step(cfg, ctx)
+        pre = jax.jit(lambda p, b: (pre_step(p, b), prefill(
+            p, b, cfg, ctx, max_len=max_len)[0]), in_shardings=(p_sh, b_sh),
+            out_shardings=((tok_sh, kv_sh), lg_sh))
+        dec = jax.jit(lambda p, t, c, pos: (dec_step(p, t, c, pos),
+                                            decode_step(p, t, c, pos, cfg,
+                                                        ctx)[0]),
+                      in_shardings=(p_sh, tok_sh, c_sh, pos_sh),
+                      out_shardings=((tok_sh, c_sh), lg_sh))
+        params = jax.tree.map(lambda x: jnp.asarray(x, jnp.float32),
+                              params_by_arch[arch])
+        (tok, cache), lg = pre(params, {"tokens": jnp.asarray(tokens)})
+        lgs, toks = [np.asarray(lg)], [np.asarray(tok)]
+        for i in range(steps):
+            (tok, cache), lg = dec(params, tok, cache, jnp.int32(L + i))
+            lgs.append(np.asarray(lg))
+            toks.append(np.asarray(tok))
+        out[(arch, tuple(shape), kv_mode)] = {
+            "logits": lgs, "tokens": toks,
+            "cache": jax.tree.map(np.asarray, cache)}
+    return out
+
+
 def main(req_path, out_path):
     with open(req_path, "rb") as f:
         req = pickle.load(f)
@@ -131,6 +182,8 @@ def main(req_path, out_path):
         ans["moe"] = moe(*req["moe"])
     if "compress" in req:
         ans["compress"] = compress(*req["compress"])
+    if "serve" in req:
+        ans["serve"] = serve(*req["serve"])
     with open(out_path, "wb") as f:
         pickle.dump(ans, f)
 

@@ -256,3 +256,74 @@ def pairs_job(seed):
         for k in names], dtype=torch.float64)
     dist.all_reduce(errs, op=dist.ReduceOp.MAX)
     return dict(zip(names, errs.tolist()))
+
+
+# ---------------------------------------------------------------------------
+# Serving on a mesh.
+# ---------------------------------------------------------------------------
+
+def serve_jobs(jobs, params_by_arch, tokens, max_len, steps):
+    """Each job (arch, mesh shape, kv_mode): the float32 smoke model with
+    the JAX parameters ``params_by_arch[arch]``, placed on the mesh
+    (``place_model``); ``make_prefill_step`` on this rank's rows of
+    ``tokens`` (B, S), then ``steps`` ``make_serve_step``s fed their own
+    tokens, with ``prefill`` / ``decode_step`` beside each for the
+    logits; then ``Engine(ctx=...)`` on the same prompts.  Returns
+    {job: {"logits": [(B, vocab) a step, every row], "tokens": [(B, 1)
+    a step], "caches": [(each rank's mesh coordinates, its cache as numpy)
+    in rank order], "engine": {rid: tokens}}}."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import model_params_from_jax
+    from repro_torch.launch import steps as S
+    from repro_torch.models import Transformer, decode_step, prefill
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel.mesh_ctx import make_ctx
+    from repro_torch.parallel.sharding import map_leaves
+    from repro_torch.serving import Engine, Request, ServeConfig
+    out = {}
+    for arch, shape, kv_mode in jobs:
+        cfg = dataclasses.replace(get_config(arch, smoke=True),
+                                  dtype="float32")
+        ctx = make_ctx(_mesh(shape), kv_mode=kv_mode)
+        model = Transformer(cfg, device="cpu")
+        model.load_state_dict(model_params_from_jax(params_by_arch[arch],
+                                                    cfg))
+        coll.place_model(model, cfg, ctx)
+        dg = ctx.group(ctx.dp)
+        batch = S.local_batch({"tokens": torch.from_numpy(tokens)}, ctx)
+        logits, cache = prefill(model, batch, cfg, max_len=max_len, ctx=ctx)
+        tok, cache2 = S.make_prefill_step(cfg, ctx, max_len)(model, batch)
+        same = all(torch.equal(a, b) for a, b in zip(
+            _leaves(cache), _leaves(cache2)))
+        lg, tk = [logits], [tok]
+        pos = tokens.shape[1]
+        serve = S.make_serve_step(cfg, ctx)
+        for i in range(steps):
+            lgi, _ = decode_step(model, tok, map_leaves(torch.clone, cache),
+                                 pos + i, cfg, ctx=ctx)
+            tok, cache = serve(model, tok, cache, pos + i)
+            lg.append(lgi)
+            tk.append(tok)
+        coords = {a: ctx.coord(a) for a in ctx.mesh.mesh_dim_names}
+        shards = [None] * dist.get_world_size()
+        dist.all_gather_object(shards, (coords, map_leaves(_np, cache)))
+        eng = Engine(cfg, model, ServeConfig(max_batch=tokens.shape[0],
+                                             max_len=max_len),
+                     device="cpu", ctx=ctx)
+        for rid, row in enumerate(tokens):
+            eng.submit(Request(rid, row, max_new=steps + 1))
+        out[(arch, shape, kv_mode)] = {
+            "logits": [_np(coll.gathered(t, 0, dg)) for t in lg],
+            "tokens": [_np(coll.gathered(t, 0, dg)) for t in tk],
+            "step_cache_equal": same, "caches": shards,
+            "engine": {k: v.tolist() for k, v in eng.run().items()}}
+    return out
+
+
+def _leaves(tree):
+    from repro_torch.parallel.sharding import map_leaves
+    out = []
+    map_leaves(out.append, tree)
+    return out
