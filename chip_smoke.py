@@ -648,7 +648,10 @@ AMIL_CASES = (("lanes_256", 256, 1 << 20, 0),
               ("lanes_8192", 8192, 1 << 20, 0),
               ("odd_n", 8192, (1 << 20) - 3, 0),
               ("view_offset_1", 8192, 1 << 20, 1),
-              ("lanes_max", (227 * 1024 - 16) // 4, 1 << 20, 0))
+              ("lanes_max", (227 * 1024 - 16) // 4, 1 << 20, 0),
+              # past one CTA's shared memory: the table in device memory
+              ("lanes_max_plus_1", (227 * 1024 - 16) // 4 + 1, 1 << 20, 0),
+              ("lanes_2^20", 1 << 20, 1 << 20, 0))
 
 
 def call_split(torch, fn, reps: int = 5, windows: int = 3):
@@ -766,6 +769,11 @@ def amil_checks(torch, dev, flush, judge: bool):
         want = amil_probe_reference(meta, slots, tags)
         torch.cuda.synchronize()
         err = max(same(torch, a, b) for a, b in zip(got, want))
+        # the CPU path (the wrapper on CPU tensors), bit for bit
+        host = probe_ops.amil_probe(meta.cpu(), slots.cpu(), tags.cpu())
+        cpu_equal = all(torch.equal(a.cpu(), b) for a, b in zip(got, host))
+        need(cpu_equal, f"amil_probe {case}: the card differs from the CPU "
+             "path")
         event_ms(torch, run, reps=5, flush=flush)          # warm-up
         ms = event_ms(torch, run, reps=20, flush=flush)
         kernel_ms = device_ms(torch, run, "amil_probe_kernel",
@@ -800,6 +808,9 @@ def amil_checks(torch, dev, flush, judge: bool):
         bytes_moved = 20 * n_req + 4 * n_slots
         row = {"name": "amil_probe", "case": case, "table_lanes": n_slots,
                "requests": n_req, "view_offset": shift, "max_abs_err": err,
+               "cpu_equal": cpu_equal,
+               "design": "shared" if n_slots <= probe_ops.MAX_LANES
+               else "device_memory",
                "ms": ms, "kernel_ms": kernel_ms, "split": split,
                "kernels_per_call": per_call, "graph_nodes": nodes,
                "plain_ms": plain_ms,
@@ -1631,6 +1642,121 @@ def paged_checks(torch, dev, flush) -> None:
         q = torch.randn(B, 1, H, hd, generator=g, device=dev).to(dt)
         paged_row(torch, f"identity_table_{name}", q, kc.view(pool),
                   vc.view(pool), table, lengths, (kc, vc), flush)
+
+
+# the split mode of paged_attention (a cache split over the model axis by
+# head dim): (model, B, H, KV, hd) at full width, the slices d of hd it
+# is held at, over the identity table of a dense 2048-token cache with
+# 1055 live tokens a row (the 1024-token mix's)
+PAGED_SPLIT_MODELS = (("qwen2.5-3b", 4, 16, 2, 128),
+                      ("granite-8b", 4, 32, 8, 128))
+PAGED_SPLIT_SLICES = (8, 32, 64)
+
+
+def paged_split_checks(torch, dev, flush) -> list:
+    """The split mode's two launches against their plain versions, bf16
+    and float32, at PAGED_SPLIT_MODELS x PAGED_SPLIT_SLICES: the scores
+    (a rank's slice of every head's q . k, float32, to ATTN_TOL float32:
+    exact products, sums in another order; over the live tokens, the only
+    ones the kernel writes) and the apply (the softmax of
+    whole-head scores and its product with the slice of V, to the type's
+    ATTN_TOL).  Each row gives its time, bytes bound, launches and, for
+    the scores, ``torch.matmul`` of q by the dense cache's K^T (the apply
+    has no single PyTorch call).  Returns the rows."""
+    from repro_torch import _build
+    from repro_torch.kernels.paged_attention import ops, ref
+    from repro_torch.models import layers
+    g = torch.Generator(device=dev).manual_seed(31)
+    rows = []
+    max_len, pos = 2048, 1054
+    for dt in (torch.bfloat16, torch.float32):
+        name = dtype_name(dt)
+        esize = torch.tensor([], dtype=dt).element_size()
+        for model, B, H, KV, hd in PAGED_SPLIT_MODELS:
+            G = H // KV
+            table, lengths = layers.decode_pages(B, max_len, pos, dev)
+            page = layers.DECODE_PAGE
+            q = torch.randn(B, 1, H, hd, generator=g, device=dev).to(dt)
+            kc, vc = (torch.randn(B, max_len, KV, hd, generator=g,
+                                  device=dev).to(dt) for _ in range(2))
+            pool = (B * max_len // page, page, KV, hd)
+            whole = ref.paged_scores_reference(
+                q.reshape(B, KV, G, hd), kc.view(pool), table, lengths)
+            tokens = int(lengths.sum())
+            pages = int(((lengths + page - 1) // page).sum())
+            for d in PAGED_SPLIT_SLICES:
+                qs = q[..., :d].contiguous()
+                ks, vs = (x[..., :d].contiguous().view(
+                    B * max_len // page, page, KV, d) for x in (kc, vc))
+                shape = {"B": B, "H": H, "KV": KV, "hd": hd, "slice": d,
+                         "page": page, "n_pages": table.shape[1]}
+                # scores
+                run_k = lambda: ops.paged_decode_scores(qs, ks, table,
+                                                        lengths)
+                run_p = lambda: ref.paged_scores_reference(
+                    qs.reshape(B, KV, G, d), ks, table, lengths)
+                _build.reset_counts()
+                got = run_k()
+                launches = _build.launches.get("paged_attention_scores", 0)
+                need(launches == 1, f"paged scores {model}: {launches} "
+                     "launches a call")
+                # the kernel writes the live tokens' scores only
+                live = (torch.arange(table.shape[1] * page, device=dev)
+                        < lengths[:, None])
+                err = close(torch, got.transpose(1, 2)[live],
+                            run_p().transpose(1, 2)[live],
+                            f"paged scores {model} {name} d {d}")
+                kd = ks.view(B, max_len, KV, d).transpose(1, 2).contiguous()
+                qg = qs.reshape(B, KV, G, d)
+                run_l = lambda: torch.matmul(qg, kd.transpose(-1, -2))
+                b_ms, b_by = bound(
+                    2 * H * d * tokens,
+                    q.numel() // hd * d * esize + tokens * KV * d * esize
+                    + 4 * H * tokens + 4 * pages + 4 * B, dt)
+                event_ms(torch, run_k, reps=3, flush=flush)
+                row = {"name": "paged_attention_scores", "model": model,
+                       "case": f"{model}_slice_{d}_{name}", "dtype": name,
+                       "shape": shape, "live_tokens": tokens,
+                       "launches": launches, "max_abs_err": err,
+                       "ms": event_ms(torch, run_k, reps=20, flush=flush),
+                       "plain_ms": event_ms(torch, run_p, reps=3,
+                                            flush=flush),
+                       "bound_ms": b_ms, "bound_by": b_by,
+                       "library_ms": event_ms(torch, run_l, reps=20,
+                                              flush=flush)}
+                emit({"phase": "kernel_vs_plain", **row})
+                rows.append(row)
+                # apply, on the whole heads' scores
+                scale = 1.0 / math.sqrt(hd)
+                run_k = lambda: ops.paged_decode_apply(
+                    whole, vs, table, lengths, scale=scale)
+                run_p = lambda: ref.paged_apply_reference(
+                    whole, vs, table, lengths, scale=scale).reshape(
+                        B, 1, H, d)
+                _build.reset_counts()
+                got = run_k()
+                launches = _build.launches.get("paged_attention_apply", 0)
+                err = close(torch, got, run_p(),
+                            f"paged apply {model} {name} d {d}")
+                b_ms, b_by = bound(
+                    2 * H * d * tokens,
+                    4 * H * tokens + tokens * KV * d * esize
+                    + B * H * d * esize + 4 * pages + 4 * B, dt)
+                event_ms(torch, run_k, reps=3, flush=flush)
+                row = {"name": "paged_attention_apply", "model": model,
+                       "case": f"{model}_slice_{d}_{name}", "dtype": name,
+                       "shape": shape, "live_tokens": tokens,
+                       "launches": launches, "max_abs_err": err,
+                       "ms": event_ms(torch, run_k, reps=20, flush=flush),
+                       "plain_ms": event_ms(torch, run_p, reps=3,
+                                            flush=flush),
+                       "bound_ms": b_ms, "bound_by": b_by,
+                       "library_ms": None}
+                emit({"phase": "kernel_vs_plain", **row})
+                rows.append(row)
+                need(launches == 1, f"paged apply {model}: {launches} "
+                     "launches a call")
+    return rows
 
 
 SSD_MAMBA = (64, 1, 128, 64)          # H, G, n, p of mamba2-1.3b
@@ -3676,6 +3802,12 @@ MESH_SERVE_LAUNCHES = {}
 DRYRUN_CELL = ("whisper-tiny", "decode_32k")
 # the reference's figure for DRYRUN_CELL on 16 x 16: the cache's shard
 DRYRUN_ALIASED = 105_271_296
+# the port's collective bytes a rank for DRYRUN_CELL: the FSDP weights
+# and the split mode's query heads and output slices all-gathered, its
+# partial scores all-reduced (the cache is no longer gathered)
+DRYRUN_COLLECTIVES = {"all-gather": 87_823_872, "all-reduce": 26_342_400,
+                      "reduce-scatter": 0, "all-to-all": 0,
+                      "collective-permute": 0}
 
 
 def dryrun_start():
@@ -3695,8 +3827,8 @@ def dryrun_start():
 
 
 def dryrun_check(dry) -> None:
-    """The dry run's exit code 0, its 256 devices and the reference's
-    aliased bytes; emits its figures."""
+    """The dry run's exit code 0, its 256 devices, the reference's
+    aliased bytes and DRYRUN_COLLECTIVES; emits its figures."""
     import shutil
     proc, out, t0 = dry
     try:
@@ -3714,6 +3846,9 @@ def dryrun_check(dry) -> None:
     need(r["n_devices"] == 256 and d["per_device_bytes"]["aliased"]
          == DRYRUN_ALIASED, f"dry run: {r['n_devices']} devices, aliased "
          f"{d['per_device_bytes']['aliased']}")
+    need(d["collective_bytes"] == DRYRUN_COLLECTIVES, f"dry run: "
+         f"collective bytes {d['collective_bytes']}, not "
+         f"{DRYRUN_COLLECTIVES}")
     emit({"phase": "mesh_dryrun", "arch": r["arch"], "shape": r["shape"],
           "n_devices": r["n_devices"], "mesh": r["mesh"],
           "per_device_bytes": d["per_device_bytes"],
@@ -3798,8 +3933,24 @@ def mesh_serve(torch, dev, mesh) -> None:
     torch.cuda.empty_cache()
 
 
-MESH4_SHAPES = ((2, 2), (4, 1))
-MESH4_TOL = 2e-2                # bf16: the cuts' loss tolerance
+# (1, 4): qwen2.5-3b's 2 KV heads do not divide the model axis, so its
+# attention runs on each rank's query heads (train and prefill) and its
+# decode over a cache split by head dim sums partial scores
+MESH4_SHAPES = ((2, 2), (4, 1), (1, 4))
+# the meshes that also train with sequence parallelism on
+MESH4_SP_SHAPES = ((2, 2), (1, 4))
+# the bf16 rows' limits against one card's run, from the card's readings
+# (H100 80GB HBM3, 700 W): losses to 2.3e-4, grad norms to 1.3e-3 off
+# one card's; bf16 rounds each rank's partial sums, which the meshes sum
+# in another order than one card
+MESH4_TOL = {"losses": 5e-4, "grad_norms": 3e-3}
+# the same meshes in float32 at full width and MESH4_F32_LAYERS layers,
+# with and without sequence parallelism: the collectives' arithmetic
+# against one card's to float32 rounding
+MESH4_F32_LAYERS = 4
+MESH4_F32_RUNS = (((2, 2), False), ((2, 2), True), ((1, 4), False),
+                  ((1, 4), True))
+MESH4_F32_TOL = 1e-6            # the card read 1.25e-7 at most
 # meshed serving on four cards: B prompts of PROMPT tokens, a cache of
 # MAX_LEN, STEPS teacher-forced decode steps; float32 logits within
 # LOGIT_TOL of one card's meshless run, relative to the logit scale
@@ -3840,9 +3991,11 @@ def mesh4_serve(torch, dev, dtype: str, ctx=None) -> dict:
     def whole(t):
         return coll.gathered(t, 0, ctx.group(ctx.dp)) if meshed else t
 
+    from repro_torch import _build
     for dt in (torch.float32, torch.bfloat16):      # the cuBLAS workspaces
         torch.ones(8, 8, device=dev, dtype=dt) @ torch.ones(
             8, 8, device=dev, dtype=dt)
+
     def mem():
         torch.cuda.synchronize(dev)
         return (torch.cuda.memory_stats(dev)["requested_bytes.all.current"],
@@ -3855,6 +4008,7 @@ def mesh4_serve(torch, dev, dtype: str, ctx=None) -> dict:
     m1 = mem()
     batch = {"tokens": rows(torch.from_numpy(prompts).to(
         device=dev, dtype=torch.int32))}
+    _build.reset_counts()
     logits, cache = prefill(model, batch, cfg, max_len=MESH4_MAX_LEN, ctx=ctx)
     out = [whole(logits).float().cpu().numpy()]
     del logits, batch
@@ -3870,9 +4024,11 @@ def mesh4_serve(torch, dev, dtype: str, ctx=None) -> dict:
         lg, cache = decode_step(model, forced_dev[:, i:i + 1], cache,
                                 MESH4_PROMPT + i, cfg, ctx=ctx)
         out.append(whole(lg).float().cpu().numpy())
+    launches = dict(_build.launches)
     del model, cache, leaves, lg
     torch.cuda.empty_cache()
     return {"logits": out, "shards": n_held, "shard_bytes": held,
+            "launches": launches,
             "requested_bytes": m2[0] - m0[0],
             "allocated_bytes": m2[1] - m0[1],
             "weights_allocated_bytes": m1[1] - m0[1]}
@@ -3901,17 +4057,23 @@ def mesh4_phase(torch) -> None:
     width (36 layers, bf16, seed 0, 8 x 128 tokens) on real NCCL meshes of
     four ranks, one a card.  First the meshless trainer on card 0 for
     MESH_STEPS steps (the reference), then, in four spawned processes (a
-    ``file://`` rendezvous), ``Trainer(mesh=...)`` on (2, 2) and (4, 1):
+    ``file://`` rendezvous), ``Trainer(mesh=...)`` on MESH4_SHAPES:
     losses and grad norms within MESH4_TOL of the meshless run's (the
     summation order of the reduce-scatters and all-reduces is not the
-    meshless one), every rank's peak memory, the step time (median of
+    meshless one), and in float32 at MESH4_F32_LAYERS layers on
+    MESH4_F32_RUNS within MESH4_F32_TOL of one card's float32 run, every
+    rank's peak memory, the step time (median of
     steps 2-3) and, on rank 0, the NCCL kernels of a profiled step.  Then
     serving (``mesh4_serve``), float32 and bf16, one card meshless and the
-    four ranks on (2, 2) and (4, 1): the float32 logits of the prefill and
+    four ranks on MESH4_SHAPES: the float32 logits of the prefill and
     of 16 teacher-forced decode steps within MESH4_LOGIT_TOL
     (``mesh4_serve_checks``), and each rank's weight and cache shards
     equal to the dry run's arguments for that mesh and the decode shape
-    (``mesh4_dry_arguments``), less the token and pos bytes."""
+    (``mesh4_dry_arguments``), less the token and pos bytes.  On (1, 4)
+    the attention runs on each rank's query heads and decode through
+    ``paged_attention``'s split mode; the trainer also runs with
+    sequence parallelism on MESH4_SP_SHAPES (each row's peak memory by
+    rank beside the same mesh's without it)."""
     import shutil
     import tempfile
     need(torch.cuda.device_count() >= 4, "--only mesh4 needs four cards")
@@ -3929,6 +4091,16 @@ def mesh4_phase(torch) -> None:
     emit({"phase": "mesh4_meshless", "model": cfg.name, **ref})
     del tr
     torch.cuda.empty_cache()
+    tr = trainer(dataclasses.replace(cfg, dtype="float32",
+                                     n_layers=MESH4_F32_LAYERS),
+                 TRAIN_SEQ, TRAIN_BATCH, MESH_STEPS, torch.device("cuda:0"))
+    tr.run()
+    ref32 = {"losses": [m["loss"] for m in tr.metrics_log],
+             "grad_norms": [m["grad_norm"] for m in tr.metrics_log]}
+    emit({"phase": "mesh4_meshless", "model": cfg.name, "dtype": "float32",
+          "layers": MESH4_F32_LAYERS, **ref32})
+    del tr
+    torch.cuda.empty_cache()
     serve_ref = {dt: mesh4_serve(torch, torch.device("cuda:0"), dt)
                  for dt in ("float32", "bfloat16")}
     dry = {shape: mesh4_dry_arguments(shape) for shape in MESH4_SHAPES}
@@ -3941,15 +4113,23 @@ def mesh4_phase(torch) -> None:
     finally:
         shutil.rmtree(d, ignore_errors=True)
     mesh4_serve_checks(serve_ref, served, dry)
+    bad = []
     for row in rows:
+        f32 = row["dtype"] == "float32"
+        want = ref32 if f32 else ref
         for k in ("losses", "grad_norms"):
-            err = max(abs(a - b) / abs(b) for a, b in zip(row[k], ref[k]))
+            err = max(abs(a - b) / abs(b) for a, b in zip(row[k], want[k]))
             row[k + "_rel_err"] = err
-            need(err <= MESH4_TOL, f"mesh {row['mesh']}: {k} {row[k]} "
-                 f"against the meshless {ref[k]}")
-        row["meshless_step_ms_median_2_3"] = ref["step_ms_median_2_3"]
-        row["meshless_peak_mem_bytes"] = ref["peak_mem_bytes"]
+            tol = MESH4_F32_TOL if f32 else MESH4_TOL[k]
+            if err > tol:
+                bad.append(f"mesh {row['mesh']} {row['dtype']} sp "
+                           f"{row['sequence_parallel']}: {k} {row[k]} "
+                           f"against the meshless {want[k]} ({err} > {tol})")
+        if not f32:
+            row["meshless_step_ms_median_2_3"] = ref["step_ms_median_2_3"]
+            row["meshless_peak_mem_bytes"] = ref["peak_mem_bytes"]
         emit({"phase": "mesh4_train", **row})
+    need(not bad, "; ".join(bad))
 
 
 def mesh4_rank(rank: int, d: str) -> None:
@@ -3968,10 +4148,15 @@ def mesh4_rank(rank: int, d: str) -> None:
     rows = []
     try:
         cfg = get_config(TRAIN_ARCH)
-        for shape in MESH4_SHAPES:
+        cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                    n_layers=MESH4_F32_LAYERS)
+        runs = [(cfg, shape, False) for shape in MESH4_SHAPES] + [
+            (cfg, shape, True) for shape in MESH4_SP_SHAPES] + [
+            (cfg32, shape, sp) for shape, sp in MESH4_F32_RUNS]
+        for c, shape, sp in runs:
             mesh = make_mesh_for(4, shape[1], "cuda")
-            tr = trainer(cfg, TRAIN_SEQ, TRAIN_BATCH, MESH_STEPS, dev,
-                         mesh=mesh)
+            tr = trainer(c, TRAIN_SEQ, TRAIN_BATCH, MESH_STEPS, dev,
+                         mesh=mesh, sequence_parallel=sp)
             torch.cuda.reset_peak_memory_stats(dev)
             tr.run()
             peak = torch.tensor([torch.cuda.max_memory_allocated(dev)],
@@ -3991,7 +4176,8 @@ def mesh4_rank(rank: int, d: str) -> None:
                     if "nccl" in k.lower()}
             rows.append({
                 "model": cfg.name, "mesh": list(shape), "ranks": 4,
-                "steps": MESH_STEPS,
+                "dtype": c.dtype, "layers": c.n_layers,
+                "sequence_parallel": sp, "steps": MESH_STEPS,
                 "losses": [m["loss"] for m in tr.metrics_log],
                 "grad_norms": [m["grad_norm"] for m in tr.metrics_log],
                 "step_ms": [m["step_time_s"] * 1e3 for m in tr.metrics_log],
@@ -4048,8 +4234,11 @@ def mesh4_serve_checks(ref: dict, served: dict, dry: dict) -> None:
     ``memory_allocated`` counts whole blocks: the allocator rounds a
     request up to 512 bytes and leaves a cached block unsplit when the
     rest would be 1 MiB or less, so it may exceed that by as much a
-    tensor, and no more."""
+    tensor, and no more.  The launches of each kernel on each mesh: the
+    prefill's attention layers, and per decode step either the whole-head
+    kernel or the split mode's two launches a layer."""
     import numpy as np
+    from repro_torch.configs import get_config
     for (dt, shape), r in sorted(served.items()):
         errs = [float(np.abs(a - b).max() / np.abs(b).max())
                 for a, b in zip(r["logits"], ref[dt]["logits"])]
@@ -4065,7 +4254,21 @@ def mesh4_serve_checks(ref: dict, served: dict, dry: dict) -> None:
                "dry_run_per_device_bytes": dry[shape]["per_device_bytes"],
                "dry_run_input_bytes": args,
                "dry_run_arguments_less_tokens_pos": want}
+        # where the KV heads do not divide the model axis the cache is
+        # split by head dim: two split-mode launches a layer and step
+        cfg = get_config(TRAIN_ARCH)
+        layers = cfg.n_layers
+        want_launches = ({"paged_attention_scores": layers * MESH4_STEPS,
+                          "paged_attention_apply": layers * MESH4_STEPS}
+                         if cfg.n_kv_heads % shape[1] else
+                         {"paged_attention": layers * MESH4_STEPS})
+        row["launches"] = r["launches"]
         emit(row)
+        need(all(r["launches"].get(k, 0) == n
+                 for k, n in want_launches.items())
+             and r["launches"].get("flash_attention", 0) == layers,
+             f"meshed serving on {shape}: launches {r['launches']}, "
+             f"expected {want_launches} and {layers} flash_attention")
         if dt == "float32":
             need(max(errs) <= MESH4_LOGIT_TOL,
                  f"meshed serving on {shape}: logits {max(errs)} from the "
@@ -5135,21 +5338,77 @@ MEMTIER_ROUNDS, MEMTIER_N = 64, 32768
 TIERED_STEPS, TIERED_FRAC = 4, 0.4
 
 
-def memtier_traffic(np, cfg, seed=0):
+def memtier_traffic(np, cfg, seed=0, rounds=MEMTIER_ROUNDS):
     """The write-filtering oracle's mix (tests/test_train_system.py:123)
-    at the card's size: MEMTIER_ROUNDS rounds, each MEMTIER_N random
+    at the card's size: ``rounds`` rounds, each MEMTIER_N random
     writes (run 1) in the first quarter of the blocks, then MEMTIER_N
     sequential reads (run 8) from a random start."""
     rng = np.random.default_rng(seed)
     n = MEMTIER_N
     out = []
-    for _ in range(MEMTIER_ROUNDS):
+    for _ in range(rounds):
         out.append((rng.integers(0, cfg.num_blocks // 4, (n,)).astype(
             np.int32), np.ones(n, bool), np.ones(n, np.float32)))
         start = int(rng.integers(0, cfg.num_blocks * 3 // 4))
         out.append((((np.arange(n) + start) % cfg.num_blocks).astype(
             np.int32), np.zeros(n, bool), np.full(n, 8.0, np.float32)))
     return out
+
+
+MEMTIER_BIG_ROUNDS = 8
+
+
+def block_table_big(torch, dev, num_slots: int) -> dict:
+    """``memtier.access`` at a table of ``num_slots`` slots (4 blocks a
+    slot) on the card against the CPU path: MEMTIER_BIG_ROUNDS rounds of
+    ``memtier_traffic``, every state entry and decision bit-equal after
+    each, one amil_probe launch a round (reset just before, read just
+    after), and one probe kernel node a ``probe_blocks`` call."""
+    import numpy as np
+    from repro_torch import _build
+    from repro_torch.memtier import (TierConfig, access, init_state,
+                                     probe_blocks)
+    cfg = TierConfig(block_bytes=2 << 20, num_slots=num_slots,
+                     num_blocks=4 * num_slots)
+    rounds = memtier_traffic(np, cfg, rounds=MEMTIER_BIG_ROUNDS // 2)
+    st_c, st_h = init_state(cfg, device=dev), init_state(cfg, device="cpu")
+    diffs, card_ms = [], []
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    for r, arrays in enumerate(rounds):
+        h = tuple(torch.from_numpy(a) for a in arrays)
+        c = tuple(t.to(dev) for t in h)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st_c, d_c = access(st_c, *c, cfg)
+        torch.cuda.synchronize()
+        card_ms.append((time.perf_counter() - t0) * 1e3)
+        st_h, d_h = access(st_h, *h, cfg)
+        for what, a, b in ([("state " + k, st_c[k], st_h[k]) for k in st_h]
+                           + [("decision " + k, d_c[k], d_h[k])
+                              for k in d_h]):
+            a = a.cpu()
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                diffs.append(f"round {r} {what}")
+    launches = _build.launches.get("amil_probe", 0)
+    need(not diffs, f"block table at {num_slots} slots: the card differs "
+         f"from the CPU path at {len(diffs)} entries, first {diffs[:4]}")
+    need(launches == len(rounds), f"block table at {num_slots} slots: "
+         f"{launches} amil_probe launches over {len(rounds)} access calls")
+    blocks = c[0]
+    nodes = graph_nodes(torch, lambda: probe_blocks(st_c, blocks, cfg))
+    probe_nodes = [n for n in nodes if n[1] and "amil_probe_kernel" in n[1]]
+    need(len(probe_nodes) == 1, f"probe_blocks at {num_slots} slots put "
+         f"{nodes} on its stream, not one launch of the probe kernel")
+    row = {"phase": "memtier_big_table", "num_slots": num_slots,
+           "num_blocks": cfg.num_blocks, "access_calls": len(rounds),
+           "requests": len(rounds) * MEMTIER_N,
+           "bit_equal_access_calls": len(rounds),
+           "amil_probe_launches": launches,
+           "card_ms_per_round_median": statistics.median(card_ms),
+           "fills": int(st_h["fills"]), "probe_blocks_graph_nodes": nodes}
+    emit(row)
+    return row
 
 
 def block_table_phase(torch, dev, flush) -> dict:
@@ -5159,8 +5418,9 @@ def block_table_phase(torch, dev, flush) -> dict:
     (reset just before, read just after: one a round); one
     ``probe_blocks`` call's stream holds exactly one probe kernel node
     (``graph_nodes``); the probe at the main path's shape against its
-    plain version; a table over the kernel's limit raises on the card.
-    Returns the probe's kernel row."""
+    plain version; then tables past the kernel's shared memory
+    (``block_table_big`` at MAX_LANES + 1 and 2^20 slots).  Returns the
+    probe's kernel row."""
     import numpy as np
     from repro_torch import _build
     from repro_torch.kernels.amil_probe import ops as probe_ops
@@ -5238,19 +5498,11 @@ def block_table_phase(torch, dev, flush) -> dict:
            "bound_by": "bytes", "library_ms": None, "launches": launches}
     emit({"phase": "kernel_vs_plain", **row})
 
-    # a table over the kernel's shared memory raises on the card
-    big = TierConfig(num_slots=probe_ops.MAX_LANES + 1,
-                     num_blocks=4 * (probe_ops.MAX_LANES + 1))
-    try:
-        probe_blocks(init_state(big, device=dev), blocks, big)
-        raised = None
-    except ValueError as e:
-        raised = str(e)
-    emit({"phase": "memtier_table_limit", "num_slots": big.num_slots,
-          "raised": raised})
-    need(raised is not None and str(probe_ops.MAX_LANES) in raised,
-         f"a {big.num_slots}-slot table did not raise naming the "
-         f"{probe_ops.MAX_LANES}-lane limit: {raised}")
+    # tables past the kernel's shared memory: the probe reads them from
+    # device memory, and access stays bit-equal to the CPU path
+    big_rows = [block_table_big(torch, dev, n)
+                for n in (probe_ops.MAX_LANES + 1, 1 << 20)]
+    row["big_tables"] = big_rows
     return row
 
 
@@ -5425,7 +5677,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None)
     ap.add_argument("--write-traces", action="store_true")
     ap.add_argument("--only", choices=["um", "um_step_costs", "amil_probe",
-                                       "ssd", "flash", "lanes", "hms_scan",
+                                       "ssd", "flash", "paged_split",
+                                       "lanes", "hms_scan",
                                        "obs", "families", "bf16_spread",
                                        "train", "bwd", "train_ssm",
                                        "ssd_bwd", "memtier", "mesh",
@@ -5435,6 +5688,7 @@ def main(argv=None) -> int:
                     "UM phases (4b, 5b and um_step_costs), um_step_costs, "
                     "the amil_probe rows (with the out-of-range check), "
                     "the ssd_scan rows, the flash_attention rows, the "
+                    "paged_attention split-mode rows, the "
                     "scenario baseline and the lanes phase (4c, 5c), "
                     "hms_scan's timing on pathfnd at (1, 1), the obs "
                     "phase (5d), the families phase (7b), the bf16 "
@@ -5515,6 +5769,8 @@ def main(argv=None) -> int:
             ssd_checks(torch, dev, flush)
         elif args.only == "flash":
             flash_checks(torch, dev, flush)
+        elif args.only == "paged_split":
+            paged_split_checks(torch, dev, flush)
         elif args.only == "hms_scan":
             hms_scan_timing(torch, T, dev, flush)
         elif args.only == "obs":
@@ -5561,6 +5817,7 @@ def main(argv=None) -> int:
     summary["ssd_scan_bwd"], ssd_bwd_launches = train_ssm_phase(
         torch, dev, flush, parent_dir=args.parent_ssd_bwd)
     paged_checks(torch, dev, flush)
+    paged_split_checks(torch, dev, flush)
     summary["ssd_scan"] = ssd_checks(torch, dev, flush)
     smoke_serve(torch)
     summary["paged_attention"], serve_launches = serving_phases(

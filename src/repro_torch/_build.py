@@ -67,6 +67,14 @@ _SIGNATURES = {
     # stream
     "paged_attention_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _I, _I, _I, _I, _F, _F, _I, _P),
+    # q, k_pages, block_table, lengths, scores, B, KV, G, gp, d, pool,
+    # page, n_pages, dtype, stream
+    "paged_scores_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                            _I, _I, _P),
+    # scores, v_pages, block_table, lengths, o, workspace, counters, B, KV,
+    # G, gp, d, pool, page, n_pages, n_split, softcap, scale, dtype, stream
+    "paged_apply_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _I, _I, _I, _I, _F, _F, _I, _P),
     # x, dt, A, B, C, bc_row, init, y, final_state, b, l, h, g, p, n,
     # chunk, dtype, stream
     "ssd_scan_launch": (_P, _P, _P, _P, _P, _L, _P, _P, _P, _I, _I, _I, _I,

@@ -32,6 +32,11 @@
 //     PERF.md): the grid is the occupancy calculator's CTAs per SM times the
 //     SMs (fewer when the requests need fewer), each thread striding over
 //     the quads.  The launcher asks the device once and caches the answer.
+//   * A table over the device's opt-in shared memory (58,108 lanes on an
+//     H100) runs the same kernel with the table left in device memory
+//     (kShared = false): no staging, no mbarrier, every gather a 4-byte
+//     load through L2 (50 MB on an H100, 12.5 M lanes), two CTAs an SM.
+//     Still one launch a call and no host read.
 
 #undef NDEBUG                      // the range check's assert in every build
 #include <assert.h>
@@ -116,6 +121,11 @@ __device__ __forceinline__ void probe_one(const int32_t* table, int n_slots,
   __stcs(aff + i, a);
 }
 
+// kShared: the table in shared memory (the TMA design, up to the
+// device's opt-in shared memory); else read where it lies in device memory
+// (a larger table: the gathers go through L2, which holds 12.5 M int32
+// lanes on an H100).
+template <bool kShared>
 __global__ void __launch_bounds__(kThreads)
 amil_probe_kernel(const int32_t* __restrict__ meta, int n_slots,
                   int bulk_slots, const int32_t* __restrict__ slots,
@@ -124,16 +134,20 @@ amil_probe_kernel(const int32_t* __restrict__ meta, int n_slots,
                   int32_t* __restrict__ aff) {
   extern __shared__ __align__(16) unsigned char smem[];
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
-  int32_t* table = reinterpret_cast<int32_t*>(smem + kTableOffset);
+  const int32_t* table = meta;
   const int tid = threadIdx.x;
-  if (tid == 0 && bulk_slots > 0) {
-    mbar_init(bar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    mbar_expect_tx(bar, (uint32_t)bulk_slots * 4u);
-    bulk_load(table, meta, (uint32_t)bulk_slots * 4u, bar);
+  if constexpr (kShared) {
+    int32_t* staged = reinterpret_cast<int32_t*>(smem + kTableOffset);
+    if (tid == 0 && bulk_slots > 0) {
+      mbar_init(bar, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      mbar_expect_tx(bar, (uint32_t)bulk_slots * 4u);
+      bulk_load(staged, meta, (uint32_t)bulk_slots * 4u, bar);
+    }
+    for (int i = bulk_slots + tid; i < n_slots; i += blockDim.x)
+      staged[i] = meta[i];
+    table = staged;
   }
-  for (int i = bulk_slots + tid; i < n_slots; i += blockDim.x)
-    table[i] = meta[i];
 
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   const int64_t gid = (int64_t)blockIdx.x * blockDim.x + tid;
@@ -148,8 +162,10 @@ amil_probe_kernel(const int32_t* __restrict__ meta, int n_slots,
     s = __ldcs(s4 + q);
     t = __ldcs(t4 + q);
   }
-  __syncthreads();                 // the scalar part of the table
-  if (bulk_slots > 0) mbar_wait(bar, 0);
+  if constexpr (kShared) {
+    __syncthreads();               // the scalar part of the table
+    if (bulk_slots > 0) mbar_wait(bar, 0);
+  }
 
   while (q < quads) {
     const int64_t qn = q + stride;
@@ -176,66 +192,93 @@ amil_probe_kernel(const int32_t* __restrict__ meta, int n_slots,
     probe_one(table, n_slots, slots, tags, i, hit, dirty, aff);
 }
 
-// The grid of one wave for a table of `smem` bytes on device `dev`: CTAs per
-// SM times SMs.  The first call on a device raises the kernel's dynamic
-// shared memory to the device's opt-in maximum; each table size's occupancy
-// is asked once.  Returns a CUDA error code.
-int wave_blocks(int dev, size_t smem, int64_t* blocks) {
+// The SMs and the opt-in shared memory of device `dev`, asked once; the
+// first call also raises the shared kernel's dynamic shared memory to the
+// opt-in maximum.  Returns a CUDA error code.
+int device_limits(int dev, int* n_sms, size_t* optin) {
   static std::mutex mu;
-  static std::map<int, int> sms;                   // device -> SMs
-  static std::map<std::pair<int, size_t>, int> per_sm;
+  static std::map<int, std::pair<int, size_t>> seen;
   std::lock_guard<std::mutex> lock(mu);
-  auto d = sms.find(dev);
-  if (d == sms.end()) {
-    int n_sms = 0, optin = 0;
+  auto d = seen.find(dev);
+  if (d == seen.end()) {
+    int sms = 0, max_smem = 0;
     cudaError_t e;
-    if ((e = cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount,
+    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                     dev)) != cudaSuccess ||
         (e = cudaDeviceGetAttribute(
-             &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
+             &max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
             cudaSuccess ||
-        (e = cudaFuncSetAttribute(amil_probe_kernel,
+        (e = cudaFuncSetAttribute(amil_probe_kernel<true>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  optin)) != cudaSuccess)
+                                  max_smem)) != cudaSuccess)
       return (int)e;
-    d = sms.emplace(dev, n_sms).first;
+    d = seen.emplace(dev, std::make_pair(sms, (size_t)max_smem)).first;
   }
-  auto o = per_sm.find({dev, smem});
+  *n_sms = d->second.first;
+  *optin = d->second.second;
+  return 0;
+}
+
+// The grid of one wave of the kernel (shared: holding a table of `smem`
+// bytes) on device `dev`: CTAs per SM times SMs, each size's occupancy
+// asked once.  Returns a CUDA error code.
+int wave_blocks(int dev, int n_sms, bool shared, size_t smem,
+                int64_t* blocks) {
+  static std::mutex mu;
+  static std::map<std::pair<int, size_t>, int> per_sm;
+  std::lock_guard<std::mutex> lock(mu);
+  const size_t key = shared ? smem : 0;    // the shared design's is >= 16
+  auto o = per_sm.find({dev, key});
   if (o == per_sm.end()) {
     int n = 0;
-    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, amil_probe_kernel, kThreads, smem);
+    const cudaError_t e =
+        shared ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                     &n, amil_probe_kernel<true>, kThreads, smem)
+               : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                     &n, amil_probe_kernel<false>, kThreads, 0);
     if (e != cudaSuccess) return (int)e;
     if (n < 1) return (int)cudaErrorInvalidConfiguration;
-    o = per_sm.emplace(std::make_pair(dev, smem), n).first;
+    o = per_sm.emplace(std::make_pair(dev, key), n).first;
   }
-  *blocks = (int64_t)o->second * d->second;
+  *blocks = (int64_t)o->second * n_sms;
   return 0;
 }
 
 }  // namespace
 
 // The probe of n requests against an n_slots-lane table on device `dev`
-// (the current device).  Returns cudaGetLastError() after the launch (or the
-// error that refused it).
+// (the current device): the shared design while the table fits the
+// device's opt-in shared memory, else the device-memory design.  Returns
+// cudaGetLastError() after the launch (or the error that refused it).
 extern "C" int amil_probe_launch(const int32_t* meta, int n_slots,
                                  const int32_t* slots, const int32_t* tags,
                                  int64_t n, int32_t* hit, int32_t* dirty,
                                  int32_t* aff, int dev, void* stream) {
   if (n <= 0) return 0;
+  if (n_slots <= 0) return (int)cudaErrorInvalidValue;
+  int n_sms = 0;
+  size_t optin = 0;
+  int e = device_limits(dev, &n_sms, &optin);
+  if (e != 0) return e;
   const size_t smem = kTableOffset + (size_t)n_slots * sizeof(int32_t);
+  const bool shared = smem <= optin;
   int64_t wave = 0;
-  const int e = wave_blocks(dev, smem, &wave);
+  e = wave_blocks(dev, n_sms, shared, smem, &wave);
   if (e != 0) return e;
   const AmilSpan sp = amil_span(slots, tags, hit, dirty, aff, n);
   const int64_t work = sp.quads > sp.tail ? sp.quads : sp.tail;
   int64_t blocks = (work + kThreads - 1) / kThreads;
   if (blocks > wave) blocks = wave;
   if (blocks < 1) blocks = 1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!shared) {
+    amil_probe_kernel<false><<<(int)blocks, kThreads, 0, st>>>(
+        meta, n_slots, 0, slots, tags, sp.quads, n, hit, dirty, aff);
+    return (int)cudaGetLastError();
+  }
   const int bulk_slots =
       (reinterpret_cast<uintptr_t>(meta) & 15) == 0 ? (n_slots & ~3) : 0;
-  amil_probe_kernel<<<(int)blocks, kThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
+  amil_probe_kernel<true><<<(int)blocks, kThreads, smem, st>>>(
       meta, n_slots, bulk_slots, slots, tags, sp.quads, n, hit, dirty, aff);
   return (int)cudaGetLastError();
 }

@@ -2,8 +2,10 @@
 
 On CUDA tensors :func:`amil_probe` launches the kernel in
 ``csrc/amil_probe.cu`` (one launch a call; the kernel checks the slots'
-range itself); on CPU tensors it runs the plain version in ``ref.py``.
-Any other placement raises.
+range itself): a table of up to ``MAX_LANES`` lanes is staged in one
+CTA's shared memory, a larger one is read from device memory (through
+L2) by the same kernel's other design.  On CPU tensors it runs the plain
+version in ``ref.py``.  Any other placement raises.
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ from .ref import amil_probe_reference
 
 _SMEM_LIMIT = 227 * 1024          # shared memory of one H100 block
 _TABLE_OFFSET = 16                # the kernel's mbarrier, ahead of the table
-# the largest table the kernel holds: 58,108 int32 lanes
+# the largest table the kernel stages in shared memory on an H100: 58,108
+# int32 lanes (the kernel asks the device for its own limit)
 MAX_LANES = (_SMEM_LIMIT - _TABLE_OFFSET) // 4
 
 
@@ -33,10 +36,8 @@ def amil_probe(meta, slots, tags):
     if slots.shape != tags.shape:
         raise ValueError("amil_probe: slots and tags differ in shape")
     n_slots = meta.shape[0]
-    if not 0 < n_slots <= MAX_LANES:
-        raise ValueError(f"amil_probe: a {n_slots}-lane table does not fit "
-                         f"one block's shared memory (at most {MAX_LANES} "
-                         "lanes on the card)")
+    if n_slots == 0:
+        raise ValueError("amil_probe: an empty table")
     meta, slots, tags = (t.contiguous() for t in (meta, slots, tags))
     hit, dirty, aff = (torch.empty_like(slots) for _ in range(3))
     n = slots.shape[0]

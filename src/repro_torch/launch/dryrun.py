@@ -46,12 +46,28 @@ the fake run's wall):
     all-gather, ``allreduce_`` -> all-reduce, ``_reduce_scatter_base_`` ->
     reduce-scatter, ``alltoall_base_`` -> all-to-all; collective-permute
     stays 0.
+  * ``savepoints``: with remat (train), the bytes of each layer input the
+    forward keeps for the backward (``ctx.state["savepoints"]``): their
+    number, the largest (``per_layer``) and their sum.
 The collectives are the port's explicit ones (FSDP gathers and
-reduce-scatters, the Megatron pairs, the MoE placements, a decode cache
-split by head dim gathered a layer at a time), not those GSPMD chooses for
-the reference, so they are compared with the reference's and recorded,
-not held equal.  Sequence parallelism is not ported: every result carries
-``"sequence_parallel": false`` and ``--no-sp`` changes nothing.
+reduce-scatters, the Megatron pairs and their sequence-parallel forms, the
+MoE placements, a decode cache split by head dim summing its partial
+scores), not those GSPMD chooses for the reference, so they are compared
+with the reference's and recorded, not held equal.
+
+Knobs, as the reference's ``lower_cell``: ``sequence_parallel`` (on by
+default for train and prefill, never for decode; a sequence the model
+axis does not divide runs without it; ``--no-sp``), ``sp_prenorm``,
+``pure_fsdp`` (data over every mesh axis, no tensor parallelism, SP off).
+The reference's ``sp_barrier``, ``grad_barrier`` and ``grad_shard`` pin
+choices XLA could otherwise make, which the port's explicit collectives
+already make: the sequence collectives move the residual in its own type
+(``sp_barrier``), the gradients are reduced in the parameters' type
+(``grad_barrier``), and each sharded weight's gradient is
+reduce-scattered into its shard by its gather's backward
+(``grad_shard``).  ``lower_cell`` takes them as keywords, lists those set
+under ``"ignored"``, and changes nothing.  Each result's
+``"sequence_parallel"`` says whether the step ran with it.
 
 ``--probe``: the reference counts a scanned layer once and extrapolates
 from compiles at 2 and 3 layer units per stack dim; the port runs every
@@ -62,7 +78,9 @@ remat is off (serving).
 
 Usage:
     python -m repro_torch.launch.dryrun --arch granite-8b --shape train_4k \\
-        [--multi-pod] [--probe] [--rank R] [--json out.json]
+        [--multi-pod] [--probe] [--rank R] [--json out.json] [--no-sp]
+        [--sp-prenorm] [--pure-fsdp]
+        [--grad-shard]
     python -m repro_torch.launch.dryrun --all [--multi-pod] [--probe]
 """
 
@@ -329,6 +347,7 @@ def run_cell(cfg, shape, mesh, ctx, pcfg) -> Dict[str, object]:
         outputs = sum(_nbytes(t) for t in _tensors(out))
         temps = cost.temps(_storage_keys(out))
     arguments = sum(in_bytes.values())
+    saved = list(ctx.state["savepoints"]) if train and ctx.remat else []
     return {
         "compile_s": round(wall, 1),
         "per_device_bytes": {
@@ -342,7 +361,14 @@ def run_cell(cfg, shape, mesh, ctx, pcfg) -> Dict[str, object]:
         "collective_bytes": {k: float(v)
                              for k, v in cost.collective_bytes.items()},
         "collective_counts": dict(cost.collective_counts),
+        "savepoints": {"count": len(saved),
+                       "per_layer": max(saved, default=0),
+                       "total": sum(saved)},
     }
+
+
+# the reference's pins of XLA's choices, which the port's collectives make
+XLA_PINS = ("sp_barrier", "grad_barrier", "grad_shard")
 
 
 def lower_cell(arch: Union[str, object], shape_name: Union[str, object],
@@ -351,17 +377,23 @@ def lower_cell(arch: Union[str, object], shape_name: Union[str, object],
                kv_mode: str = "auto", remat: bool = True,
                moe_shard_map: bool = True, sequence_parallel: bool = True,
                moe_impl: str = "tp", rank: int = 0,
-               mesh_shape: Optional[Tuple[int, ...]] = None):
+               mesh_shape: Optional[Tuple[int, ...]] = None,
+               sp_prenorm: bool = False, pure_fsdp: bool = False,
+               **xla_pins: bool):
     """The dry run of one cell on rank ``rank``.  ``arch``: a registered
     id, or a ``ModelConfig`` (another type than the published one);
     ``shape_name``: a name in ``SHAPES`` or a ``ShapeSpec``;
     ``mesh_shape``: another (data, model) or (pod, data, model) mesh than
-    the production one (the port's checks on a few cards).
-    ``sequence_parallel`` is accepted and ignored (not ported)."""
+    the production one (the port's checks on a few cards).  The knobs are
+    the reference's (module docstring); ``xla_pins``: any of XLA_PINS,
+    recorded and ignored."""
     from ..configs import SHAPES, cell_is_valid, get_config
     from ..parallel import sharding as shard_rules
     from ..parallel.mesh_ctx import MeshCtx
 
+    unknown = set(xla_pins) - set(XLA_PINS)
+    if unknown:
+        raise TypeError(f"lower_cell: unknown knobs {sorted(unknown)}")
     if isinstance(arch, str):
         cfg = get_config(arch)
     else:
@@ -375,11 +407,19 @@ def lower_cell(arch: Union[str, object], shape_name: Union[str, object],
 
     mesh = _mesh(multi_pod, mesh_shape, rank)
     names = tuple(mesh.mesh_dim_names)
-    pcfg = shard_rules.make_parallel_cfg(mesh, kv_mode=kv_mode)
-    ctx = MeshCtx(mesh=mesh, dp=tuple(a for a in names if a != "model"),
-                  tp="model", remat=remat and shape.kind == "train",
+    pcfg = shard_rules.make_parallel_cfg(mesh, kv_mode=kv_mode,
+                                         pure_fsdp=pure_fsdp)
+    dp_axes = tuple(a for a in names if a != "model")
+    if pure_fsdp:
+        dp_axes, sequence_parallel = names, False
+    ctx = MeshCtx(mesh=mesh, dp=dp_axes, tp="model", pure_dp=pure_fsdp,
+                  remat=remat and shape.kind == "train",
                   use_shard_map_moe=moe_shard_map, moe_impl=moe_impl,
-                  kv_mode=kv_mode)
+                  kv_mode=kv_mode, sp_prenorm=sp_prenorm,
+                  sequence_parallel=(sequence_parallel
+                                     and shape.kind != "decode"))
+    sp_ran = (ctx.sequence_parallel and ctx.tp_size > 1
+              and shape.seq_len % ctx.tp_size == 0)
     result = {
         "arch": arch, "shape": shape.name,
         "mesh": dict(zip(names, (int(s) for s in mesh.shape))),
@@ -387,7 +427,9 @@ def lower_cell(arch: Union[str, object], shape_name: Union[str, object],
         "kind": shape.kind,
         "params": cfg.param_count(),
         "active_params": cfg.active_param_count(),
-        "sequence_parallel": False,
+        "sequence_parallel": bool(sp_ran),
+        "knobs": {"sp_prenorm": sp_prenorm, "pure_fsdp": pure_fsdp},
+        "ignored": sorted(k for k, on in xla_pins.items() if on),
     }
     result["deploy"] = run_cell(cfg, shape, mesh, ctx, pcfg)
     if verbose:
@@ -451,7 +493,11 @@ def main(argv=None):
     ap.add_argument("--no-remat", action="store_true")
     ap.add_argument("--no-moe-shard-map", action="store_true")
     ap.add_argument("--no-sp", action="store_true",
-                    help="sequence parallelism is not ported: no effect")
+                    help="disable sequence parallelism (perf baseline)")
+    ap.add_argument("--sp-prenorm", action="store_true",
+                    help="norms on the gathered sequence")
+    ap.add_argument("--pure-fsdp", action="store_true",
+                    help="ZeRO-3: data over every axis, no TP, no SP")
     ap.add_argument("--moe-impl", default="tp", choices=["tp", "ep"])
     ap.add_argument("--rank", type=int, default=0,
                     help="the rank whose step runs (default 0)")
@@ -468,7 +514,9 @@ def main(argv=None):
                            kv_mode=args.kv_mode, remat=not args.no_remat,
                            moe_shard_map=not args.no_moe_shard_map,
                            sequence_parallel=not args.no_sp,
-                           moe_impl=args.moe_impl, rank=args.rank)
+                           moe_impl=args.moe_impl, rank=args.rank,
+                           sp_prenorm=args.sp_prenorm,
+                           pure_fsdp=args.pure_fsdp)
         except Exception as e:  # noqa: BLE001 -- a cell failure is a report
             r = {"arch": arch, "shape": shape, "error": repr(e),
                  "sequence_parallel": False}

@@ -112,8 +112,10 @@ def probe_blocks(state, blocks, cfg: TierConfig):
     """Residency of ``blocks`` (int32[N] global block ids) through
     ``amil_probe``.
 
-    Returns (hit int32[N], slot int32[N], dirty int32[N], aff int32[N]).
-    On the card a table over the probe's shared-memory limit raises."""
+    Returns (hit int32[N], slot int32[N], dirty int32[N], aff int32[N]),
+    for a table of any size (on the card one probe launch: the table in
+    shared memory up to ``amil_probe.ops.MAX_LANES`` lanes, else read from
+    device memory)."""
     slots = blocks % cfg.num_slots
     tags = blocks // cfg.num_slots
     hit, dirty, aff = probe_ops.probe(state["meta"], slots, tags)

@@ -22,12 +22,20 @@ Conventions:
     behind ``copy_to``, row-parallel ``wo``/``w_down`` summed by
     ``reduce_from``, the vocabulary split for ``tok`` and ``unembed``;
     elsewhere the weights are gathered whole and the op is the meshless
-    one.  A serving cache on a mesh is this rank's shard in the layout
+    one.  Where the query heads split over ``model`` but the K/V heads do
+    not (``attn_mode`` "q"), the attention runs on its local query heads
+    against the K/V heads they read, computed from ``wk``/``wv`` gathered
+    whole.  A serving cache on a mesh is this rank's shard in the layout
     ``sharding.kv_layout`` gives (``ctx.kv_mode``): split by KV heads, the
-    attention runs on the local heads (tensor-parallel) against it; split
-    by head dim, or replicated, the attention computes every head (its
-    weights gathered whole), writes its part of the new K/V and, split,
-    all-gathers the layer's cache before the kernel reads it;
+    attention runs on the local heads against it; split by head dim,
+    prefill writes its slice of every head and decode sums each head's
+    partial scores over ``model`` (the split mode of ``paged_attention``);
+    replicated, decode computes every head;
+  * sequence parallelism (``sp``, a ``collectives.SeqShard``): a block's
+    input is this rank's rows of the sequence; a tensor-parallel region
+    all-gathers the sequence at entry (in the place of ``copy_to``) and
+    reduce-scatters it at exit (in the place of ``reduce_from``), a whole
+    one gathers and keeps its own rows;
   * KV caches are dicts ``{"k": (B, max_len, KV, hd), "v": ...}`` per
     layer.  Decode writes the new token's K/V into the cache in place (the
     JAX code returns an updated copy; the values are the same) and reads it
@@ -37,6 +45,7 @@ Conventions:
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -46,7 +55,9 @@ from torch import nn
 
 from ..kernels.flash_attention.ops import (flash_attention,
                                            flash_attention_trainable)
-from ..kernels.paged_attention.ops import paged_decode_attention
+from ..kernels.paged_attention.ops import (paged_decode_apply,
+                                           paged_decode_attention,
+                                           paged_decode_scores)
 from ..parallel import collectives as C
 from ..parallel.sharding import kv_layout
 from .config import ModelConfig
@@ -84,9 +95,14 @@ class RMSNorm(nn.Module):
 
 
 def rms_norm(x, p: RMSNorm, eps: float = 1e-5):
+    return rms_norm_scaled(x, p.scale, eps)
+
+
+def rms_norm_scaled(x, scale, eps: float = 1e-5):
+    """``rms_norm`` with the scale given as a tensor."""
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * p.scale).to(x.dtype)
+    return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
 
 
 def rms_norm_split(x, scale, eps: float, group, d: int):
@@ -174,7 +190,8 @@ def attention(p: Attention, x, cfg: ModelConfig, *,
               x_kv=None,
               use_rope: bool = True,
               hd: Optional[int] = None,
-              ctx=None):
+              ctx=None,
+              sp: Optional[C.SeqShard] = None):
     """General attention (GQA, optional bias and softcap).
 
     * training / prefill (``pos`` None): the flash attention kernel over the
@@ -191,27 +208,37 @@ def attention(p: Attention, x, cfg: ModelConfig, *,
     dim).  ``rope`` (:func:`rope_tables` of the positions, at this head
     dim) and ``pages`` (:func:`decode_pages`' table and lengths) are built
     here when not given; a forward pass builds them once for all its
-    layers.  ``ctx``: the mesh, on which the block runs on its local heads
-    when ``wq``/``wk``/``wv`` (columns) and ``wo`` (rows) are split over
-    ``model`` at head boundaries and a cache, if any, is split by heads;
-    a cache is this rank's shard (``kv_split``).
+    layers.  ``ctx``: the mesh (:func:`attn_mode`: the block on its local
+    query heads, with the K/V heads local too or computed whole; a cache
+    is this rank's shard).  ``sp``: ``x`` is this rank's rows of the
+    sequence (sequence parallelism), gathered at entry, and the result is
+    this rank's rows again.
     """
-    B, S, _ = x.shape
     hd = hd or cfg.hd
-    tp, cdim = kv_split(ctx, cfg, kv_cache is not None,
-                        heads_split(ctx, p, hd))
-    col, row = (1, 0) if tp else (None, None)
-    if tp:
-        group = ctx.group(ctx.tp)
+    mode, cdim = attn_mode(ctx, p, cfg, hd, kv_cache is not None,
+                           pos is not None)
+    qtp = mode is not None
+    col, row = (1, 0) if qtp else (None, None)
+    kcol, krow = (1, 0) if mode == "heads" else (None, None)
+    group = ctx.group(ctx.tp) if qtp else None
+    if sp is not None:
+        x = sp.enter(x, qtp)
+    elif qtp:
         x = C.copy_to(x, group)
-        x_kv = None if x_kv is None else C.copy_to(x_kv, group)
+    if qtp and x_kv is not None:
+        x_kv = C.copy_to(x_kv, group)
+    B, S, _ = x.shape
     src = x if x_kv is None else x_kv
+    # K/V heads computed whole for local query heads: each rank reads
+    # other columns of wk / wv, so their gradients are summed over model
+    kv_sum = mode == "q"
     q = x @ C.weight(ctx, p.wq, col)
-    k = src @ C.weight(ctx, p.wk, col)
-    v = src @ C.weight(ctx, p.wv, col)
+    k = src @ C.weight(ctx, p.wk, kcol, summed=kv_sum)
+    v = src @ C.weight(ctx, p.wv, kcol, summed=kv_sum)
     if p.bq is not None:
-        q, k, v = (q + C.weight(ctx, p.bq, row), k + C.weight(ctx, p.bk, row),
-                   v + C.weight(ctx, p.bv, row))
+        q = q + C.weight(ctx, p.bq, row)
+        k = k + C.weight(ctx, p.bk, krow, summed=kv_sum)
+        v = v + C.weight(ctx, p.bv, krow, summed=kv_sum)
     H = q.shape[-1] // hd
     KV = k.shape[-1] // hd
     q = q.reshape(B, S, H, hd)
@@ -232,57 +259,108 @@ def attention(p: Attention, x, cfg: ModelConfig, *,
         if S != 1:
             raise ValueError(f"decode takes one token per step, got {S}")
         kc, vc = kv_cache["k"], kv_cache["v"]
-        if cdim is None:
-            kc[:, pos] = k[:, 0]
-            vc[:, pos] = v[:, 0]
-        else:       # write this rank's part, read the layer's whole cache
-            tg = ctx.group(ctx.tp)
-            kc[:, pos] = C.own_chunk(k[:, 0], cdim - 1, tg)
-            vc[:, pos] = C.own_chunk(v[:, 0], cdim - 1, tg)
-            kc, vc = C.gathered(kc, cdim, tg), C.gathered(vc, cdim, tg)
         Bc, max_len = kc.shape[:2]
         table, lengths = pages if pages is not None else decode_pages(
             Bc, max_len, pos, x.device)
-        pool = (Bc * max_len // DECODE_PAGE, DECODE_PAGE, KV, hd)
-        out = paged_decode_attention(q, kc.view(pool), vc.view(pool), table,
-                                     lengths, softcap=cfg.logit_softcap)
-        out = out.reshape(B, S, H * hd) @ C.weight(ctx, p.wo, row)
-        return (C.reduce_from(out, group) if tp else out), kv_cache
+        if cdim == 3:   # write this rank's slice, sum the partial scores
+            tg = ctx.group(ctx.tp)
+            kc[:, pos] = C.own_chunk(k[:, 0], 2, tg)
+            vc[:, pos] = C.own_chunk(v[:, 0], 2, tg)
+            pool = (Bc * max_len // DECODE_PAGE, DECODE_PAGE) + kc.shape[2:]
+            out = split_attend(q, kc.view(pool), vc.view(pool), table,
+                               lengths, ctx, qtp, hd, cfg.logit_softcap)
+        else:
+            if cdim is None:
+                kc[:, pos] = k[:, 0]
+                vc[:, pos] = v[:, 0]
+            else:   # write this rank's heads, read the layer's whole cache
+                tg = ctx.group(ctx.tp)
+                kc[:, pos] = C.own_chunk(k[:, 0], cdim - 1, tg)
+                vc[:, pos] = C.own_chunk(v[:, 0], cdim - 1, tg)
+                kc, vc = C.gathered(kc, cdim, tg), C.gathered(vc, cdim, tg)
+            pool = (Bc * max_len // DECODE_PAGE, DECODE_PAGE, KV, hd)
+            out = paged_decode_attention(q, kc.view(pool), vc.view(pool),
+                                         table, lengths,
+                                         softcap=cfg.logit_softcap)
+        out = out.reshape(B, S, -1) @ C.weight(ctx, p.wo, row)
+        return (C.reduce_from(out, group) if qtp else out), kv_cache
 
     new_cache = None
     if kv_cache is not None:
         new_cache = {"k": k, "v": v} if cdim is None else {
             "k": C.own_chunk(k, cdim, ctx.group(ctx.tp)),
             "v": C.own_chunk(v, cdim, ctx.group(ctx.tp))}
+    if mode == "q":
+        k, v = _kv_for_heads(k, v, ctx.coord(ctx.tp) * H, H,
+                             H * ctx.tp_size // KV)
     attend = flash_attention_trainable if torch.is_grad_enabled() \
         else flash_attention
     out = attend(q, k, v, causal=causal, softcap=cfg.logit_softcap)
     out = out.reshape(B, S, H * hd) @ C.weight(ctx, p.wo, row)
-    if tp:
+    if sp is not None:
+        out = sp.exit(out, qtp)
+    elif qtp:
         out = C.reduce_from(out, group)
     return out, new_cache
 
 
-def heads_split(ctx, p: Attention, hd: int) -> bool:
-    """Whether ``p``'s weights are split over ``model`` at head
-    boundaries (columns of ``wq``/``wk``/``wv``, rows of ``wo``)."""
-    return C.tp_region(ctx, (p.wq, 1), (p.wk, 1), (p.wv, 1), (p.wo, 0),
-                       (p.bq, 0), (p.bk, 0), (p.bv, 0)) \
-        and p.wq.shape[1] % hd == 0 and p.wk.shape[1] % hd == 0
+def _kv_for_heads(k, v, h0: int, n: int, G: int):
+    """The K/V heads that query heads ``h0 ... h0 + n - 1`` read (head h
+    reads KV head h // G), as a GQA pair for those heads: a run of whole
+    groups, one head for all of them, or else one K/V head a query head."""
+    lo, hi = h0 // G, (h0 + n - 1) // G + 1
+    if (h0 % G == 0 and n % G == 0) or hi - lo == 1:
+        return (k[:, :, lo:hi].contiguous(), v[:, :, lo:hi].contiguous())
+    idx = torch.arange(h0, h0 + n, device=k.device) // G
+    return k.index_select(2, idx), v.index_select(2, idx)
 
 
-def kv_split(ctx, cfg: ModelConfig, cached: bool, tp_ok: bool):
-    """(tp, cdim) of an attention on a mesh: whether it runs on its local
-    heads (``tp_ok``: its weights allow it; a cache, if ``cached``, split
-    by heads too), and the dim of a (B, T, KV, hd) cache that is split
-    over ``model`` while the attention computes every head (2 for heads,
-    3 for the head dim), else None."""
-    if not cached or ctx is None or not ctx.active or ctx.tp_size == 1:
-        return tp_ok, None
+def split_attend(q, k_pages, v_pages, table, lengths, ctx, qtp: bool,
+                 hd: int, softcap: float = 0.0):
+    """Attention of one query a row over paged K/V split over ``model`` by
+    head dim (the reference's partial scores): the rank's slice of every
+    query head's scores (``paged_decode_scores``) summed over ``model``,
+    the softmax and its product with the rank's V slice
+    (``paged_decode_apply``), the slices all-gathered.  With ``qtp`` the
+    query heads are this rank's (gathered first) and this rank's heads of
+    the output come back.  q (B, 1, H or H / tp, hd) -> the same shape."""
+    tg = ctx.group(ctx.tp)
+    if qtp:
+        q = C.gathered(q, 2, tg)
+    qs = C.own_chunk(q, 3, tg).contiguous()
+    scores = C.summed(paged_decode_scores(qs, k_pages, table, lengths), tg)
+    out = paged_decode_apply(scores, v_pages, table, lengths,
+                             scale=1.0 / math.sqrt(hd), softcap=softcap)
+    out = C.gathered(out, 3, tg)
+    return C.own_chunk(out, 2, tg) if qtp else out
+
+
+def attn_mode(ctx, p: Attention, cfg: ModelConfig, hd: int, cached: bool,
+              decode: bool):
+    """(mode, cdim) of an attention on a mesh.  ``mode``: "heads" (the
+    query and K/V heads this rank's: ``wq``/``wk``/``wv`` split over
+    ``model`` at head boundaries, and a cache, if ``cached``, split by
+    heads), "q" (the query heads this rank's, ``wq`` and ``wo`` split at
+    head boundaries, the K/V heads computed whole from ``wk``/``wv``
+    gathered), or None (every head, the weights gathered whole).
+    ``cdim``: the dim of a (B, T, KV, hd) cache split over ``model`` that
+    the attention does not hold whole (2 for heads, 3 for the head dim),
+    else None.  A decode over a replicated cache computes every head, as
+    the reference's does."""
+    if ctx is None or not ctx.active or ctx.tp_size == 1:
+        return None, None
+    q_ok = C.tp_region(ctx, (p.wq, 1), (p.wo, 0), (p.bq, 0)) \
+        and p.wq.shape[1] % hd == 0
+    kv_ok = q_ok and C.tp_region(ctx, (p.wk, 1), (p.wv, 1), (p.bk, 0),
+                                 (p.bv, 0)) and p.wk.shape[1] % hd == 0
+    if not cached:
+        return ("heads" if kv_ok else "q" if q_ok else None), None
     layout = kv_layout(cfg, ctx.kv_mode, ctx.tp_size)
-    if tp_ok and layout == "heads":
-        return True, None
-    return False, {"heads": 2, "head_dim": 3}.get(layout)
+    if layout == "heads":
+        return ("heads", None) if kv_ok else (None, 2)
+    if decode and layout == "replicate":
+        return None, None
+    return ("q" if q_ok else None), {"heads": 2, "head_dim": 3}.get(layout)
 
 
 # ---------------------------------------------------------------------------
@@ -314,27 +392,37 @@ def silu(x):
     return x * (1.0 / (1.0 + torch.exp(-x)))
 
 
-def mlp(p: MLP, x, cfg: ModelConfig, ctx=None):
+def mlp(p: MLP, x, cfg: ModelConfig, ctx=None,
+        sp: Optional[C.SeqShard] = None):
     """The FFN; on a mesh column-parallel ``w_gate``/``w_up`` (``b_up``)
-    and row-parallel ``w_down`` where they are split over ``model``."""
+    and row-parallel ``w_down`` where they are split over ``model``;
+    ``sp``: ``x`` is this rank's rows of the sequence (see
+    :func:`attention`)."""
     b_up = getattr(p, "b_up", None)
     tp = C.tp_region(ctx, (p.w_gate, 1), (p.w_up, 1), (b_up, 0),
                      (p.w_down, 0))
     col, row = (1, 0) if tp else (None, None)
-    if tp:
-        group = ctx.group(ctx.tp)
+    group = ctx.group(ctx.tp) if tp else None
+    if sp is not None:
+        x = sp.enter(x, tp)
+    elif tp:
         x = C.copy_to(x, group)
     w_up, w_down = C.weight(ctx, p.w_up, col), C.weight(ctx, p.w_down, row)
     if p.w_gate is not None:
         g = x @ C.weight(ctx, p.w_gate, col)
         out = (silu(g) * (x @ w_up)) @ w_down
-        return C.reduce_from(out, group) if tp else out
-    h = F.gelu(x @ w_up + C.weight(ctx, b_up, row),
-               approximate="tanh")                       # jax.nn.gelu
-    out = h @ w_down
-    if tp:
+    else:
+        h = F.gelu(x @ w_up + C.weight(ctx, b_up, row),
+                   approximate="tanh")                   # jax.nn.gelu
+        out = h @ w_down
+    if sp is not None:
+        out = sp.exit(out, tp)
+    elif tp:
         out = C.reduce_from(out, group)
-    return out + p.b_down
+    if p.w_gate is not None:
+        return out
+    # under sequence parallelism each rank adds the bias to its own rows
+    return out + (p.b_down if sp is None else C.copy_to(p.b_down, sp.group))
 
 
 # ---------------------------------------------------------------------------

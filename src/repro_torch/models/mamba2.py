@@ -88,7 +88,8 @@ def _conv_step(win, w, b):
 
 def mamba_block(p: MambaBlock, x, cfg: ModelConfig,
                 cache: Optional[Cache] = None, pos: Optional[int] = None,
-                ctx=None) -> Tuple[torch.Tensor, Optional[Cache]]:
+                ctx=None, sp: Optional[C.SeqShard] = None
+                ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """x: (B, S, D).  Training/prefill when ``pos`` is None; decode
     otherwise.
 
@@ -100,14 +101,19 @@ def mamba_block(p: MambaBlock, x, cfg: ModelConfig,
     returns a new one with the same values).  ``ctx``: the mesh, where a
     cache is this rank's shard: its heads (``state``) and channels
     (``conv_x``) split over ``model`` as the block's tensor-parallel
-    region splits them."""
-    B, S, _ = x.shape
+    region splits them.  ``sp``: ``x`` is this rank's rows of the sequence
+    (sequence parallelism), gathered at entry (its gradient this rank's
+    rows: the whole projections read it too, and ``copy_to`` sums the
+    tensor-parallel ones), and so is the result."""
     di, g, n, h = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
     hp, K = cfg.ssm_head_dim, cfg.ssm_conv
     tp = C.tp_region(ctx, (p.z_proj, 1), (p.x_proj, 1), (p.conv_x_w, 1),
                      (p.conv_x_b, 0), (p.out_proj, 0)) \
         and h % ctx.tp_size == 0 and (g == 1 or g % ctx.tp_size == 0)
     col, row = (1, 0) if tp else (None, None)
+    if sp is not None:
+        x = sp.enter(x, tp, mixed=True)
+    B, S, _ = x.shape
     xt = x
     if tp:
         group = ctx.group(ctx.tp)
@@ -178,10 +184,13 @@ def mamba_block(p: MambaBlock, x, cfg: ModelConfig,
     if tp:
         y = rms_norm_split(y * silu(z), C.split(p.gate_norm.scale, 0, group),
                            cfg.norm_eps, group, di)
-        out = C.reduce_from(y @ C.weight(ctx, p.out_proj, row), group)
+        out = y @ C.weight(ctx, p.out_proj, row)
+        out = sp.exit(out, True) if sp is not None else \
+            C.reduce_from(out, group)
         return out.to(x.dtype), cache
     y = rms_norm(y * silu(z), p.gate_norm, cfg.norm_eps)
-    return (y @ C.weight(ctx, p.out_proj)).to(x.dtype), cache
+    out = (y @ C.weight(ctx, p.out_proj)).to(x.dtype)
+    return (out if sp is None else sp.exit(out, False)), cache
 
 
 def init_mamba_cache(cfg: ModelConfig, batch: int, *, device=None) -> Cache:

@@ -81,13 +81,14 @@ def _top_k(probs, k: int):
 
 
 def _dispatch_ffn(x_flat, p: MoE, cfg: ModelConfig, tp_group=None,
-                  experts=None):
+                  experts=None, reduce: bool = True):
     """Route T tokens (T, D) through the E experts with capacity dropping;
     returns (y (T, D), aux) with the Switch-style load-balance aux
     ``E * sum_e frac_e * mean_p_e`` over each token's first choice.
     ``experts``: the (w_gate, w_up, w_down) to compute with (default the
     module's); ``tp_group``: the group over which they hold slices of the
-    FFN hidden dim, whose partial outputs are summed after the combine."""
+    FFN hidden dim, whose partial outputs are summed after the combine
+    (left partial with ``reduce`` off)."""
     T, D = x_flat.shape
     E, k = cfg.n_experts, cfg.top_k
     C = _capacity(T, cfg)
@@ -126,7 +127,8 @@ def _dispatch_ffn(x_flat, p: MoE, cfg: ModelConfig, tp_group=None,
     flat_w = coll.copy_to(flat_w, tp_group)
     gathered = out[flat_e, slot] * (flat_w * keep)[:, None].to(out.dtype)
     y = _combine(gathered, T, k, x_flat)
-    y = coll.reduce_from(y, tp_group)
+    if reduce:
+        y = coll.reduce_from(y, tp_group)
 
     return y, _aux(top_e, probs, E)
 
@@ -152,19 +154,34 @@ def _pmean(aux, ctx):
     return coll.reduce_from(aux, ctx.group(ctx.dp)) / ctx.dp_size
 
 
-def moe_ffn(p: MoE, x, cfg: ModelConfig, ctx=None) -> Tuple[torch.Tensor,
-                                                            torch.Tensor]:
+def moe_ffn(p: MoE, x, cfg: ModelConfig, ctx=None,
+            sp=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (y (B, S, D), aux float32 scalar).  Placement by
     ``ctx.moe_impl`` on a mesh ("tp" or "ep", see the module docstring);
-    without one the reference's single-device branch."""
-    B, S, D = x.shape
+    without one the reference's single-device branch.  ``sp`` (a
+    ``collectives.SeqShard``): ``x`` is this rank's rows of the sequence,
+    gathered at entry, and so is ``y``; the "tp" placement reduce-scatters
+    its partial ``y`` over the sequence, the others keep their rows."""
     if ctx is None or not ctx.active:
+        B, S, D = x.shape
         y, aux = _dispatch_ffn(x.reshape(-1, D), p, cfg)
         return y.reshape(B, S, D), aux
-    if not ctx.use_shard_map_moe:
-        return _moe_global(p, x, cfg, ctx)
-    if ctx.moe_impl == "ep":
-        return _moe_ffn_ep(p, x, cfg, ctx)
+    if ctx.pure_dp and ctx.use_shard_map_moe:
+        # ZeRO-3: no tensor parallelism; each rank its own rows with the
+        # experts gathered whole
+        B, S, D = x.shape
+        experts = tuple(coll.weight(ctx, t)
+                        for t in (p.w_gate, p.w_up, p.w_down))
+        y, aux = _dispatch_ffn(x.reshape(-1, D), p, cfg, None, experts)
+        return y.reshape(B, S, D), _pmean(aux, ctx)
+    tp = ctx.use_shard_map_moe and ctx.moe_impl != "ep"
+    if sp is not None:
+        x = sp.enter(x, tp, mixed=True)
+    if not tp:
+        y, aux = (_moe_global if not ctx.use_shard_map_moe
+                  else _moe_ffn_ep)(p, x, cfg, ctx)
+        return (y if sp is None else sp.exit(y, False)), aux
+    B, S, D = x.shape
     group = ctx.group(ctx.tp)
     if cfg.d_ff % ctx.tp_size:
         raise ValueError(f"d_ff {cfg.d_ff} does not split over "
@@ -176,8 +193,10 @@ def moe_ffn(p: MoE, x, cfg: ModelConfig, ctx=None) -> Tuple[torch.Tensor,
         return coll.split(coll.weight(ctx, t), dim, group)
 
     experts = (cols(p.w_gate, 2), cols(p.w_up, 2), cols(p.w_down, 1))
-    y, aux = _dispatch_ffn(x.reshape(-1, D), p, cfg, group, experts)
-    return y.reshape(B, S, D), _pmean(aux, ctx)
+    y, aux = _dispatch_ffn(x.reshape(-1, D), p, cfg, group, experts,
+                           reduce=sp is None)
+    y = y.reshape(B, S, D)
+    return (y if sp is None else sp.exit(y, True)), _pmean(aux, ctx)
 
 
 def _moe_global(p: MoE, x, cfg: ModelConfig, ctx):

@@ -45,7 +45,11 @@ super-block (its Mamba2 layers and the shared attention block's
 application).  On a mesh (``ctx``, a ``parallel.MeshCtx``) the batch is
 this rank's data shard and every block reads its weights through
 ``parallel.collectives`` (FSDP gathers, tensor-parallel regions; see
-``layers``).  ``prefill`` and ``decode_step`` run under
+``layers``); with ``ctx.sequence_parallel`` training and prefill keep
+the residual stream between the blocks as this rank's rows of the
+sequence (``_seq_shard``; decode never does), each block's regions
+gathering the sequence at entry and reduce-scattering it at exit.
+``prefill`` and ``decode_step`` run under
 ``torch.no_grad()``; on a mesh their batch, tokens and cache are this
 rank's shards (the cache split over ``model`` as
 ``parallel.sharding.kv_cache_pspecs`` splits it), and at a mesh of one
@@ -200,33 +204,53 @@ def init_params(generator: Union[int, torch.Generator], cfg: ModelConfig, *,
 # Block application and forward passes.
 # ---------------------------------------------------------------------------
 
+def _region_in(x, norm, cfg: ModelConfig, ctx, sp):
+    """(input, sp) of a block's region: ``x``'s norm, or under sequence
+    parallelism with ``sp_prenorm`` ``x`` itself and a ``SeqShard`` that
+    norms the gathered copy.  Under sequence parallelism the norm's scale
+    sums its gradient over ``model`` wherever the ranks' gradients of the
+    norm are partial: on the shard (each rank its rows), and on the
+    gathered copy ahead of a tensor-parallel region (each rank its
+    heads or columns)."""
+    if sp is None:
+        return L.rms_norm(x, norm, cfg.norm_eps), sp
+
+    def normed(t, partial=True):
+        scale = C.copy_to(norm.scale, sp.group) if partial else norm.scale
+        return L.rms_norm_scaled(t, scale, cfg.norm_eps)
+    if ctx.sp_prenorm:
+        return x, C.SeqShard(sp.group, pre=normed)
+    return normed(x), sp
+
+
 def _dense_block(p: DenseBlock, x, cfg: ModelConfig, *, cache=None,
                  pos=None, rope=None, pages=None, enc_out=None, cross=None,
-                 ctx=None):
+                 ctx=None, sp=None):
     """Attention (+ cross-attention) + MLP/MoE block.  Returns (x, kv,
     cross_kv, aux): ``kv`` as ``L.attention`` returns it; ``cross_kv`` the
     cross-attention's K/V over ``enc_out`` (prefill with a cache), else
     None; ``aux`` the MoE's load-balance term, else None.  In decode the
-    cross-attention reads ``cross``, the layer's cached K/V."""
-    h, kv_new = L.attention(p.attn, L.rms_norm(x, p.norm1, cfg.norm_eps),
-                            cfg, kv_cache=cache, pos=pos, rope=rope,
-                            pages=pages, ctx=ctx)
+    cross-attention reads ``cross``, the layer's cached K/V.  ``sp``: ``x``
+    is this rank's rows of the sequence, and so is the result."""
+    a_in, a_sp = _region_in(x, p.norm1, cfg, ctx, sp)
+    h, kv_new = L.attention(p.attn, a_in, cfg, kv_cache=cache, pos=pos,
+                            rope=rope, pages=pages, ctx=ctx, sp=a_sp)
     x = x + h
     cross_kv = None
     if enc_out is not None:
+        c_in, c_sp = _region_in(x, p.norm_x, cfg, ctx, sp)
         h, cross_kv = L.attention(
-            p.cross, L.rms_norm(x, p.norm_x, cfg.norm_eps), cfg,
-            kv_cache=cache, causal=False, x_kv=enc_out, use_rope=False,
-            ctx=ctx)
+            p.cross, c_in, cfg, kv_cache=cache, causal=False, x_kv=enc_out,
+            use_rope=False, ctx=ctx, sp=c_sp)
         x = x + h
     elif cross is not None:
         x = x + _cross_decode(p.cross, L.rms_norm(x, p.norm_x, cfg.norm_eps),
                               cross, cfg, ctx)
-    xin = L.rms_norm(x, p.norm2, cfg.norm_eps)
+    m_in, m_sp = _region_in(x, p.norm2, cfg, ctx, sp)
     if hasattr(p, "moe"):
-        h, aux = moe_ffn(p.moe, xin, cfg, ctx)
+        h, aux = moe_ffn(p.moe, m_in, cfg, ctx, sp=m_sp)
     else:
-        h, aux = L.mlp(p.mlp, xin, cfg, ctx), None
+        h, aux = L.mlp(p.mlp, m_in, cfg, ctx, sp=m_sp), None
     return x + h, kv_new, cross_kv, aux
 
 
@@ -236,27 +260,48 @@ def _cross_decode(p: L.Attention, x, cross, cfg: ModelConfig, ctx=None):
     query without bias or rope, through the flash attention kernel (one
     query a row over the ``enc_seq`` keys, not causal).  On a mesh the
     cache is this rank's shard, read as ``layers.attention`` reads a
-    decode cache (``layers.kv_split``)."""
+    decode cache (``layers.attn_mode``): split by head dim, each row's
+    encoder positions are one page of the split mode's two launches."""
     B, S, _ = x.shape
-    tp, cdim = L.kv_split(ctx, cfg, True, L.heads_split(ctx, p, cfg.hd))
-    col, row = (1, 0) if tp else (None, None)
+    mode, cdim = L.attn_mode(ctx, p, cfg, cfg.hd, True, True)
+    qtp = mode is not None
+    col, row = (1, 0) if qtp else (None, None)
     k, v = cross["k"], cross["v"]
-    if tp:
+    if qtp:
         x = C.copy_to(x, ctx.group(ctx.tp))
-    elif cdim is not None:
-        k = C.gathered(k, cdim, ctx.group(ctx.tp))
-        v = C.gathered(v, cdim, ctx.group(ctx.tp))
     q = (x @ C.weight(ctx, p.wq, col)).reshape(B, S, -1, cfg.hd)
-    out = L.flash_attention(q, k, v, causal=False)
+    if cdim == 3:
+        table = torch.arange(B, dtype=torch.int32,
+                             device=x.device).view(B, 1)
+        lengths = torch.full((B,), k.shape[1], dtype=torch.int32,
+                             device=x.device)
+        out = L.split_attend(q, k, v, table, lengths, ctx, qtp, cfg.hd)
+    else:
+        if cdim is not None:
+            k = C.gathered(k, cdim, ctx.group(ctx.tp))
+            v = C.gathered(v, cdim, ctx.group(ctx.tp))
+        out = L.flash_attention(q, k, v, causal=False)
     out = out.reshape(B, S, -1) @ C.weight(ctx, p.wo, row)
-    return C.reduce_from(out, ctx.group(ctx.tp)) if tp else out
+    return C.reduce_from(out, ctx.group(ctx.tp)) if qtp else out
 
 
 def _ssm_block(p: SSMBlock, x, cfg: ModelConfig, *, cache=None, pos=None,
-               ctx=None):
-    h, _ = mamba_block(p.mamba, L.rms_norm(x, p.norm, cfg.norm_eps), cfg,
-                       cache=cache, pos=pos, ctx=ctx)
+               ctx=None, sp=None):
+    m_in, m_sp = _region_in(x, p.norm, cfg, ctx, sp)
+    h, _ = mamba_block(p.mamba, m_in, cfg, cache=cache, pos=pos, ctx=ctx,
+                       sp=m_sp)
     return x + h
+
+
+def _seq_shard(ctx, S: int):
+    """The ``SeqShard`` of a forward over ``S`` positions under sequence
+    parallelism (``ctx.sequence_parallel`` on a model axis over one rank
+    that divides ``S``, as the reference's ``_sp_constrain`` guards it),
+    else None."""
+    if ctx is None or not ctx.active or not ctx.sequence_parallel \
+            or ctx.tp_size == 1 or S % ctx.tp_size:
+        return None
+    return C.SeqShard(ctx.group(ctx.tp))
 
 
 def _layer(tree, *index):
@@ -264,11 +309,16 @@ def _layer(tree, *index):
     return {k: v[index] for k, v in tree.items()}
 
 
-def _layers(fn, x, remat: bool):
+def _layers(fn, x, remat: bool, ctx=None):
     """``fn(x)``, or (``remat``) the same under ``torch.utils.checkpoint``:
     its activations dropped after the forward and recomputed in the
-    backward."""
-    return checkpoint(fn, x, use_reentrant=False) if remat else fn(x)
+    backward, ``x`` kept (its bytes, the layer's savepoint, appended to
+    ``ctx.state["savepoints"]`` on a mesh)."""
+    if not remat:
+        return fn(x)
+    if ctx is not None:
+        ctx.state["savepoints"].append(x.numel() * x.element_size())
+    return checkpoint(fn, x, use_reentrant=False)
 
 
 def _encoder(blocks: nn.ModuleList, x, cfg: ModelConfig, heads: int,
@@ -286,7 +336,7 @@ def _encoder(blocks: nn.ModuleList, x, cfg: ModelConfig, heads: int,
             x = x + a
             return x + L.mlp(blk.mlp, L.rms_norm(x, blk.norm2, cfg.norm_eps),
                              cfg, ctx)
-        x = _layers(layer, x, remat)
+        x = _layers(layer, x, remat, ctx)
     return x
 
 
@@ -317,7 +367,11 @@ def _forward(model: Transformer, batch, cfg: ModelConfig, make_cache: bool,
              max_len: Optional[int] = None, last_only: bool = False,
              remat: bool = False, ctx=None):
     """(logits, aux, cache); ``remat`` (no cache) checkpoints each layer;
-    ``ctx`` (no cache) the mesh."""
+    ``ctx`` the mesh, with sequence parallelism (``_seq_shard``) the
+    residual stream between the blocks this rank's rows of the
+    sequence."""
+    if ctx is not None and ctx.active:
+        ctx.state["savepoints"] = []
     x = _input_embeds(model, batch, cfg, remat, ctx)
     B, S, _ = x.shape
     enc_out = _encode(model, batch, cfg, remat, ctx) \
@@ -328,44 +382,50 @@ def _forward(model: Transformer, batch, cfg: ModelConfig, make_cache: bool,
     rope = None if cfg.family == "ssm" else L.rope_tables(
         torch.arange(S, device=x.device), cfg.hd, cfg.rope_theta)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    sp = _seq_shard(ctx, S)
+    if sp is not None:
+        x = C.split(x, 1, sp.group)
     if cfg.family == "ssm":
         for i, blk in enumerate(model.blocks):
             def layer(x, blk=blk, c=_layer(cache, i) if make_cache else None):
-                return _ssm_block(blk, x, cfg, cache=c, ctx=ctx)
-            x = _layers(layer, x, remat)
+                return _ssm_block(blk, x, cfg, cache=c, ctx=ctx, sp=sp)
+            x = _layers(layer, x, remat, ctx)
     elif cfg.family == "hybrid":
         mstack, kvs = cache if make_cache else (None, None)
         for s, sup in enumerate(model.blocks):
             def super_block(x, s=s, sup=sup):
                 for j, blk in enumerate(sup):
                     x = _ssm_block(blk, x, cfg, cache=_layer(mstack, s, j)
-                                   if make_cache else None, ctx=ctx)
+                                   if make_cache else None, ctx=ctx, sp=sp)
                 x, kv, _, _ = _dense_block(model.shared, x, cfg,
                                            cache={} if make_cache else None,
-                                           rope=rope, ctx=ctx)
+                                           rope=rope, ctx=ctx, sp=sp)
                 if make_cache:
                     kvs["kv"]["k"][s, :, :S] = kv["k"]
                     kvs["kv"]["v"][s, :, :S] = kv["v"]
                 return x
-            x = _layers(super_block, x, remat)
+            x = _layers(super_block, x, remat, ctx)
     elif not make_cache:
         for blk in model.blocks:
             def layer(x, blk=blk):
                 x, _, _, a = _dense_block(blk, x, cfg, rope=rope,
-                                          enc_out=enc_out, ctx=ctx)
+                                          enc_out=enc_out, ctx=ctx, sp=sp)
                 return x, a
-            x, a = _layers(layer, x, remat)
+            x, a = _layers(layer, x, remat, ctx)
             if a is not None:
                 aux = aux + a
     else:
         for i, blk in enumerate(model.blocks):
             x, kv, cross, _ = _dense_block(
-                blk, x, cfg, cache={}, rope=rope, enc_out=enc_out, ctx=ctx)
+                blk, x, cfg, cache={}, rope=rope, enc_out=enc_out, ctx=ctx,
+                sp=sp)
             cache["kv"]["k"][i, :, :S] = kv["k"]
             cache["kv"]["v"][i, :, :S] = kv["v"]
             if cross is not None:
                 cache["cross"]["k"][i] = cross["k"]
                 cache["cross"]["v"][i] = cross["v"]
+    if sp is not None:
+        x = C.gather(x, 1, sp.group, grad="slice")
     if last_only:
         x = x[:, -1:]
     x = L.rms_norm(x, model.final_norm, cfg.norm_eps)

@@ -16,7 +16,16 @@ Pairs (forward / backward):
   * :func:`reduce_shared`: all-reduce / all-reduce (a statistic summed
     over the group and read by every rank's slice: a norm over a sharded
     dim);
-  * :func:`all_to_all`: ``all_to_all_single`` both ways (expert routing).
+  * :func:`all_to_all`: ``all_to_all_single`` both ways (expert routing);
+  * :func:`reduce_scatter`: reduce-scatter along a dim / all-gather (the
+    output of a row-parallel region under sequence parallelism).
+
+Sequence parallelism (:class:`SeqShard`) uses two of them at every
+tensor-parallel region: the S all-gather at its entry (:func:`gather`,
+whose backward reduce-scatters the ranks' partial gradients, in the place
+of ``copy_to``) and the S reduce-scatter at its exit (in the place of
+``reduce_from``); a region computed whole on every rank gathers with a
+``"slice"`` gradient and keeps its own rows (:func:`split`).
 
 At group size 1 (or without a group) every pair returns its input itself:
 no collective, no copy, so a (1, 1) mesh computes the meshless path's
@@ -62,6 +71,14 @@ def _gather_raw(x, dim: int, group):
     return out.movedim(0, dim)
 
 
+def _reduce_scatter_raw(x, dim: int, group):
+    n = dist.get_world_size(group)
+    xm = x.movedim(dim, 0).contiguous()
+    out = xm.new_empty((xm.shape[0] // n,) + xm.shape[1:])
+    dist.reduce_scatter_tensor(out, xm, group=group)
+    return out.movedim(0, dim)
+
+
 def _chunk(x, dim: int, group):
     n, r = dist.get_world_size(group), dist.get_rank(group)
     return x.narrow(dim, r * (x.shape[dim] // n), x.shape[dim] // n)
@@ -84,11 +101,7 @@ class _Gather(torch.autograd.Function):
         if not ctx.summed:
             return _chunk(g, ctx.dim, ctx.group).contiguous(), None, None, \
                 None
-        n = dist.get_world_size(ctx.group)
-        gm = g.movedim(ctx.dim, 0).contiguous()
-        out = gm.new_empty((gm.shape[0] // n,) + gm.shape[1:])
-        dist.reduce_scatter_tensor(out, gm, group=ctx.group)
-        return out.movedim(0, ctx.dim), None, None, None
+        return _reduce_scatter_raw(g, ctx.dim, ctx.group), None, None, None
 
 
 class _CopyTo(torch.autograd.Function):
@@ -134,6 +147,17 @@ class _Split(torch.autograd.Function):
         return _gather_raw(g, ctx.dim, ctx.group), None, None
 
 
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _reduce_scatter_raw(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_raw(g, ctx.dim, ctx.group), None, None
+
+
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -171,6 +195,13 @@ def split(x, dim: int, group):
     return x if group_size(group) == 1 else _Split.apply(x, dim, group)
 
 
+def reduce_scatter(x, dim: int, group):
+    """The ranks' partial sums of ``x`` summed, this rank's chunk of dim
+    ``dim`` kept; the backward all-gathers the gradient."""
+    return x if group_size(group) == 1 else _ReduceScatter.apply(x, dim,
+                                                                 group)
+
+
 def all_to_all(x, group):
     """Chunk i of dim 0 to rank i; chunk j of the result from rank j."""
     return x if group_size(group) == 1 else _AllToAll.apply(x, group)
@@ -186,6 +217,41 @@ def gathered(x, dim: int, group):
     """The ranks' chunks of dim ``dim`` all-gathered, without a gradient
     pair (serving reads a cache split over ``group`` whole)."""
     return x if group_size(group) == 1 else _gather_raw(x, dim, group)
+
+
+def summed(x, group):
+    """The ranks' ``x`` summed, without a gradient pair (serving's partial
+    attention scores)."""
+    return x if group_size(group) == 1 else _all_reduce(x, group)
+
+
+class SeqShard:
+    """Sequence parallelism at one tensor-parallel region: the region's
+    input ``x`` (B, S / n, ...) is this rank's rows of the sequence over
+    ``group``.  :meth:`enter` gathers the whole sequence (its gradient
+    reduce-scattered where the region is tensor-parallel, ``tp``: each
+    rank's is a partial sum; else its own rows of the gradient every rank
+    repeats) and applies ``pre`` (the norm, under ``sp_prenorm``) to the
+    gathered copy: ``pre(x, partial)``, ``partial`` whether the gradient
+    reaching it is each rank's partial sum (a weight of ``pre`` then sums
+    its gradient over the group).  :meth:`exit` reduce-scatters a
+    tensor-parallel region's partial output over the sequence, or keeps a
+    whole region's own rows.  ``mixed``: the region also reads its input
+    outside its tensor-parallel products (whole projections), so the
+    gather keeps a ``"slice"`` gradient and the region's own ``copy_to``
+    sums the partial ones."""
+
+    def __init__(self, group, pre=None):
+        self.group, self.pre = group, pre
+
+    def enter(self, x, tp: bool, mixed: bool = False):
+        partial = tp and not mixed
+        x = gather(x, 1, self.group, "sum" if partial else "slice")
+        return x if self.pre is None else self.pre(x, partial)
+
+    def exit(self, x, tp: bool):
+        return (reduce_scatter(x, 1, self.group) if tp
+                else split(x, 1, self.group))
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,18 @@ a ``torch.distributed.device_mesh.DeviceMesh`` with named dims (``data``,
 ``model``, and ``pod`` on the multi-pod mesh; ``launch.mesh``).  Its rank
 layout is read once, as plain Python, when the context is made, so a
 context serves under ``FakeTensorMode`` too (the dry run).
+
+``sequence_parallel``: training and prefill keep the residual stream
+between the blocks as this rank's rows of the sequence over ``model``
+(``models.transformer._seq_shard``; decode never does); ``sp_prenorm``:
+the blocks' norms run on the gathered sequence instead of the shard (the
+same values; the reference's knob for where XLA puts the norm).
+``sp_barrier`` is the reference's pin of the bf16 residual before the
+sequence collectives, which the port's explicit collectives always move
+in the activation type: it changes nothing here.  ``pure_dp``: the
+ZeRO-3 layout of the reference's dry run; the port's rules make it
+(``sharding.ParallelConfig.pure_fsdp``: no weight split over ``model``,
+so no tensor-parallel region), and the model reads nothing else of it.
 """
 
 from __future__ import annotations
@@ -54,10 +66,12 @@ class MeshCtx:
         object.__setattr__(self, "_ranks", ranks)
         object.__setattr__(self, "_groups", {})
         # the training forward's gathered weights
-        # (``collectives.regather_saved``) and how many weights backwards
-        # have gathered again
+        # (``collectives.regather_saved``), how many weights backwards
+        # have gathered again, and the bytes of each layer input the last
+        # forward kept for a remat backward
         object.__setattr__(self, "state", {"regather": None,
-                                           "regathered": 0})
+                                           "regathered": 0,
+                                           "savepoints": []})
 
     @property
     def active(self) -> bool:

@@ -65,6 +65,11 @@ class TrainConfig:
     log_every: int = 10
     remat: bool = False
     lr: float = 3e-4
+    # on a mesh: the residual stream between the blocks split over model
+    # along the sequence, norms on the shard or (sp_prenorm) on the
+    # gathered sequence (``parallel.mesh_ctx``)
+    sequence_parallel: bool = False
+    sp_prenorm: bool = False
 
 
 class Trainer:
@@ -105,7 +110,9 @@ class Trainer:
     def _build(self):
         """The mesh context, each parameter's spec and the step function
         for ``self.mesh``."""
-        self.ctx = make_ctx(self.mesh)
+        self.ctx = make_ctx(self.mesh,
+                            sequence_parallel=self.tcfg.sequence_parallel,
+                            sp_prenorm=self.tcfg.sp_prenorm)
         self.specs = None
         named = dict(self.model.named_parameters())
         if self.mesh is not None:

@@ -7,7 +7,9 @@ Jobs:
   * ``train``: [(arch, (dp, tp), step-0 checkpoint dir, TrainConfig
     options)], seq, batch, lr: the reference ``Trainer`` on that mesh, 3
     steps from a copy of the checkpoint (float32 smoke configs): losses,
-    grad norms, aux;
+    grad norms, aux; the options ``sequence_parallel`` and ``sp_prenorm``
+    (the port's, which the reference's ``TrainConfig`` lacks) go to the
+    ``MeshCtx`` the Trainer builds;
   * ``moe``: the phi3.5-moe smoke layer's params, x, r, coef and
     [(dp, tp), impl]: ``moe_ffn`` on the mesh, y, aux and the gradients of
     ``sum(y * r) + coef * aux``;
@@ -15,11 +17,14 @@ Jobs:
     own gradient (the public ``quantized_allreduce`` replicates its
     input), the public call on rank 0's gradients, and ``ErrorFeedback``;
   * ``serve``: [(arch, (dp, tp), kv_mode)], the parameters by arch (numpy
-    trees), the prompt tokens (B, S), max_len and the decode steps: the
+    trees), the prompt tokens (B, S), max_len, the decode steps and the
+    encoder-decoder's audio frames (B, enc_seq, frontend dim): the
     reference's ``make_prefill_step`` and ``make_serve_step`` on that
     mesh, jitted with ``shardings_for``'s shardings (the cache's by
     ``kv_mode``), each beside ``prefill`` / ``decode_step`` for the
-    logits: every step's logits and tokens, and the final cache (whole).
+    logits: every step's logits and tokens, and the final cache (whole);
+    a job's optional fourth entry "sp" or "sp_prenorm" sets
+    ``sequence_parallel`` (and ``sp_prenorm``) on the ``MeshCtx``.
 """
 
 import os
@@ -45,22 +50,42 @@ def _cfg(arch):
     return dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
 
 
+_SP_KEYS = ("sequence_parallel", "sp_prenorm")
+
+
+def _sp_fields(flag):
+    """The MeshCtx fields of a serve job's fourth entry."""
+    return {"sp": {"sequence_parallel": True},
+            "sp_prenorm": {"sequence_parallel": True,
+                           "sp_prenorm": True}}.get(flag, {})
+
+
 def train(jobs, seq, batch, lr):
     from repro.configs import ShapeSpec
     from repro.data.synthetic import for_model
     from repro.launch.mesh import make_mesh_for
     from repro.train import TrainConfig, Trainer
+    from repro.train import loop
+    make_ctx = loop.make_ctx
     out = {}
     for arch, shape, src, kw in jobs:
         cfg = _cfg(arch)
         d = f"{src}_jax_{shape[0]}x{shape[1]}" + "".join(
             f"_{k}{v}" for k, v in sorted(kw.items()))
         shutil.copytree(src, d)
-        tr = Trainer(cfg, ShapeSpec("mesh", seq, batch, "train"),
-                     for_model(cfg, seq, batch),
-                     TrainConfig(total_steps=3, ckpt_dir=d, lr=lr, **kw),
-                     mesh=make_mesh_for(4, shape[1]))
-        tr.run()
+        sp = {k: v for k, v in kw.items() if k in _SP_KEYS}
+        opts = {k: v for k, v in kw.items() if k not in _SP_KEYS}
+        loop.make_ctx = lambda mesh: dataclasses.replace(make_ctx(mesh),
+                                                         **sp)
+        try:
+            tr = Trainer(cfg, ShapeSpec("mesh", seq, batch, "train"),
+                         for_model(cfg, seq, batch),
+                         TrainConfig(total_steps=3, ckpt_dir=d, lr=lr,
+                                     **opts),
+                         mesh=make_mesh_for(4, shape[1]))
+            tr.run()
+        finally:
+            loop.make_ctx = make_ctx
         out[(arch, tuple(shape), tuple(sorted(kw.items())))] = {
             k: [m[k] for m in tr.metrics_log]
             for k in ("loss", "grad_norm", "aux")}
@@ -127,7 +152,7 @@ def compress(grads_by_rank, rounds):
         "fed": fed}
 
 
-def serve(jobs, params_by_arch, tokens, max_len, steps):
+def serve(jobs, params_by_arch, tokens, max_len, steps, frames):
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     from repro.configs import ShapeSpec
@@ -138,10 +163,12 @@ def serve(jobs, params_by_arch, tokens, max_len, steps):
     from repro.parallel.mesh_ctx import make_ctx
     B, L = tokens.shape
     out = {}
-    for arch, shape, kv_mode in jobs:
+    for job in jobs:
+        arch, shape, kv_mode = job[:3]
         cfg = _cfg(arch)
         mesh = make_mesh_for(4, shape[1])
-        ctx = make_ctx(mesh)
+        ctx = dataclasses.replace(make_ctx(mesh), **_sp_fields(
+            job[3] if len(job) > 3 else None))
         pcfg = rules.make_parallel_cfg(mesh, kv_mode=kv_mode)
         (p_sh, b_sh), (tok_sh, kv_sh) = S.shardings_for(
             cfg, ShapeSpec("serve", max_len, B, "prefill"), mesh, pcfg)
@@ -160,13 +187,16 @@ def serve(jobs, params_by_arch, tokens, max_len, steps):
                       out_shardings=((tok_sh, c_sh), lg_sh))
         params = jax.tree.map(lambda x: jnp.asarray(x, jnp.float32),
                               params_by_arch[arch])
-        (tok, cache), lg = pre(params, {"tokens": jnp.asarray(tokens)})
+        batch = {"tokens": jnp.asarray(tokens)}
+        if cfg.family == "encdec":
+            batch["enc_frames"] = jnp.asarray(frames)
+        (tok, cache), lg = pre(params, batch)
         lgs, toks = [np.asarray(lg)], [np.asarray(tok)]
         for i in range(steps):
             (tok, cache), lg = dec(params, tok, cache, jnp.int32(L + i))
             lgs.append(np.asarray(lg))
             toks.append(np.asarray(tok))
-        out[(arch, tuple(shape), kv_mode)] = {
+        out[(arch, tuple(shape)) + tuple(job[2:])] = {
             "logits": lgs, "tokens": toks,
             "cache": jax.tree.map(np.asarray, cache)}
     return out

@@ -15,7 +15,16 @@ of 256 or 512 ranks, on the CPU.
   AbstractMesh(...), spec).shard_shape`` under its shardings;
 * whisper-tiny x decode_32k through the port's CLI, with ``--probe``;
   mamba2-1.3b x decode_32k's probe; ``--multi-pod``; a skipped and a
-  failing cell.  The CLI runs in a process where JAX cannot be imported.
+  failing cell.  The CLI runs in a process where JAX cannot be imported;
+* the tensor-parallel attention where the KV heads do not divide the
+  model axis, at reduced depth: qwen2.5-3b's prefill on 16 x 16 does a
+  rank's share of the work (within 1.5x of the same cell's flops on a
+  256 x 1 mesh, where nothing is tensor-parallel), and its decode and
+  whisper-tiny's all-reduce each layer's partial scores instead of
+  gathering the cache (the reference's bytes, PERF.md);
+* sequence parallelism: on for train and prefill, off for decode; a
+  train step's per-layer remat savepoint 16x smaller with it on; the
+  sp_prenorm, pure_fsdp and no-op knobs recorded.
 """
 
 import json
@@ -306,3 +315,91 @@ def test_fake_backward_regathers_each_weight_from_its_parameter(
     assert layer_gathers
     assert collections.Counter(gathers["backward"]) == \
         collections.Counter(layer_gathers)
+
+
+def _qwen(layers):
+    import dataclasses
+    return dataclasses.replace(get_config("qwen2.5-3b"), n_layers=layers)
+
+
+def test_query_heads_split_where_kv_heads_do_not_divide():
+    """qwen2.5-3b (16 query heads, 2 KV heads) at 2 layers, a 4k prefill
+    of 256 rows: on 16 x 16 each model rank runs its one query head, so a
+    rank's flops are within 1.5x of a 256 x 1 rank's (all of one row's
+    work, nothing tensor-parallel); every head on every rank was ~10x."""
+    from repro_torch.configs import ShapeSpec
+    shape = ShapeSpec("prefill_4k", 4096, 256, "prefill")
+    tp = dryrun.lower_cell(_qwen(2), shape, False, verbose=False)
+    dp = dryrun.lower_cell(_qwen(2), shape, False, verbose=False,
+                           mesh_shape=(256, 1))
+    ratio = tp["deploy"]["flops"] / dp["deploy"]["flops"]
+    assert 0.9 < ratio < 1.5, ratio
+    assert tp["sequence_parallel"] and not dp["sequence_parallel"]
+
+
+def test_decode_sums_partial_scores():
+    """qwen2.5-3b x decode_32k at 2 layers on 16 x 16: the cache split by
+    head dim (8 values a rank) is read where it lies; each layer
+    all-reduces the float32 scores of 8 rows x 16 heads x 32,768
+    positions, and nothing gathers a layer's cache: what is all-gathered
+    (the FSDP weights, the query heads, the output slices) stays under a
+    quarter of the 16 x the cache shard that gathering the caches moved."""
+    r = dryrun.lower_cell(_qwen(2), "decode_32k", False, verbose=False)
+    d = r["deploy"]
+    scores = 2 * 8 * 16 * 32768 * 4
+    assert scores <= d["collective_bytes"]["all-reduce"] < 1.1 * scores
+    assert d["collective_bytes"]["all-gather"] < \
+        16 * d["input_bytes"]["cache"] / 4
+    assert r["sequence_parallel"] is False
+
+
+def test_whisper_decode_collectives_near_the_reference(whisper_cli):
+    """The reference all-reduces 0.027 GB a rank a step (PERF.md); the
+    port gathered 1.772 GB of caches before the split mode."""
+    _, _, res = whisper_cli
+    c = res[0]["deploy"]["collective_bytes"]
+    assert c["all-gather"] <= 0.4e9
+    assert 0.5 * 0.027e9 <= c["all-reduce"] <= 1.5 * 0.027e9
+
+
+@pytest.mark.parametrize("knobs", [{}, {"sp_prenorm": True}],
+                         ids=["sp", "sp_prenorm"])
+def test_sequence_parallel_savepoints_shrink(knobs):
+    """qwen2.5-3b x train_4k at 2 layers on 16 x 16 (remat): each layer's
+    savepoint is a rank's 16 rows x 4096 positions x 2048 x 2 bytes
+    without SP, and 1/16 of it with SP on."""
+    on = dryrun.lower_cell(_qwen(2), "train_4k", False, verbose=False,
+                           **knobs)
+    off = dryrun.lower_cell(_qwen(2), "train_4k", False, verbose=False,
+                            sequence_parallel=False)
+    assert on["sequence_parallel"] and not off["sequence_parallel"]
+    whole = 16 * 4096 * 2048 * 2
+    assert off["deploy"]["savepoints"] == {"count": 2, "per_layer": whole,
+                                           "total": 2 * whole}
+    assert on["deploy"]["savepoints"]["per_layer"] * 16 == whole
+    assert on["knobs"]["sp_prenorm"] == bool(knobs)
+    assert on["deploy"]["collective_bytes"]["reduce-scatter"] > \
+        off["deploy"]["collective_bytes"]["reduce-scatter"]
+
+
+def test_pure_fsdp_and_noop_knobs(monkeypatch):
+    seen = []
+    monkeypatch.setattr(dryrun, "lower_cell",
+                        lambda *a, **kw: seen.append(kw) or {"arch": a[0]})
+    assert dryrun.main(["--arch", "whisper-tiny", "--shape", "train_4k",
+                        "--pure-fsdp", "--sp-prenorm", "--no-sp"]) == 0
+    assert seen[0]["pure_fsdp"] and seen[0]["sp_prenorm"]
+    assert seen[0]["sequence_parallel"] is False
+    monkeypatch.undo()
+    with pytest.raises(TypeError, match="unknown knobs"):
+        dryrun.lower_cell("whisper-tiny", "train_4k", False, sp_barier=True)
+    r = dryrun.lower_cell("whisper-tiny", "train_4k", False, verbose=False,
+                          pure_fsdp=True, sp_barrier=True, grad_barrier=True,
+                          grad_shard=False)
+    assert r["sequence_parallel"] is False
+    assert r["knobs"] == {"sp_prenorm": False, "pure_fsdp": True}
+    assert r["ignored"] == ["grad_barrier", "sp_barrier"]
+    # every rank its own rows of the 256: whisper's tokens over 256 ranks
+    assert r["deploy"]["input_bytes"]["batch"] * 256 == \
+        steps.tree_bytes(steps.batch_specs(get_config("whisper-tiny"),
+                                           SHAPES["train_4k"], True))

@@ -8,7 +8,8 @@ package, on the CPU.
 * ``access``: every state entry and every decision bit-equal to the
   reference's after each of 60 rounds of the write-filtering mix (random
   writes, run 1, then sequential reads, run 8) under three configs, at the
-  card phase's size, on runs whose penalties round (the round's mean summed
+  card phase's size, at 131,072 slots (past the table the card's probe
+  holds in shared memory), on runs whose penalties round (the round's mean summed
   in the reference backend's order), and where a round names one slot
   several times (the last request's metadata wins, fill or not).
 * Port copies of the reference's block-table oracles
@@ -235,14 +236,37 @@ def test_repeated_slots_over_rounds():
 
 
 def test_probe_table_limit_is_named():
-    """A table over 58,108 lanes raises on the card, naming the limit; on
-    the CPU the plain version takes any table."""
+    """The card stages a table of up to 58,108 lanes in shared memory and
+    reads a larger one from device memory (``chip_smoke.py`` holds both
+    designs to the CPU path); on the CPU the plain version takes any
+    table."""
     assert probe_ops.MAX_LANES == 58108
     cfg = TierConfig(num_slots=probe_ops.MAX_LANES + 1,
                      num_blocks=4 * (probe_ops.MAX_LANES + 1))
     st = init_state(cfg, device="cpu")
     hit = probe_blocks(st, torch.arange(100, dtype=torch.int32), cfg)[0]
     assert int(hit.sum()) == 0
+
+
+def test_access_matches_past_the_shared_memory_table():
+    """131,072 slots, past the 58,108 lanes the card's probe holds in
+    shared memory (512 GiB of 2 MiB blocks over 256 GiB of slots): seeded
+    ``probe_blocks`` on a filled table, then 2 rounds of the mix, every
+    state entry and decision bit-equal."""
+    n_slots = 131072
+    cfg = TierConfig(block_bytes=2 << 20, num_slots=n_slots,
+                     num_blocks=4 * n_slots)
+    rng = np.random.default_rng(13)
+    meta = rng.integers(0, 64, (n_slots,), dtype=np.int32)
+    blocks = rng.integers(0, cfg.num_blocks, (32768,), dtype=np.int32)
+    st = {**init_state(cfg, device="cpu"), "meta": torch.from_numpy(meta)}
+    jst = {**jbt.init_state(_jcfg(cfg)), "meta": jnp.asarray(meta)}
+    got = probe_blocks(st, torch.from_numpy(blocks), cfg)
+    want = jbt.probe_blocks(jst, jnp.asarray(blocks), _jcfg(cfg))
+    for name, g, w in zip(("hit", "slot", "dirty", "aff"), got, want):
+        _same(g, w, name)
+    assert 0 < int(got[0].sum()) < blocks.size
+    _replay(cfg, _mix(6, cfg, 32768, rounds=1))
 
 
 # the reference's oracles (tests/test_properties.py: hypothesis there,

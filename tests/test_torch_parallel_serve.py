@@ -12,6 +12,21 @@ run while the port's world serves).
   decode steps.  Greedy tokens equal, logits within rtol 1e-4, each
   rank's cache shard equal to the reference's cache sliced by
   ``kv_cache_pspecs`` within 1e-5, the engine's tokens the steps';
+* qwen2.5-3b on (1, 4), where its 2 KV heads do not divide the model
+  axis: prefill on each rank's query heads against the K/V heads they
+  read, and decode over the cache split by head dim (4 values a rank)
+  through ``paged_attention``'s split mode (partial scores summed over
+  the ranks);
+* sequence parallelism (the job's "sp" / "sp_prenorm"): qwen2.5-3b,
+  phi3.5-moe-42b and mamba2-1.3b on (2, 2) and qwen2.5-3b on (1, 4), with
+  the prefill's residual stream split over the model axis, against the
+  reference's steps with ``sequence_parallel`` on;
+* whisper-tiny on (1, 4) with its caches split by head dim (4 of the
+  smoke model's 16 values a rank; the cross-attention's encoder K/V read
+  through the split mode too), with and without sequence parallelism in
+  its prefill, on random audio frames: the same checks against the
+  reference (the engine's audio frontend is a stub of zero frames, so
+  its tokens are checked for the decoder-only models);
 * at a gloo (1, 1) mesh the engine's tokens and the steps' caches
   bit-equal to the meshless ones.
 """
@@ -49,7 +64,13 @@ import torch_mesh_workers as W  # noqa: E402
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ["qwen2.5-3b", "phi3.5-moe-42b", "mamba2-1.3b"]
 JOBS = [(a, s, "auto") for a in ARCHS for s in [(2, 2), (4, 1)]] + [
-    ("qwen2.5-3b", (2, 2), m) for m in ("head_dim", "replicate")]
+    ("qwen2.5-3b", (2, 2), m) for m in ("head_dim", "replicate")] + [
+    ("qwen2.5-3b", (1, 4), "auto")] + [
+    (a, (2, 2), "auto", "sp") for a in ARCHS] + [
+    ("qwen2.5-3b", (1, 4), "auto", f) for f in ("sp", "sp_prenorm")]
+WHISPER = {"split": ("whisper-tiny", (1, 4), "head_dim"),
+           "sp": ("whisper-tiny", (1, 4), "head_dim", "sp")}
+JOBS += list(WHISPER.values())
 B, L, MAX_LEN, STEPS = 4, 8, 32, 4
 
 
@@ -69,9 +90,14 @@ def _tokens(vocab):
 def served(tmp_path_factory):
     """(the port's results from a gloo world of 4, the reference's)."""
     d = tmp_path_factory.mktemp("mesh_serve")
-    params = {a: _params(a) for a in ARCHS}
+    params = {a: _params(a) for a in ARCHS + ["whisper-tiny"]}
     toks = _tokens(get_config(ARCHS[0], smoke=True).vocab)
-    args = (JOBS, params, toks, MAX_LEN, STEPS)
+    wcfg = get_config("whisper-tiny", smoke=True)
+    assert wcfg.vocab == get_config(ARCHS[0], smoke=True).vocab
+    frames = np.random.default_rng(1).standard_normal(
+        (B, wcfg.enc_seq, wcfg.frontend_dim or wcfg.d_model)).astype(
+        np.float32)
+    args = (JOBS, params, toks, MAX_LEN, STEPS, frames)
     with open(d / "req.pkl", "wb") as f:
         pickle.dump({"serve": args}, f)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -105,7 +131,7 @@ def _slice(leaf, spec, sizes, coords):
 
 
 @pytest.mark.parametrize("job", JOBS, ids=lambda j: "-".join(
-    [j[0], f"{j[1][0]}x{j[1][1]}", j[2]]))
+    [j[0], f"{j[1][0]}x{j[1][1]}", *j[2:]]))
 def test_meshed_serving_matches_reference(served, job):
     port, ref = served
     got, want = port[job], ref[job]
@@ -116,9 +142,10 @@ def test_meshed_serving_matches_reference(served, job):
         np.testing.assert_allclose(a, b, rtol=1e-4,
                                    atol=1e-4 * np.abs(b).max())
     eng = np.concatenate(got["tokens"], axis=1)
-    assert got["engine"] == {i: eng[i].tolist() for i in range(B)}
+    if job[0] != "whisper-tiny":
+        assert got["engine"] == {i: eng[i].tolist() for i in range(B)}
     # each rank's cache shard is the reference's cache sliced by the rules
-    arch, shape, kv_mode = job
+    arch, shape, kv_mode = job[:3]
     cfg = get_config(arch, smoke=True)
     sizes = {"data": shape[0], "model": shape[1]}
     specs = rules.kv_cache_pspecs(
@@ -128,6 +155,22 @@ def test_meshed_serving_matches_reference(served, job):
         rules.map_leaves(lambda w, s, g: np.testing.assert_allclose(
             g, _slice(w, s, sizes, coords), rtol=1e-5, atol=1e-5),
             want["cache"], specs, shard)
+
+
+@pytest.mark.parametrize("mode", ["split", "sp"])
+def test_whisper_cross_decode_split_by_head_dim(served, mode):
+    """Every rank holds 4 of the smoke model's 16 head-dim values of both
+    caches (so decode reads them through the split mode), and its slice
+    is the reference's (test_meshed_serving_matches_reference holds the
+    values and the logits)."""
+    port, ref = served
+    job = WHISPER[mode]
+    got, want = port[job], ref[job]
+    for _, shard in got["caches"]:
+        assert {k: tuple(v["k"].shape) for k, v in shard.items()} == {
+            "kv": (2, B, MAX_LEN, 4, 4), "cross": (2, B, 16, 4, 4)}
+        for k in ("kv", "cross"):
+            assert want["cache"][k]["k"].shape[-1] == 16
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -8,6 +8,14 @@ module, run while the port's world of 4 trains).
   which both packages restore), 3 steps on (2, 2) and on (4, 1), and
   qwen2.5-3b on (2, 2) with 2 microbatches and remat: losses, grad norms
   and aux within rtol 1e-4 of the reference's;
+* qwen2.5-3b on (1, 4), where its 2 KV heads do not divide the model
+  axis: the attention on each rank's query heads, ``wk``/``wv`` gathered
+  whole with their gradients summed over the model axis;
+* sequence parallelism (``TrainConfig.sequence_parallel``): qwen2.5-3b,
+  phi3.5-moe and mamba2-1.3b on (2, 2), qwen2.5-3b on (1, 4), with and
+  without ``sp_prenorm``, and whisper-tiny (cross-attention, GELU MLP
+  with its output bias) on (1, 4), against the reference's Trainer with
+  the same ``MeshCtx`` fields;
 * at a gloo (1, 1) mesh every loss, grad norm and final leaf bit-equal to
   the port's meshless ``Trainer``;
 * ``remesh`` (2, 2) -> (4, 1) -> None keeps every leaf bit-equal, and the
@@ -17,6 +25,9 @@ module, run while the port's world of 4 trains).
   a mesh and in the JAX package;
 * ``torchrun --nproc-per-node 2 -m repro_torch.launch.train --device cpu
   --smoke --model-parallel 2`` prints one final line.
+
+``python tests/test_torch_parallel_train.py`` prints each run's largest
+relative distance from the reference's losses and grad norms.
 """
 
 import dataclasses
@@ -45,11 +56,17 @@ import torch_mesh_workers as W  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ["qwen2.5-3b", "phi3.5-moe-42b", "mamba2-1.3b"]
+CKPT_ARCHS = ARCHS + ["whisper-tiny"]
 SHAPES = [(2, 2), (4, 1)]
 SEQ, BATCH, LR = 32, 4, 1e-3
 # (arch, mesh, TrainConfig options) of every run on the world of 4
+SP = (("sequence_parallel", True),)
 RUNS = [(a, s, ()) for a in ARCHS for s in SHAPES] + [
-    ("qwen2.5-3b", (2, 2), (("microbatches", 2), ("remat", True)))]
+    ("qwen2.5-3b", (2, 2), (("microbatches", 2), ("remat", True))),
+    ("qwen2.5-3b", (1, 4), ())] + [(a, (2, 2), SP) for a in ARCHS] + [
+    ("qwen2.5-3b", (1, 4), SP),
+    ("qwen2.5-3b", (1, 4), SP + (("sp_prenorm", True),)),
+    ("whisper-tiny", (1, 4), SP)]
 
 
 def _cfg(arch):
@@ -67,8 +84,11 @@ def _trainer(arch, steps, mesh=None, ckpt_dir=None):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """(the port's results from a gloo world of 4, the reference's)."""
-    d = tmp_path_factory.mktemp("mesh_train")
-    for arch in ARCHS:
+    return _run_all(tmp_path_factory.mktemp("mesh_train"))
+
+
+def _run_all(d: Path):
+    for arch in CKPT_ARCHS:
         tr = _trainer(arch, 0)
         ckpt.save(str(d / arch), 0, tr.state_leaves(),
                   extra={"data": tr.data.state_dict(), "step": 0})
@@ -160,3 +180,16 @@ def test_launcher_under_torchrun(tmp_path):
              if ln.startswith("final loss ")]
     assert len(lines) == 1, out.stdout
     assert lines[0].endswith("after 2 steps (stragglers=0, recoveries=0)")
+
+
+if __name__ == "__main__":
+    # the largest relative distance of each run's losses and grad norms
+    # from the reference's: python tests/test_torch_parallel_train.py
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        port, ref = _run_all(Path(tmp))
+    for run in RUNS:
+        got, want = port[run], ref[run]
+        print(run, {k: float(np.max(np.abs(np.subtract(got[k], want[k]))
+                                    / np.abs(want[k])))
+                    for k in ("loss", "grad_norm")})

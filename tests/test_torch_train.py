@@ -27,9 +27,14 @@
   the ssm and hybrid families train on the port's ``Trainer`` with a
   falling loss; ``chip_smoke.train_launches`` counts a step's attention
   and SSD scan calls.
+
+The JAX side is jitted: the reference's weights come from one compiled
+``init_params`` per config (``_jax_init``, fed each test's key), its train
+steps and first-step gradients from compiled functions.
 """
 
 import dataclasses
+import functools
 import os
 import shutil
 import subprocess
@@ -75,6 +80,18 @@ def _configs(arch, dtype="float32"):
 
 def _host(tree):
     return jax.tree.map(lambda x: np.asarray(x, np.float32), tree)
+
+
+@functools.lru_cache(maxsize=None)
+def _init_fn(arch, dtype):
+    jcfg, _ = _configs(arch, dtype)
+    return jax.jit(lambda key: jax_init(key, jcfg))
+
+
+def _jax_init(seed, arch, dtype="float32"):
+    """The reference's ``init_params`` for the smoke config at ``seed``,
+    compiled once per (arch, dtype)."""
+    return _init_fn(arch, dtype)(jax.random.PRNGKey(seed))
 
 
 def _carry(jparams, cfg):
@@ -129,7 +146,7 @@ def opt_case():
     """A float32 smoke model's parameters, one AdamW step in, and seeded
     gradients of two sizes (clipping inactive and active)."""
     jcfg, cfg = _configs("qwen2.5-3b")
-    jparams = _host(jax_init(jax.random.PRNGKey(4), jcfg))
+    jparams = _host(_jax_init(4, "qwen2.5-3b"))
     rng = np.random.default_rng(4)
     grads = jax.tree.map(
         lambda p: rng.standard_normal(p.shape).astype(np.float32), jparams)
@@ -210,7 +227,7 @@ def _runs(arch, dtype="float32", microbatches=1, n_steps=3):
     """The reference's and the port's train step from the same weights on
     the same batches: (reference metrics, port metrics) per step."""
     jcfg, cfg = _configs(arch, dtype)
-    jparams = jax_init(jax.random.PRNGKey(0), jcfg)
+    jparams = _jax_init(0, arch, dtype)
     model = _carry(jparams, cfg)
     jstep = jax.jit(jax_steps.make_train_step(
         jcfg, MeshCtx(), jax_adamw.AdamWConfig(lr=LR),
@@ -264,11 +281,11 @@ def test_train_steps_bf16_match_jax():
                                   "mamba2-1.3b", "zamba2-2.7b"])
 def test_first_step_grads_match_jax(arch):
     jcfg, cfg = _configs(arch)
-    jparams = jax_init(jax.random.PRNGKey(1), jcfg)
+    jparams = _jax_init(1, arch)
     model = _carry(jparams, cfg)
     b = jax_data.for_model(jcfg, SEQ, BATCH).batch_at(0)
-    jgrads = jax.grad(lambda p: jax_steps.loss_fn(p, _jbatch(b), jcfg,
-                                                  MeshCtx())[0])(jparams)
+    jgrads = jax.jit(jax.grad(lambda p, b: jax_steps.loss_fn(
+        p, b, jcfg, MeshCtx())[0]))(jparams, _jbatch(b))
     want = model_params_from_jax(_host(jgrads), cfg)
     got, _, _ = steps.grads_of(model, _tbatch(b), cfg, remat=False)
     assert sorted(got) == sorted(want)
@@ -282,8 +299,8 @@ def test_first_step_grads_match_jax(arch):
 
 
 def test_remat_equals_no_remat():
-    jcfg, cfg = _configs("whisper-tiny")
-    model = _carry(jax_init(jax.random.PRNGKey(2), jcfg), cfg)
+    _, cfg = _configs("whisper-tiny")
+    model = _carry(_jax_init(2, "whisper-tiny"), cfg)
     b = _tbatch(data.for_model(cfg, SEQ, BATCH).batch_at(0))
     g0, l0, a0 = steps.grads_of(model, b, cfg, remat=False)
     g0 = {k: v.clone() for k, v in g0.items()}
@@ -297,8 +314,8 @@ def test_remat_equals_no_remat():
 def test_remat_equals_no_remat_ssm(arch):
     """Remat of each Mamba2 block (ssm) or super-block (hybrid: its Mamba2
     layers and the shared attention block) changes no gradient."""
-    jcfg, cfg = _configs(arch)
-    model = _carry(jax_init(jax.random.PRNGKey(2), jcfg), cfg)
+    _, cfg = _configs(arch)
+    model = _carry(_jax_init(2, arch), cfg)
     b = _tbatch(data.for_model(cfg, SEQ, BATCH).batch_at(0))
     g0, l0, _ = steps.grads_of(model, b, cfg, remat=False)
     g0 = {k: v.clone() for k, v in g0.items()}
@@ -476,7 +493,7 @@ def test_port_checkpoint_restores_in_jax(tmp_path):
     jcfg, cfg = _configs("qwen2.5-3b")
     tr = _trainer(tmp_path, steps_=2, dtype="float32")
     tr.run()
-    like_params = jax_init(jax.random.PRNGKey(0), jcfg)
+    like_params = _jax_init(0, "qwen2.5-3b")
     like = {"params": like_params, "opt": jax_adamw.init(like_params)}
     tree, step, extra = jax_ckpt.restore(str(tmp_path), like)
     assert step == 2 and extra == {"data": tr.data.state_dict(), "step": 2}

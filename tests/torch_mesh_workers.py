@@ -262,16 +262,21 @@ def pairs_job(seed):
 # Serving on a mesh.
 # ---------------------------------------------------------------------------
 
-def serve_jobs(jobs, params_by_arch, tokens, max_len, steps):
-    """Each job (arch, mesh shape, kv_mode): the float32 smoke model with
+def serve_jobs(jobs, params_by_arch, tokens, max_len, steps, frames):
+    """Each job (arch, mesh shape, kv_mode[, "sp" or "sp_prenorm": the
+    context's sequence parallelism]): the float32 smoke model with
     the JAX parameters ``params_by_arch[arch]``, placed on the mesh
     (``place_model``); ``make_prefill_step`` on this rank's rows of
-    ``tokens`` (B, S), then ``steps`` ``make_serve_step``s fed their own
-    tokens, with ``prefill`` / ``decode_step`` beside each for the
-    logits; then ``Engine(ctx=...)`` on the same prompts.  Returns
-    {job: {"logits": [(B, vocab) a step, every row], "tokens": [(B, 1)
-    a step], "caches": [(each rank's mesh coordinates, its cache as numpy)
-    in rank order], "engine": {rid: tokens}}}."""
+    ``tokens`` (B, S) (and, for the encoder-decoder, of the audio
+    ``frames`` (B, enc_seq, frontend dim)), then ``steps``
+    ``make_serve_step``s fed their own tokens, with ``prefill`` /
+    ``decode_step`` beside each for the logits; then ``Engine(ctx=...)``
+    on the same prompts, where the engine reads what the steps read (its
+    audio frontend is a stub of zero frames, so not for the
+    encoder-decoder).  Returns {job: {"logits": [(B, vocab) a step, every
+    row], "tokens": [(B, 1) a step], "caches": [(each rank's mesh
+    coordinates, its cache as numpy) in rank order], "engine": {rid:
+    tokens} or None}}."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -283,16 +288,23 @@ def serve_jobs(jobs, params_by_arch, tokens, max_len, steps):
     from repro_torch.parallel.sharding import map_leaves
     from repro_torch.serving import Engine, Request, ServeConfig
     out = {}
-    for arch, shape, kv_mode in jobs:
+    for job in jobs:
+        arch, shape, kv_mode = job[:3]
         cfg = dataclasses.replace(get_config(arch, smoke=True),
                                   dtype="float32")
-        ctx = make_ctx(_mesh(shape), kv_mode=kv_mode)
+        sp = job[3] if len(job) > 3 else None
+        ctx = make_ctx(_mesh(shape), kv_mode=kv_mode,
+                       sequence_parallel=sp is not None,
+                       sp_prenorm=sp == "sp_prenorm")
         model = Transformer(cfg, device="cpu")
         model.load_state_dict(model_params_from_jax(params_by_arch[arch],
                                                     cfg))
         coll.place_model(model, cfg, ctx)
         dg = ctx.group(ctx.dp)
-        batch = S.local_batch({"tokens": torch.from_numpy(tokens)}, ctx)
+        whole = {"tokens": torch.from_numpy(tokens)}
+        if cfg.family == "encdec":
+            whole["enc_frames"] = torch.from_numpy(frames)
+        batch = S.local_batch(whole, ctx)
         logits, cache = prefill(model, batch, cfg, max_len=max_len, ctx=ctx)
         tok, cache2 = S.make_prefill_step(cfg, ctx, max_len)(model, batch)
         same = all(torch.equal(a, b) for a, b in zip(
@@ -309,16 +321,18 @@ def serve_jobs(jobs, params_by_arch, tokens, max_len, steps):
         coords = {a: ctx.coord(a) for a in ctx.mesh.mesh_dim_names}
         shards = [None] * dist.get_world_size()
         dist.all_gather_object(shards, (coords, map_leaves(_np, cache)))
-        eng = Engine(cfg, model, ServeConfig(max_batch=tokens.shape[0],
-                                             max_len=max_len),
-                     device="cpu", ctx=ctx)
-        for rid, row in enumerate(tokens):
-            eng.submit(Request(rid, row, max_new=steps + 1))
-        out[(arch, shape, kv_mode)] = {
+        engine = None
+        if cfg.family != "encdec":
+            eng = Engine(cfg, model, ServeConfig(max_batch=tokens.shape[0],
+                                                 max_len=max_len),
+                         device="cpu", ctx=ctx)
+            for rid, row in enumerate(tokens):
+                eng.submit(Request(rid, row, max_new=steps + 1))
+            engine = {k: v.tolist() for k, v in eng.run().items()}
+        out[tuple(job)] = {
             "logits": [_np(coll.gathered(t, 0, dg)) for t in lg],
             "tokens": [_np(coll.gathered(t, 0, dg)) for t in tk],
-            "step_cache_equal": same, "caches": shards,
-            "engine": {k: v.tolist() for k, v in eng.run().items()}}
+            "step_cache_equal": same, "caches": shards, "engine": engine}
     return out
 
 
